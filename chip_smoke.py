@@ -7,22 +7,36 @@ Drives ``serverless_learn_tpu_torch`` (never JAX) on one card, in phases;
 any failing phase exits non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the serving path from ``csrc/`` with nvcc;
+2. builds every CUDA kernel of the port from ``csrc/`` with nvcc, one
+   process per source, all at once, and prints each kernel's registers and
+   spills;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, for every row tile the kernel has and every
-   row count phase 6 serves (decode batches and prefills);
+   row count phase 9 serves (decode batches and prefills);
 4. times the kernel at the decode shapes (8 rows) beside its bound, its
    plain version and one PyTorch library call;
 5. runs llama_tiny int8 on the card (kernel) and on the CPU (plain) from the
    same weights and compares logits and greedy tokens;
-6. builds full-width llama_8b int8 from a seed, serves concurrent greedy
+6. holds the flash attention kernels (forward, dq, dk/dv) against their
+   plain versions: the training shape, ragged, non-causal, H == K, "len"
+   and "rows" masks, f32, and the head dims 32 and 128;
+7. times them at the training shape beside their bounds, their plain
+   versions and ``scaled_dot_product_attention``;
+8. trains llama_tiny with flash attention for three adamw steps on the card
+   (kernels) and on the CPU (plain) from the same weights and batches and
+   compares losses and params; then trains full-width llama_1b (batch 2 x
+   4096 tokens, 5 adamw steps) through the port's ``run_training`` and
+   checks the losses, that every attention layer of every step went
+   through the three kernels and that the dense path never ran; then
+   profiles one more step;
+9. builds full-width llama_8b int8 from a seed, serves concurrent greedy
    and sampled requests through the port's ``GenerationServer`` and checks
    the replies, by the launch counter that every projection of every
    forward went through the kernel, and that phase 3 checked every row
    count it served; then times prefill and a decode step and profiles
    decode steps;
-7. prints one JSON line of kernels, then the card's name and power limit,
-   then the result line ``{"ok": true, "device": {...}}``.
+10. prints one JSON line of kernels, then the card's name and power limit,
+    then the result line ``{"ok": true, "device": {...}}``.
 
 Every time and memory figure is printed beside the card's name and power
 limit. Exits non-zero without printing the result line where there is no
@@ -51,9 +65,9 @@ LLAMA8B_SHAPES = {
     (4096, 128256): ("lm_head", 1),
 }
 PROMPT_LEN, NEW_TOKENS = 128, 32
-SERVE_BATCH = 4  # the greedy requests of phase 6 form one group of 4
+SERVE_BATCH = 4  # the greedy requests of phase 9 form one group of 4
 # Rows the kernel is checked at in phase 3: each row tile (1, 2, 4 and 8,
-# with a masked 3 and a ragged 8 * 37), and every row count phase 6 can
+# with a masked 3 and a ragged 8 * 37), and every row count phase 9 can
 # serve: decode at each batch bucket up to SERVE_BATCH (the sampled request
 # runs alone) and those buckets' prefills.
 CHECK_ROWS = (1, 2, 3, 4, 8, 8 * 37) + tuple(
@@ -259,7 +273,7 @@ def tiny_agreement(torch, card):
 
 
 def serve_full_width(torch, card):
-    """Phase 6: llama_8b int8 served through the port's GenerationServer."""
+    """Phase 9: llama_8b int8 served through the port's GenerationServer."""
     from serverless_learn_tpu_torch.inference.server import (GenerationServer,
                                                             request)
     from serverless_learn_tpu_torch.models.registry import build_model
@@ -352,7 +366,7 @@ def serve_full_width(torch, card):
 
 
 def where_time_goes(torch, model, prompts, card):
-    """Phase 6b: the batch-4 group of phase 6 run on the model directly:
+    """Phase 9b: the batch-4 group of phase 9 run on the model directly:
     prefill and decode-step times by CUDA events, then 5 decode steps under
     torch.profiler for the device's busy share, kernel time by name, and
     the eager ops and device kernels a step dispatches."""
@@ -409,6 +423,362 @@ def where_time_goes(torch, model, prompts, card):
          top_kernels_ms_per_step=[(k[:80], v / n / 1e3) for k, v in top])
 
 
+# ---------------------------------------------------------------- training --
+
+# The training slice's attention shape: llama_1b (32 heads / 8 KV heads,
+# head dim 64), batch 2 x 4096 tokens, causal, bf16.
+TRAIN_B, TRAIN_T = 2, 4096
+FLASH_SHAPE = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 64)
+FLASH_CASES = [
+    # name, (b, t, s, h, k, d), causal, mode, dtype
+    ("train_shape", FLASH_SHAPE, True, "none", "bfloat16"),
+    ("ragged_1000", (1, 1000, 1000, 32, 8, 64), True, "none", "bfloat16"),
+    ("non_causal", (2, 1024, 1024, 32, 8, 64), False, "none", "bfloat16"),
+    ("mha_h_eq_k", (2, 1024, 1024, 8, 8, 64), True, "none", "bfloat16"),
+    ("len_987_and_0", (2, 1024, 1024, 32, 8, 64), True, "len", "bfloat16"),
+    ("rows_mask", (2, 1024, 1024, 32, 8, 64), False, "rows", "bfloat16"),
+    ("f32", (1, 1024, 1024, 32, 8, 64), True, "none", "float32"),
+    ("tiny_d32_f32", (2, 512, 512, 4, 2, 32), True, "none", "float32"),
+    ("d128", (1, 512, 512, 8, 2, 128), True, "none", "bfloat16"),
+]
+
+
+def flash_inputs(torch, g, shape, mode, dtype):
+    b, t, s, h, k, d = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
+    kk = torch.randn(b, s, k, d, generator=g, device="cuda").to(dt)
+    v = torch.randn(b, s, k, d, generator=g, device="cuda").to(dt)
+    dout = torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
+    arg = None
+    if mode == "len":  # one length off the 64-row tile, one empty row
+        arg = torch.tensor([s - 37, 0][:b], dtype=torch.int32, device="cuda")
+    elif mode == "rows":
+        arg = (torch.rand(b, s, generator=g, device="cuda") > 0.3).to(
+            torch.int32)
+    return q, kk, v, dout, arg
+
+
+def flash_tolerance(torch, dtype, ref):
+    """f32: only the order of the sums differs (1e-5 of the largest value).
+    bf16: the kernel rounds p against each tile's running max and the plain
+    version against the row's final max, and both round the result to bf16:
+    one bf16 ulp (2^-8) of the value plus 2 % of the largest value."""
+    big = ref.abs().max()
+    if dtype == "float32":
+        return 1e-5 * ref.abs() + 1e-5 * big
+    return 2 ** -7 * ref.abs() + 2e-2 * big
+
+
+def check_flash(torch, card):
+    """Phase 6: K1, K2, K3 against their plain versions; the worst error of
+    each output in each case."""
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for name, shape, causal, mode, dtype in FLASH_CASES:
+        q, k, v, dout, arg = flash_inputs(torch, g, shape, mode, dtype)
+        kw = dict(causal=causal, mode=mode, arg=arg)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
+        delta = delta.contiguous()
+        dq = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
+        dk, dv = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+        ref_dq = fa.flash_dq_reference(q, k, v, dout, ref_lse, delta, **kw)
+        ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, dout, ref_lse,
+                                                delta, **kw)
+        errs = {}
+        for out_name, got, ref in [("out", out, ref_out), ("dq", dq, ref_dq),
+                                   ("dk", dk, ref_dk), ("dv", dv, ref_dv)]:
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"flash {name}: non-finite {out_name}")
+            if bool((err > flash_tolerance(torch, dtype, ref)).any()):
+                fail(f"flash {name}: {out_name} disagrees with plain: max abs "
+                     f"{err.max().item():.4g}, max |ref| "
+                     f"{ref.abs().max().item():.4g}")
+            errs[out_name] = err.max().item()
+        lse_err = ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max().item()
+        if not lse_err <= 1e-4:
+            fail(f"flash {name}: lse disagrees with plain ({lse_err:.3g})")
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs["out"])
+        worst["flash_dq"] = max(worst["flash_dq"], errs["dq"])
+        worst["flash_dkv"] = max(worst["flash_dkv"], errs["dk"], errs["dv"])
+        emit("check_flash", card=card, case=name, shape=list(shape),
+             causal=causal, mode=mode, dtype=dtype,
+             max_abs_err=errs, lse_rel_err=lse_err,
+             max_abs_ref={"out": ref_out.float().abs().max().item(),
+                          "dq": ref_dq.float().abs().max().item(),
+                          "dk": ref_dk.float().abs().max().item(),
+                          "dv": ref_dv.float().abs().max().item()})
+        del q, k, v, dout, out, dq, dk, dv, ref_out, ref_dq, ref_dk, ref_dv
+        torch.cuda.empty_cache()
+    emit("check_flash_summary", card=card, cases=len(FLASH_CASES),
+         worst=worst, tolerance="f32: 1e-5 (|ref| + max|ref|); bf16: 2^-7 "
+         "|ref| + 2e-2 max|ref| (p and ds rounded at other points); lse "
+         "1e-4 relative")
+    return worst
+
+
+def flash_bounds(shape, causal=True):
+    """(ms, bound_by) of K1, K2 and K3 at ``shape`` in bf16: the larger of
+    the products' FLOPs over 989 TFLOP/s (2 per multiply-add over the
+    causal (q, k) pairs: K1 q k^T and p v; K2 adds dO v^T and ds k; K3 has
+    q k^T, dO v^T, p^T dO and ds^T q) and the bytes each input and output
+    moves once over 3.35 TB/s."""
+    b, t, s, h, k, d = shape
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
+    q_bytes, kv_bytes, stat = b * t * h * d * 2, b * s * k * d * 2, b * h * t * 4
+    work = {
+        "flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat),
+        "flash_dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat),
+        "flash_dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat),
+    }
+    out = {}
+    for name, (flops, moved) in work.items():
+        ops_s, bytes_s = flops / BF16_FLOP_PER_S, moved / HBM_BYTES_PER_S
+        out[name] = (max(ops_s, bytes_s) * 1e3,
+                     "operations" if ops_s >= bytes_s else "bytes", flops)
+    return out
+
+
+def time_flash(torch, card):
+    """Phase 7: K1, K2, K3 at the training shape, each beside its bound,
+    its plain version and (K1) scaled_dot_product_attention; SDPA's
+    forward + backward beside K1 + K2 + K3."""
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, dout, _ = flash_inputs(torch, g, FLASH_SHAPE, "none", "bfloat16")
+    kw = dict(causal=True, mode="none", arg=None)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    ms = {
+        "flash_fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v, **kw), 20),
+        "flash_dq": time_ms(torch, lambda i: fa.flash_dq(
+            q, k, v, dout, lse, delta, **kw), 20),
+        "flash_dkv": time_ms(torch, lambda i: fa.flash_dkv(
+            q, k, v, dout, lse, delta, **kw), 20),
+    }
+    plain = {
+        "flash_fwd": time_ms(torch, lambda i: fa.flash_fwd_reference(
+            q, k, v, **kw), 3, warmup=1),
+        "flash_dq": time_ms(torch, lambda i: fa.flash_dq_reference(
+            q, k, v, dout, lse, delta, **kw), 3, warmup=1),
+        "flash_dkv": time_ms(torch, lambda i: fa.flash_dkv_reference(
+            q, k, v, dout, lse, delta, **kw), 3, warmup=1),
+    }
+    torch.cuda.empty_cache()
+    F = torch.nn.functional
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), 20)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+
+    def fwd_bwd(i):
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                       enable_gqa=True).backward(gh)
+
+    lib_fwd_bwd = time_ms(torch, fwd_bwd, 10)
+    bounds = flash_bounds(FLASH_SHAPE)
+    rows = {}
+    for name in ms:
+        b_ms, by, flops = bounds[name]
+        rows[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=b_ms,
+                          bound_by=by, flops=flops,
+                          tflops_per_s=flops / ms[name] / 1e9,
+                          fraction_of_bound=b_ms / ms[name],
+                          library_ms=lib_fwd if name == "flash_fwd" else None)
+        emit("time_flash", card=card, kernel=name, shape=list(FLASH_SHAPE),
+             causal=True, dtype="bfloat16", **rows[name])
+    emit("time_flash_fwd_bwd", card=card, shape=list(FLASH_SHAPE),
+         kernels_ms=sum(ms.values()), sdpa_fwd_ms=lib_fwd,
+         sdpa_fwd_bwd_ms=lib_fwd_bwd,
+         library_call="torch.nn.functional.scaled_dot_product_attention("
+                      "is_causal=True, enable_gqa=True) on [B, H, T, D] "
+                      "copies; timed here only, never called by the port")
+    del q, k, v, dout, out, qh, kh, vh, gh, qg, kg, vg
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tiny_train_config():
+    from serverless_learn_tpu_torch.config import (DataConfig,
+                                                   ExperimentConfig,
+                                                   OptimizerConfig,
+                                                   TrainConfig)
+
+    return ExperimentConfig(
+        model="llama_tiny", model_overrides={"attention_impl": "flash"},
+        optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                  weight_decay=0.1, warmup_steps=1,
+                                  decay_steps=4, grad_clip_norm=1.0),
+        train=TrainConfig(batch_size=2, num_steps=3, seed=0,
+                          dtype="float32"),
+        data=DataConfig(seq_len=512))
+
+
+def train_tiny_agreement(torch, card):
+    """Phase 8a: llama_tiny (head dim 32, f32) with flash attention, three
+    adamw steps with warmup, decay and clipping, on the card through the
+    kernels and on the CPU through the plain versions, from the same
+    weights and batches."""
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.training.loop import make_source
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    cfg = tiny_train_config()
+    cpu = build_trainer(cfg, "cpu")
+    gpu = build_trainer(cfg, "cuda")
+    cpu_state = cpu.init()
+    gpu_state = gpu.init(params=cpu_state.model.state_dict())
+
+    def run(trainer, state):
+        losses = []
+        for _, host in zip(range(cfg.train.num_steps),
+                           make_source(cfg, trainer)):
+            state, m = trainer.step(state, trainer.place(host))
+            losses.append(float(m["loss"]))
+        return losses, {k: v.detach().cpu()
+                        for k, v in state.model.state_dict().items()}
+
+    lc, pc = run(cpu, cpu_state)
+    before = fa.flash_fwd.launches
+    lg, pg = run(gpu, gpu_state)
+    n = fa.flash_fwd.launches - before
+    loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+    param_err = max((pc[k] - pg[k]).abs().max().item() for k in pc)
+    emit("train_tiny_agreement", card=card, steps=len(lc), cpu_losses=lc,
+         card_losses=lg, max_loss_diff=loss_err, max_param_diff=param_err,
+         flash_fwd_launches=n,
+         tolerance="losses within 1e-4, params within 2e-5 (f32 on both "
+                   "sides, sums in other orders; adam moves every weight by "
+                   "up to lr = 1e-3 a step, so 2e-5 is 2 % of one update)")
+    if n != cfg.train.num_steps * 2:
+        fail(f"tiny training launched the flash forward {n} times, expected "
+             f"{cfg.train.num_steps * 2}")
+    if not (loss_err <= 1e-4 and param_err <= 2e-5):
+        fail(f"tiny training: card vs cpu losses differ by {loss_err:.3g}, "
+             f"params by {param_err:.3g}")
+
+
+def train_full_width(torch, card):
+    """Phase 8b: llama_1b, batch 2 x 4096 tokens, 5 adamw steps (lr 1e-3,
+    clip 1.0) through run_training, counters read around the run, then one
+    more step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from serverless_learn_tpu_torch.config import (DataConfig,
+                                                   ExperimentConfig,
+                                                   OptimizerConfig,
+                                                   TrainConfig)
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.ops import attention
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.training.loop import make_source, run_training
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    steps = 5
+    cfg = ExperimentConfig(
+        model="llama_1b",
+        optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                  grad_clip_norm=1.0),
+        train=TrainConfig(batch_size=TRAIN_B, num_steps=steps, seed=0),
+        data=DataConfig(seq_len=TRAIN_T))
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mcfg = trainer.bundle.cfg
+    n_params = sum(p.numel() for p in state.model.parameters())
+
+    dense_calls = [0]
+    real_dense = attention.xla_attention
+
+    def counting_dense(*a, **kw):
+        dense_calls[0] += 1
+        return real_dense(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    attention.xla_attention = transformer.xla_attention = counting_dense
+    fa.flash_fwd.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+    try:
+        state, meter = run_training(cfg, trainer=trainer, state=state)
+    finally:
+        attention.xla_attention = transformer.xla_attention = real_dense
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_dq": fa.flash_dq.launches,
+                "flash_dkv": fa.flash_dkv.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [s.metrics["loss"] for s in meter.history]
+    times = [s.step_time_s for s in meter.history]
+    summary = meter.steady_state(skip=2)
+    expected = math.log(mcfg.vocab_size) + 0.5
+    emit("train_llama_1b", card=card, layers=mcfg.n_layers,
+         d_model=mcfg.d_model, vocab=mcfg.vocab_size, params=n_params,
+         batch=TRAIN_B, seq_len=TRAIN_T, steps=steps, init_s=init_s,
+         losses=losses, grad_norms=[s.metrics["grad_norm"]
+                                    for s in meter.history],
+         step_times_s=times, median_step_s_after_2=statistics.median(
+             times[2:]), tokens_per_s=summary["tokens_per_sec"],
+         mfu=summary["mfu"], flops_per_step=meter.flops_per_step,
+         max_memory_allocated_gb=peak_gb, launches=launches,
+         dense_attention_calls=dense_calls[0],
+         expected_step1_loss=expected)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    # Step 1 at init: the final norm gives each position unit RMS and
+    # lm_head's lecun-normal kernel has variance 1/d, so the logits are
+    # ~N(0, 1) over the vocab and E[loss] ~ ln V + 1/2.
+    if abs(losses[0] - expected) > 0.5:
+        fail(f"step-1 loss {losses[0]:.4f}, expected {expected:.4f} +- 0.5")
+    want = steps * mcfg.n_layers
+    if any(n != want for n in launches.values()) or dense_calls[0]:
+        fail(f"launches {launches} (expected {want} each), dense attention "
+             f"ran {dense_calls[0]} times")
+
+    batch = trainer.place(next(iter(make_source(cfg, trainer,
+                                                start_step=state.step))))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = trainer.step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        fail("the profiler recorded no device events for the training step")
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    flash = {n: sum(v for k, v in by_name.items() if f"{n}_kernel" in k) / 1e3
+             for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    # cuBLAS's products: its Hopper kernels are named nvjet_* or *gemm*.
+    matmul = sum(v for k, v in by_name.items()
+                 if "nvjet" in k or "gemm" in k) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit("where_time_goes_llama_1b_train", card=card,
+         step_span_ms=span / 1e3, device_busy_ms=busy / 1e3,
+         device_idle_share=1 - busy / span, flash_ms=flash,
+         flash_share_of_busy=sum(flash.values()) * 1e3 / busy,
+         cublas_matmul_ms=matmul,
+         other_kernels_ms=busy / 1e3 - matmul - sum(flash.values()),
+         device_kernels=len(kern),
+         top_kernels_ms=[(k[:90], v / 1e3) for k, v in top])
+    del state, trainer, batch, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -426,15 +796,24 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    reports = build.build(["quant_matmul"])
-    build.load("quant_matmul")
+    sources = ["quant_matmul", "flash_attention"]
+    reports = build.build(sources)  # one nvcc per source, started together
+    for name in sources:
+        build.load(name)
     emit("build", card=card, seconds=time.perf_counter() - t0,
-         ptxas=sorted({ln.strip() for log in reports.values()
-                       for ln in log.splitlines() if "registers" in ln}))
+         ptxas={name: [ln.split("ptxas info    : ")[-1].strip()
+                       for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln
+                       or "Function properties" in ln]
+                for name, log in reports.items()})
 
     max_err = check_kernel(torch, qm, card)
     fwd = time_kernel(torch, qm, card)
     tiny_agreement(torch, card)
+    flash_err = check_flash(torch, card)
+    flash_time = time_flash(torch, card)
+    train_tiny_agreement(torch, card)
+    flash_launches = train_full_width(torch, card)
     launches = serve_full_width(torch, card)
 
     kernels = [{
@@ -446,6 +825,20 @@ def main() -> int:
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
     }]
+    replaces = {
+        "flash_fwd": "serverless_learn_tpu/ops/pallas/flash_attention.py:197",
+        "flash_dq": "serverless_learn_tpu/ops/pallas/flash_attention.py:403",
+        "flash_dkv": "serverless_learn_tpu/ops/pallas/flash_attention.py:427",
+    }
+    for name, where in replaces.items():
+        row = flash_time[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "serverless_learn_tpu_torch/csrc/flash_attention.cu",
+            "replaces": where, "launches": flash_launches[name],
+            "max_abs_err": flash_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
-"""Command line of the PyTorch port: ``serve`` and ``generate``.
+"""Command line of the PyTorch port: ``train``, ``serve`` and ``generate``.
 
+    python -m serverless_learn_tpu_torch train --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --steps 5
     python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8
     python -m serverless_learn_tpu_torch generate --model llama_tiny \\
         --prompt 5,9,11 --max-new-tokens 8
 
 The flags are those of the reference CLI (``serverless_learn_tpu/cli.py``)
-for this path. Weights are random, made from ``--seed``; checkpoint restore
-is not ported yet. Both commands run on the card; ``--device cpu`` is for
-tests only.
+for these paths. Weights are random, made from a seed; checkpoints are not
+ported yet. Every command runs on the card; ``--device cpu`` is for tests
+only.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import json
 import sys
 from typing import List, Optional
 
+from serverless_learn_tpu_torch.config import (ExperimentConfig, apply_sets,
+                                               coerce)
+
 NOT_PORTED = {
     "continuous": "--serve-engine continuous is not yet ported to PyTorch "
                   "(ROADMAP.md queue 1 item 1); use --serve-engine static",
@@ -24,15 +29,14 @@ NOT_PORTED = {
              "queue 1 item 1); the port serves from the monolithic cache",
     "checkpoint": "checkpoint restore is not yet ported to PyTorch "
                   "(ROADMAP.md queue 1 item 2); weights come from --seed",
+    "distributed": "multi-process training (--world-size) is not yet ported "
+                   "to PyTorch (ROADMAP.md queue 1 item 3, data parallel)",
+    "shard_server": "streaming data from the shard server is not yet ported "
+                    "to PyTorch (ROADMAP.md queue 1 item 5)",
+    "telemetry": "the metrics endpoint and the health engine are not yet "
+                 "ported to PyTorch (ROADMAP.md queue 1 item 3, the loop's "
+                 "telemetry)",
 }
-
-
-def _coerce(text: str):
-    """Parse a --set value: JSON if it parses, else the raw string."""
-    try:
-        return json.loads(text)
-    except (json.JSONDecodeError, ValueError):
-        return text
 
 
 def _overrides(items: Optional[List[str]]) -> dict:
@@ -47,7 +51,7 @@ def _overrides(items: Optional[List[str]]) -> dict:
         if section != "model_overrides" or not key:
             raise SystemExit(f"--set {path}: the port takes only "
                              "model_overrides.<field>=<value>")
-        out[key] = _coerce(val)
+        out[key] = coerce(val)
     return out
 
 
@@ -58,6 +62,75 @@ def _model_from_args(args):
         raise SystemExit(NOT_PORTED["checkpoint"])
     return build_model(args.model, device=args.device, quant=args.quant,
                        seed=args.seed, **_overrides(args.set))
+
+
+def _parse_mesh(text: str) -> dict:
+    out = {}
+    for part in text.split(","):
+        if part.strip():
+            k, _, v = part.partition("=")
+            out[k.strip()] = int(v)
+    return out
+
+
+def _train_config(args):
+    """ExperimentConfig from ``--config``, then ``--set``, then the
+    dedicated flags, as the reference CLI builds it."""
+    raw = {}
+    if args.config:
+        with open(args.config) as f:
+            raw = json.load(f)
+    try:
+        apply_sets(raw, args.set)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    flags = {("model",): args.model, ("train", "batch_size"): args.batch_size,
+             ("train", "num_steps"): args.steps,
+             ("optimizer", "learning_rate"): args.lr,
+             ("optimizer", "name"): args.optimizer,
+             ("data", "seq_len"): args.seq_len}
+    if args.mesh:
+        flags[("mesh",)] = {**raw.get("mesh", {}), **_parse_mesh(args.mesh)}
+    for path, val in flags.items():
+        if val is None:
+            continue
+        node = raw
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = val
+    return ExperimentConfig.from_dict(raw)
+
+
+def cmd_train(args) -> int:
+    """Train a model on the card; ends with the reference's ``done`` line
+    on stdout."""
+    from serverless_learn_tpu_torch.training.loop import run_training
+    from serverless_learn_tpu_torch.utils.metrics import log_json
+
+    if args.checkpoint_dir:
+        raise SystemExit(NOT_PORTED["checkpoint"])
+    if args.world_size:
+        raise SystemExit(NOT_PORTED["distributed"])
+    if args.shard_server:
+        raise SystemExit(NOT_PORTED["shard_server"])
+    if args.metrics_port is not None or args.health:
+        raise SystemExit(NOT_PORTED["telemetry"])
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+
+    cfg = _train_config(args)
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    before = [k.launches for k in kernels]
+    state, meter = run_training(cfg, verbose=args.verbose,
+                                device=args.device)
+    summary = meter.steady_state()
+    losses = [s.metrics["loss"] for s in meter.history]
+    log_json({"event": "done", "final_step": state.step,
+              **{k: round(v, 3) for k, v in summary.items()},
+              "losses": [round(x, 5) for x in losses],
+              "kernel_launches": {k.__name__: k.launches - n
+                                  for k, n in zip(kernels, before)}},
+             stream=sys.stdout)
+    return 0
 
 
 def cmd_generate(args) -> int:
@@ -128,11 +201,45 @@ def _add_model_flags(p: argparse.ArgumentParser):
                    help="not yet ported: raises")
 
 
+def _add_train_flags(p: argparse.ArgumentParser):
+    p.add_argument("--config", help="JSON config file (ExperimentConfig)")
+    p.add_argument("--set", action="append", metavar="dotted.key=value",
+                   help="override any config field, e.g. --set "
+                        "train.seed=3")
+    p.add_argument("--model", help="registered model name (llama_tiny, "
+                                   "llama_1b, llama_8b)")
+    p.add_argument("--mesh", help="mesh axes; only a one-device mesh "
+                                  "(e.g. dp=1) is ported")
+    p.add_argument("--batch-size", type=int)
+    p.add_argument("--steps", type=int)
+    p.add_argument("--lr", type=float)
+    p.add_argument("--optimizer", help="adamw | adam | sgd (adafactor, lion "
+                                       "and rmsprop are not ported)")
+    p.add_argument("--seq-len", type=int)
+    p.add_argument("--verbose", action="store_true",
+                   help="log every train.log_every steps to stderr")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default), or cpu for tests only")
+    for flag in ("--checkpoint-dir", "--shard-server"):
+        p.add_argument(flag, default=None, help="not yet ported: raises")
+    p.add_argument("--world-size", type=int, default=None,
+                   help="not yet ported: raises")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="not yet ported: raises")
+    p.add_argument("--health", action="store_true",
+                   help="not yet ported: raises")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="serverless_learn_tpu_torch",
-        description="PyTorch/CUDA port of serverless-learn-tpu: serving")
+        description="PyTorch/CUDA port of serverless-learn-tpu: training "
+                    "and serving")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a model on the card")
+    _add_train_flags(t)
+    t.set_defaults(fn=cmd_train)
 
     g = sub.add_parser("generate", help="sample tokens from a causal LM")
     _add_model_flags(g)

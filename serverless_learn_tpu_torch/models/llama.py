@@ -1,16 +1,32 @@
 """Llama-style causal-LM family: ``llama_tiny`` (tests), ``llama_1b`` and
 ``llama_8b`` (Llama-3-8B-shaped: 32 layers, 32 heads / 8 KV heads,
-d_model 4096, d_ff 14336, vocab 128256, rope_theta 5e5). The presets are
-those of ``serverless_learn_tpu/models/llama.py``.
+d_model 4096, d_ff 14336, vocab 128256, rope_theta 5e5). The presets and the
+training bundle are those of ``serverless_learn_tpu/models/llama.py``.
 """
 
 from __future__ import annotations
 
-from serverless_learn_tpu_torch.models.registry import register_model
+import numpy as np
+
+from serverless_learn_tpu_torch.models.registry import (ModelBundle,
+                                                        register_model)
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
+from serverless_learn_tpu_torch.ops.losses import causal_lm_loss
+
+# Reference options this port does not run yet, and where they wait.
+_NOT_PORTED = {
+    "lora_rank": "LoRA adapters and the trainable-subtree partition "
+                 "(training/partition.py) are not yet ported to PyTorch "
+                 "(ROADMAP.md queue 1 item 3)",
+    "n_experts": "mixture-of-experts layers are not yet ported to PyTorch "
+                 "(ROADMAP.md queue 1 item 4)",
+}
 
 
 def _llama_cfg(size: str, **overrides) -> TransformerConfig:
+    for key, why in _NOT_PORTED.items():
+        if overrides.pop(key, 0):
+            raise NotImplementedError(why)
     presets = {
         "tiny": dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
                      n_kv_heads=2, d_ff=512, max_seq_len=512),
@@ -23,6 +39,26 @@ def _llama_cfg(size: str, **overrides) -> TransformerConfig:
     kw = dict(presets[size])
     kw.update(overrides)
     return TransformerConfig(**kw)
+
+
+def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
+    """The causal-LM training bundle: next-token loss on synthetic uniform
+    tokens."""
+    if fused_ce:
+        causal_lm_loss(None, None, fused=True)  # raises: K4/K5 not ported
+
+    def loss_fn(model, batch):
+        logits = model(batch["tokens"])
+        loss, metrics = causal_lm_loss(logits, batch["tokens"])
+        return loss, {"metrics": metrics}
+
+    def make_batch(rng: np.random.Generator, data_config, batch_size):
+        return {"tokens": rng.integers(
+            0, cfg.vocab_size, (batch_size, data_config.seq_len)).astype(
+                np.int32)}
+
+    return ModelBundle(cfg=cfg, loss_fn=loss_fn, make_batch=make_batch,
+                       task="lm")
 
 
 @register_model("llama_tiny")

@@ -1,12 +1,14 @@
 """Model registry: each family registers a factory that turns overrides into
 a ``TransformerConfig``, keyed by the name the CLI's ``--model`` takes.
-Port of ``serverless_learn_tpu/models/registry.py`` for the serving slice.
-:func:`build_model` makes a registered model with weights from a seed;
-checkpoint restore comes later, and ``bridge.py`` loads a flax tree.
+Port of ``serverless_learn_tpu/models/registry.py``: :func:`build_model`
+makes a registered model with serving weights from a seed, and
+:func:`get_model` the training :class:`ModelBundle`. Checkpoint restore
+comes later; ``bridge.py`` loads a flax tree.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict
 
 import torch
@@ -15,6 +17,20 @@ from serverless_learn_tpu_torch.models.transformer import (
     Transformer, TransformerConfig, random_params)
 
 _REGISTRY: Dict[str, Callable[..., TransformerConfig]] = {}
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """What the trainer needs of a model family, as the reference's bundle:
+    ``loss_fn(model, batch) -> (loss, {"metrics": {...}})`` (an optional
+    ``"loss_weight"`` beside ``"metrics"`` weights grad-accumulation
+    microbatches), ``make_batch(rng, data_config, batch_size)`` -> a dict
+    of numpy arrays, and the task name."""
+
+    cfg: TransformerConfig
+    loss_fn: Callable
+    make_batch: Callable
+    task: str = "lm"
 
 
 def register_model(name: str):
@@ -33,12 +49,21 @@ def get_model_config(name: str, **overrides) -> TransformerConfig:
     return _REGISTRY[name](**overrides)
 
 
+def get_model(name: str, **overrides) -> ModelBundle:
+    """The training bundle of a registered model; ``fused_ce`` is a bundle
+    option, the rest are config overrides."""
+    from serverless_learn_tpu_torch.models.llama import lm_bundle
+
+    fused_ce = overrides.pop("fused_ce", False)
+    return lm_bundle(get_model_config(name, **overrides), fused_ce=fused_ce)
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
     for the CPU. Raises when CUDA is asked for and there is no card."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the port serves on "
+        raise RuntimeError("no CUDA device is available: the port runs on "
                            "the card; device='cpu' is for tests only")
     return dev
 

@@ -1,6 +1,7 @@
 """The Llama-style causal transformer, port of ``serverless_learn_tpu/models/
-transformer.py`` for serving: forward, batched prefill and per-token decode
-over a monolithic KV cache.
+transformer.py``: the training forward (causal self-attention through
+``ops.attention.dot_product_attention``, flash at long sequences), and for
+serving batched prefill and per-token decode over a monolithic KV cache.
 
 Parameter names follow the flax module's paths (``layer_0.attn.q_proj.
 kernel``, ``embedder.embedding`` ...), so ``bridge.py`` maps the two trees
@@ -13,18 +14,24 @@ plus ``lm_head``.
 
 The KV cache is updated in place (the reference returns a new cache each
 step); that keeps one copy of an 8 GB cache on the card.
+
+A model built with ``trainable=True`` has every float parameter
+``requires_grad``; serving builds it without and runs under ``no_grad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from serverless_learn_tpu_torch.ops.attention import xla_attention
+from serverless_learn_tpu_torch.ops.attention import (dot_product_attention,
+                                                      xla_attention)
 from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -41,8 +48,10 @@ def _as_dtype(value) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The fields of the reference's config that the serving path reads.
-    The port runs the causal RoPE / RMSNorm / SwiGLU form only."""
+    """The fields of the reference's config that the serving and training
+    paths read. The port runs the causal RoPE / RMSNorm / SwiGLU form only.
+    ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, the reference's ``nn.remat``)."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -55,12 +64,17 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     quant: Optional[str] = None  # None | "int8" (weight-only, inference)
+    attention_impl: str = "auto"  # "auto" | "xla" | "flash" | "ring"
+    remat: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", _as_dtype(self.dtype))
         object.__setattr__(self, "param_dtype", _as_dtype(self.param_dtype))
         if self.quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {self.quant!r} (int8)")
+        if self.attention_impl not in ("auto", "xla", "flash", "ring"):
+            raise ValueError(f"unknown attention_impl "
+                             f"{self.attention_impl!r}")
         if self.n_heads % self.kv_heads:
             raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
                              f"kv heads {self.kv_heads}")
@@ -101,8 +115,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.scale = nn.Parameter(
-            torch.ones(dim, dtype=param_dtype, device=device),
-            requires_grad=False)
+            torch.ones(dim, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
@@ -118,8 +131,7 @@ class Embed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.embedding = nn.Parameter(
-            torch.empty(num, dim, dtype=param_dtype, device=device),
-            requires_grad=False)
+            torch.empty(num, dim, dtype=param_dtype, device=device))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return nn.functional.embedding(tokens, self.embedding).to(self.dtype)
@@ -132,9 +144,8 @@ class DenseGeneral(nn.Module):
                  param_dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(
-            torch.empty(in_features, out_features, dtype=param_dtype,
-                        device=device), requires_grad=False)
+        self.kernel = nn.Parameter(torch.empty(
+            in_features, out_features, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
@@ -214,7 +225,11 @@ class Attention(nn.Module):
                 cv[:, :T] = v
             # Right-padded rows: real token i attends only to [0, i], all
             # real; pad positions produce values nobody reads.
-            out = xla_attention(q, k, v, causal=True)
+            if mode == "prefill":
+                out = xla_attention(q, k, v, causal=True)
+            else:
+                out = dot_product_attention(q, k, v, causal=True,
+                                            impl=cfg.attention_impl)
         return self.o_proj(out.reshape(B, T, H * D))
 
 
@@ -250,11 +265,16 @@ class Transformer(nn.Module):
     """tokens [B, T] -> logits [B, T, vocab] in ``cfg.dtype``.
 
     Tensors are allocated on ``device`` uninitialised; fill them with
-    :func:`random_params`, ``inference.quantize.random_quantized_params``
-    or ``load_state_dict`` (for example from ``bridge.from_jax_params``)."""
+    :func:`init_params` (training), :func:`random_params` (serving),
+    ``inference.quantize.random_quantized_params`` or ``load_state_dict``
+    (for example from ``bridge.from_jax_params``)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
+        if trainable and cfg.quant is not None:
+            raise ValueError("training with quant set is unsupported, as in "
+                             "the reference")
         self.cfg = cfg
         self.embedder = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype,
                               cfg.param_dtype, device)
@@ -265,6 +285,8 @@ class Transformer(nn.Module):
             self.layers.append(block)
         self.norm_f = RMSNorm(cfg.d_model, cfg.dtype, cfg.param_dtype, device)
         self.lm_head = _proj(cfg, cfg.d_model, cfg.vocab_size, device)
+        for p in self.parameters():
+            p.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -303,10 +325,14 @@ class Transformer(nn.Module):
             if prefill:
                 kw = dict(mode="prefill")
         sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             if cache is not None:
                 kw["kv"] = (cache.k[i], cache.v[i])
-            x = block(x, sin, cos, **kw)
+            if remat:
+                x = checkpoint(block, x, sin, cos, use_reentrant=False)
+            else:
+                x = block(x, sin, cos, **kw)
         if prefill:
             cache.index = (torch.full((B,), T, dtype=torch.int32,
                                       device=x.device)
@@ -332,6 +358,29 @@ def random_params(model: Transformer, seed: int = 0) -> Transformer:
     for name, t in model.state_dict().items():
         if t.ndim >= 2:
             t.normal_(0.0, 0.02, generator=leaf_generator(seed, name, t.device))
+        else:
+            t.fill_(1.0)
+    return model
+
+
+@torch.no_grad()
+def init_params(model: Transformer, seed: int = 0) -> Transformer:
+    """Fill a float model in place from ``seed`` with the distributions of
+    the reference's flax initializers: projection kernels ``lecun_normal``
+    (truncated normal over [-2, 2] std, scaled so the variance is 1 / fan_in,
+    fan_in the contracted dims: ``[I, O]`` here, as flax's DenseGeneral
+    flattens them), the embedding table ``variance_scaling(1, "fan_in",
+    "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)), norm scales 1.
+    The values differ from flax's, whose generator is JAX's."""
+    for name, t in model.state_dict().items():
+        gen = leaf_generator(seed, name, t.device)
+        if name.endswith("embedding"):
+            t.normal_(0.0, 1.0 / math.sqrt(t.shape[1]), generator=gen)
+        elif t.ndim >= 2:
+            # 0.8796...: the std of a unit normal truncated to [-2, 2].
+            std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
+            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                  generator=gen)
         else:
             t.fill_(1.0)
     return model

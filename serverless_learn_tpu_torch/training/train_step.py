@@ -1,0 +1,138 @@
+"""The train step, the port of ``serverless_learn_tpu/training/
+train_step.py`` for one device: forward, backward through the flash
+kernels, gradient accumulation over microbatches, and the optimizer update
+with optax's semantics (``training/optimizer.py``).
+
+The reference compiles the step with ``jax.jit`` over a mesh and donates
+the state; here the step runs eagerly on one card and updates the
+:class:`TrainState` in place. Metrics are those of the reference:
+``loss``, ``perplexity`` (exp of the averaged loss), ``lr`` (the schedule
+at the state's step) and ``grad_norm`` (the global norm of the averaged
+gradients, before clipping), returned as 0-dim tensors on the device so
+the step itself never waits for the card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from serverless_learn_tpu_torch.config import ExperimentConfig
+from serverless_learn_tpu_torch.data.datasets import to_device
+from serverless_learn_tpu_torch.models.registry import (ModelBundle, get_model,
+                                                        resolve_device)
+from serverless_learn_tpu_torch.models.transformer import (Transformer,
+                                                           init_params)
+from serverless_learn_tpu_torch.training.optimizer import (
+    Optimizer, global_norm, lr_at, make_optimizer)
+from serverless_learn_tpu_torch.training.train_state import TrainState
+
+
+def trainable_params(model: torch.nn.Module) -> List[torch.Tensor]:
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+@dataclass
+class Trainer:
+    """One (model, config, device) triple: :meth:`init`, :meth:`step` and
+    :meth:`eval_step`, as the reference's ``Trainer``."""
+
+    config: ExperimentConfig
+    bundle: ModelBundle
+    device: torch.device
+    optimizer: Optimizer
+
+    def init(self, seed: Optional[int] = None,
+             params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+        """A fresh state: weights from ``seed`` (``init_params``), or from
+        the state dict ``params`` (for example a flax tree through
+        ``bridge.from_jax_params``), and a zero optimizer state."""
+        model = Transformer(self.bundle.cfg, device=self.device,
+                            trainable=True)
+        if params is None:
+            init_params(model, self.config.train.seed if seed is None
+                        else seed)
+        else:
+            model.load_state_dict(params)
+        return TrainState(step=0, model=model,
+                          opt_state=self.optimizer.init(
+                              trainable_params(model)))
+
+    def place(self, host_batch: Dict[str, np.ndarray]
+              ) -> Dict[str, torch.Tensor]:
+        """A host batch onto this trainer's device."""
+        return to_device(host_batch, self.device)
+
+    def step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """One optimizer step over ``batch``; returns (state, metrics)."""
+        model, accum = state.model, self.config.train.grad_accum
+        params = trainable_params(model)
+        for p in params:
+            p.grad = None
+        if accum == 1:
+            loss, aux = self.bundle.loss_fn(model, batch)
+            loss.backward()
+            loss, metrics = loss.detach(), {k: v.detach() for k, v in
+                                            aux["metrics"].items()}
+        else:
+            loss, metrics = self._accumulate(model, params, batch, accum)
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        lr = lr_at(self.optimizer.schedule, state.step)
+        self.optimizer.update(params, grads, state.opt_state, norm=norm)
+        for p in params:
+            p.grad = None
+        if "perplexity" in metrics:
+            # exp of the averaged loss, not an average of exps.
+            metrics["perplexity"] = torch.exp(loss)
+        metrics.update(loss=loss, lr=torch.tensor(lr), grad_norm=norm)
+        state.step += 1
+        return state, metrics
+
+    def _accumulate(self, model, params, batch, accum: int):
+        """Backward over ``accum`` microbatches (consecutive row blocks),
+        each gradient weighted by its ``loss_weight`` (1 when the loss does
+        not report one), then divided by the summed weight: the
+        whole-batch gradient for any normalisation."""
+        b = next(iter(batch.values())).shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
+        w_sum, loss_sum, m_sum = 0.0, 0.0, {}
+        for m in range(accum):
+            rows = slice(m * b // accum, (m + 1) * b // accum)
+            loss, aux = self.bundle.loss_fn(
+                model, {k: v[rows] for k, v in batch.items()})
+            w = aux.get("loss_weight", 1.0)
+            (loss * w).backward()
+            w_sum = w_sum + w
+            loss_sum = loss_sum + loss.detach() * w
+            for k, v in aux["metrics"].items():
+                m_sum[k] = m_sum.get(k, 0.0) + v.detach() * w
+        with torch.no_grad():
+            for p in params:
+                p.grad.div_(w_sum)
+        return loss_sum / w_sum, {k: v / w_sum for k, v in m_sum.items()}
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch) -> Dict[str, Any]:
+        """Forward-only metrics on one batch; the state is not touched."""
+        loss, aux = self.bundle.loss_fn(state.model, batch)
+        return dict(aux["metrics"], loss=loss)
+
+
+def build_trainer(config: ExperimentConfig, device="cuda") -> Trainer:
+    """The trainer for ``config`` on ``device`` (the card by default; cpu
+    for tests only). ``train.dtype`` / ``train.param_dtype`` /
+    ``train.remat`` reach the model unless ``model_overrides`` sets them."""
+    dev = resolve_device(device)
+    overrides = dict(config.model_overrides)
+    overrides.setdefault("dtype", config.train.dtype)
+    overrides.setdefault("param_dtype", config.train.param_dtype)
+    if config.train.remat:
+        overrides.setdefault("remat", True)
+    bundle = get_model(config.model, **overrides)
+    return Trainer(config=config, bundle=bundle, device=dev,
+                   optimizer=make_optimizer(config.optimizer))

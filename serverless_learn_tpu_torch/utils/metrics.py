@@ -1,0 +1,94 @@
+"""Step timing and throughput, the port of ``serverless_learn_tpu/utils/
+metrics.py``, with an analytic FLOP count in place of XLA's compiled one.
+
+FLOPs of one causal-LM training step (forward and backward, 3x the
+forward's 2 per multiply-add):
+
+    6 * tokens * (P - V * d)  +  6 * L * B * T^2 * d
+
+``tokens`` = B * T, P all parameters, V * d the embedding table (a lookup,
+no products; ``lm_head`` is counted in P), and the second term the causal
+attention products (q k^T and p v, 4 * B * T^2 * d per layer forward,
+halved by the causal mask). MFU divides the achieved rate by the card's
+dense bf16 peak, 989e12 FLOP/s for an H100 SXM (NVIDIA's data sheet).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+H100_BF16_PEAK = 989e12
+
+
+def lm_train_flops(n_params: int, vocab: int, d_model: int, n_layers: int,
+                   batch: int, seq: int) -> float:
+    """The analytic FLOPs of one causal-LM training step (module doc)."""
+    tokens = batch * seq
+    return (6.0 * tokens * (n_params - vocab * d_model)
+            + 6.0 * n_layers * batch * seq * seq * d_model)
+
+
+@dataclass
+class StepStats:
+    step: int
+    step_time_s: float
+    samples_per_sec: float
+    metrics: Dict[str, float]
+
+
+@dataclass
+class ThroughputMeter:
+    batch_size: int
+    n_chips: int = 1
+    # FLOPs of one step (lm_train_flops); with peak_flops set,
+    # steady_state reports MFU as well as achieved TFLOP/s.
+    flops_per_step: Optional[float] = None
+    peak_flops: Optional[float] = None  # per chip; None off the card
+    tokens_per_sample: int = 0  # seq_len for LM batches: adds tokens/s
+    history: List[StepStats] = field(default_factory=list)
+    _t_last: Optional[float] = None
+
+    def start(self):
+        self._t_last = time.perf_counter()
+
+    def record(self, step: int, metrics: Dict[str, float]) -> StepStats:
+        now = time.perf_counter()
+        dt = now - (self._t_last if self._t_last is not None else now)
+        self._t_last = now
+        sps = self.batch_size / dt if dt > 0 else float("inf")
+        stats = StepStats(step=step, step_time_s=dt, samples_per_sec=sps,
+                          metrics=metrics)
+        self.history.append(stats)
+        return stats
+
+    def steady_state(self, skip: int = 2) -> Dict[str, float]:
+        """Aggregate over history, skipping the first ``skip`` steps (kernel
+        builds, allocator warm-up)."""
+        usable = self.history[skip:] if len(self.history) > skip else self.history
+        if not usable:
+            return {"samples_per_sec": 0.0, "step_time_s": 0.0}
+        times = [s.step_time_s for s in usable]
+        sps = self.batch_size * len(usable) / sum(times)
+        out = {
+            "samples_per_sec": sps,
+            "samples_per_sec_per_chip": sps / max(self.n_chips, 1),
+            "step_time_s": sum(times) / len(times),
+        }
+        if self.tokens_per_sample:
+            out["tokens_per_sec"] = sps * self.tokens_per_sample
+        if self.flops_per_step:
+            per_chip = (self.flops_per_step / out["step_time_s"]
+                        / max(self.n_chips, 1))
+            out["tflops_per_sec_per_chip"] = per_chip / 1e12
+            if self.peak_flops:
+                out["mfu"] = per_chip / self.peak_flops
+        return out
+
+
+def log_json(record: dict, stream=None):
+    (stream or sys.stderr).write(json.dumps(record) + "\n")
+    (stream or sys.stderr).flush()
