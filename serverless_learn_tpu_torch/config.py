@@ -5,11 +5,11 @@
 configs and ``--set section.key=value`` overrides mean the same here.
 
 What this slice does not run raises instead of being ignored: a mesh of
-more than one device, ZeRO stages, a non-f32 gradient exchange, periodic
-checkpoints, in-loop eval, a shard-server data source, and any of the
-sections ``control``, ``local_sgd``, ``health``, ``membership``, ``fleet``,
-``kv``, ``waterfall``, ``checkpoint``, ``numerics`` and ``elastic`` (the
-port keeps no copy of their defaults, so it refuses them when set at all).
+more than one device, a non-f32 gradient exchange, every field of
+``_FIELDS_NOT_PORTED`` set away from its default, and any of the sections
+``control``, ``local_sgd``, ``health``, ``membership``, ``fleet``, ``kv``,
+``waterfall``, ``checkpoint``, ``numerics`` and ``elastic`` (the port keeps
+no copy of their defaults, so it refuses them when set at all).
 """
 
 from __future__ import annotations
@@ -32,6 +32,28 @@ _SECTIONS_NOT_PORTED = {
     "elastic": "elastic training",
 }
 ROADMAP_TRAINING = "ROADMAP.md queue 1 item 3"
+_DATA_ITEM = "ROADMAP.md queue 1 item 5"
+# (section, field) -> (what it runs, ROADMAP item): kept so the reference's
+# configs load, raising when set away from the default.
+_FIELDS_NOT_PORTED = {
+    ("train", "checkpoint_every"): ("periodic checkpoints",
+                                    "ROADMAP.md queue 1 item 2"),
+    ("train", "zero_stage"): ("ZeRO", "ROADMAP.md queue 1 item 3d"),
+    ("train", "eval_every"): ("in-loop eval", "ROADMAP.md queue 1 item 3e"),
+    ("train", "eval_steps"): ("in-loop eval", "ROADMAP.md queue 1 item 3e"),
+    ("train", "donate_state"): ("a step that keeps its input state alive "
+                                "(the port updates the state in place)",
+                                ROADMAP_TRAINING),
+    ("data", "shard_server_addr"): ("streaming from the shard server",
+                                    _DATA_ITEM),
+    ("data", "dataset"): ("named datasets (the shard server)", _DATA_ITEM),
+    ("data", "eval_dataset"): ("named datasets (the shard server)",
+                               _DATA_ITEM),
+    ("data", "augment"): ("the shard server's host transforms", _DATA_ITEM),
+    ("data", "mask_rate"): ("the shard server's host transforms", _DATA_ITEM),
+    ("data", "learnable"): ("mlp_mnist's learnable synthetic task",
+                            _DATA_ITEM),
+}
 
 
 def not_ported(what: str, where: str = ROADMAP_TRAINING) -> NotImplementedError:
@@ -84,15 +106,15 @@ class TrainConfig:
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"
     log_every: int = 10
-    checkpoint_every: int = 0  # 0 => disabled (checkpoints: not ported)
+    checkpoint_every: int = 0  # 0 => disabled
     remat: bool = False  # torch.utils.checkpoint around each block
-    donate_state: bool = True  # the port updates in place either way
+    donate_state: bool = True
     # Each step accumulates grads over `grad_accum` microbatches of
     # batch_size / grad_accum samples before the one optimizer update.
     grad_accum: int = 1
-    eval_every: int = 0  # 0 => no in-loop eval (in-loop eval: not ported)
+    eval_every: int = 0  # 0 => no in-loop eval
     eval_steps: int = 10
-    zero_stage: int = 0  # ZeRO: not ported, must stay 0
+    zero_stage: int = 0
     grad_reduce_dtype: str = "float32"  # only f32 (no cross-device exchange)
 
 
@@ -101,7 +123,7 @@ class DataConfig:
     dataset: str = "synthetic_mnist"
     eval_dataset: Optional[str] = None
     shard_server_addr: Optional[str] = None  # None => generate locally
-    prefetch: int = 2
+    prefetch: int = 2  # batches placed on the device ahead of the step
     seq_len: int = 128  # LM datasets
     learnable: bool = False
     augment: bool = False
@@ -123,19 +145,17 @@ class ExperimentConfig:
             raise not_ported(f"a mesh of {self.mesh.size} devices (data "
                              "parallel, fsdp, tp, sp, pp); the port trains "
                              "on one card")
-        if t.zero_stage != 0:
-            raise not_ported("train.zero_stage (ZeRO)")
         if t.grad_reduce_dtype not in ("float32", "f32"):
             raise not_ported("train.grad_reduce_dtype other than f32 (the "
                              "cross-device gradient exchange)")
-        if t.checkpoint_every:
-            raise not_ported("train.checkpoint_every (checkpoints)",
-                             "ROADMAP.md queue 1 item 2")
-        if t.eval_every:
-            raise not_ported("train.eval_every (in-loop eval)")
-        if self.data.shard_server_addr:
-            raise not_ported("data.shard_server_addr (streaming from the "
-                             "shard server)", "ROADMAP.md queue 1 item 5")
+        defaults = {"train": TrainConfig(), "data": DataConfig()}
+        for (section, name), (what, where) in _FIELDS_NOT_PORTED.items():
+            value = getattr(getattr(self, section), name)
+            if value != getattr(defaults[section], name):
+                raise not_ported(f"{section}.{name}={value!r} ({what})",
+                                 where)
+        if self.data.prefetch < 0:
+            raise ValueError(f"prefetch must be >= 0, got {self.data.prefetch}")
         if t.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {t.grad_accum}")
 

@@ -1,15 +1,15 @@
 """Host-side batch sources, the port of ``serverless_learn_tpu/data/
 datasets.py``: ``SyntheticSource`` draws batches from the model bundle's
 ``make_batch`` with ``np.random.default_rng(seed)``, so the same seed gives
-bit-identical batches in both packages, and ``Prefetcher`` moves the next
-batches to the device on a background thread while the current step runs.
+bit-identical batches in both packages, and ``prefetch`` queues the next
+batches' copies to the device before the current step is launched.
 """
 
 from __future__ import annotations
 
-import queue
-import threading
-from typing import Callable, Dict, Iterator, Optional
+import collections
+import itertools
+from typing import Callable, Dict, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -43,47 +43,15 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-class Prefetcher:
-    """Background thread that maps ``place_fn`` (host -> device) over an
-    iterator and keeps ``depth`` batches in flight. An error in the source
-    is raised to the consumer, not swallowed."""
-
-    def __init__(self, source, place_fn: Callable, depth: int = 2):
-        self.q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
-        self._stop = threading.Event()
-        self._error: Optional[BaseException] = None
-
-        def run():
-            try:
-                for batch in source:
-                    if self._stop.is_set():
-                        return
-                    placed = place_fn(batch)
-                    while not self._stop.is_set():
-                        try:
-                            self.q.put(placed, timeout=0.1)
-                            break
-                        except queue.Full:
-                            continue
-            except BaseException as e:  # surface to the consumer
-                self._error = e
-
-        self.thread = threading.Thread(target=run, daemon=True)
-        self.thread.start()
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        while True:
-            try:
-                return self.q.get(timeout=0.1)
-            except queue.Empty:
-                if self._error is not None:
-                    raise self._error
-                if not self.thread.is_alive():
-                    raise StopIteration
-
-    def close(self):
-        self._stop.set()
-        self.thread.join(timeout=5)
+def prefetch(source: Iterable, place_fn: Callable, depth: int) -> Iterator:
+    """``place_fn`` (host -> device) over ``source``, ``depth`` batches
+    ahead of the one handed out: their copies (pinned, ``non_blocking``)
+    are queued before the step that consumes the current batch, and the
+    host never waits for one. ``depth`` 0 places each batch as it is
+    taken."""
+    it = iter(source)
+    ahead = collections.deque(place_fn(b) for b in itertools.islice(it, depth))
+    for batch in it:
+        ahead.append(place_fn(batch))
+        yield ahead.popleft()
+    yield from ahead

@@ -11,7 +11,8 @@ import numpy as np
 from serverless_learn_tpu_torch.models.registry import (ModelBundle,
                                                         register_model)
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
-from serverless_learn_tpu_torch.ops.losses import causal_lm_loss
+from serverless_learn_tpu_torch.ops.losses import (FUSED_CE_NOT_PORTED,
+                                                  causal_lm_loss)
 
 # Reference options this port does not run yet, and where they wait.
 _NOT_PORTED = {
@@ -45,7 +46,7 @@ def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
     """The causal-LM training bundle: next-token loss on synthetic uniform
     tokens."""
     if fused_ce:
-        causal_lm_loss(None, None, fused=True)  # raises: K4/K5 not ported
+        raise NotImplementedError(FUSED_CE_NOT_PORTED)
 
     def loss_fn(model, batch):
         logits = model(batch["tokens"])

@@ -218,18 +218,16 @@ class Attention(nn.Module):
             ck[rows, index] = k[:, 0]
             cv[rows, index] = v[:, 0]
             out = xla_attention(q, ck, cv, mask=mask)
-        else:
-            if mode == "prefill":
-                ck, cv = kv
-                ck[:, :T] = k
-                cv[:, :T] = v
+        elif mode == "prefill":
+            ck, cv = kv
+            ck[:, :T] = k
+            cv[:, :T] = v
             # Right-padded rows: real token i attends only to [0, i], all
             # real; pad positions produce values nobody reads.
-            if mode == "prefill":
-                out = xla_attention(q, k, v, causal=True)
-            else:
-                out = dot_product_attention(q, k, v, causal=True,
-                                            impl=cfg.attention_impl)
+            out = xla_attention(q, k, v, causal=True)
+        else:
+            out = dot_product_attention(q, k, v, causal=True,
+                                        impl=cfg.attention_impl)
         return self.o_proj(out.reshape(B, T, H * D))
 
 

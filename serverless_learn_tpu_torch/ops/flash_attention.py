@@ -153,6 +153,31 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, *, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def kernel_tolerance(ref: torch.Tensor) -> torch.Tensor:
+    """The elementwise limit on |kernel - plain| for ``ref``, an output of a
+    plain version (out, dq ``[B, T, H, D]``; dk, dv ``[B, S, K, D]``). Its
+    absolute term follows each row's own largest value over D, not the
+    tensor's, so a wrong tile in a row of small values still fails.
+
+    float32: only the order of the f32 sums differs, 1e-5 of the value
+    plus 1e-5 of its row's largest. bfloat16: both sides round the result
+    to bf16 (one ulp, at most 2^-7 of the value), and K1 rounds each p to
+    bf16 against its tile's running max where the plain version uses the
+    row's final max, so every p of a row moves by up to 2^-8 of itself on
+    either side: 2^-7 of the value plus 2^-6 of its row's largest (about
+    three times the worst such drift of a 4096-key row,
+    ``tests/test_torch_flash_attention.py``). Both add 2^-16 of the
+    tensor's largest value for rows that cancel to about zero: dq of the
+    first causal query is ``p (dp - delta)`` with dp and delta the same
+    f32 products summed in other orders."""
+    a = ref.float().abs()
+    row = a.amax(dim=-1, keepdim=True)
+    floor = 2 ** -16 * a.max()
+    if ref.dtype == torch.float32:
+        return 1e-5 * (a + row) + floor
+    return 2 ** -7 * a + 2 ** -6 * row + floor
+
+
 # ------------------------------------------------------------- kernels --
 
 

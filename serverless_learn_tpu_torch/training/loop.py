@@ -1,7 +1,8 @@
 """The training loop, the port of ``serverless_learn_tpu/training/loop.py``:
-a trainer, a synthetic batch source with device prefetch, and the
-throughput meter. The reference's metrics registry, goodput ledger, flight
-recorder and tracing spans wait for the telemetry item of ROADMAP.md.
+a trainer, a synthetic batch source placed on the device ahead of the
+step, and the throughput meter. The reference's metrics registry, goodput
+ledger, flight recorder and tracing spans wait for the telemetry item of
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from serverless_learn_tpu_torch.config import ExperimentConfig
-from serverless_learn_tpu_torch.data.datasets import Prefetcher, SyntheticSource
+from serverless_learn_tpu_torch.data.datasets import SyntheticSource, prefetch
 from serverless_learn_tpu_torch.training.train_step import (Trainer,
                                                             build_trainer)
 from serverless_learn_tpu_torch.utils.metrics import (H100_BF16_PEAK,
@@ -46,32 +47,24 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
     trainer = trainer or build_trainer(config, device)
     if state is None:
         state = trainer.init()
-    created_source = source is None
     if source is None:
         source = make_source(config, trainer, start_step=state.step)
-    prefetch = Prefetcher(iter(source), trainer.place,
-                          depth=config.data.prefetch)
+    batches = prefetch(source, trainer.place, config.data.prefetch)
     meter = ThroughputMeter(
         batch_size=config.train.batch_size,
         flops_per_step=step_flops(config, trainer, state),
         peak_flops=H100_BF16_PEAK if trainer.device.type == "cuda" else None,
         tokens_per_sample=config.data.seq_len)
     meter.start()
-    try:
-        for i, batch in zip(range(state.step, config.train.num_steps),
-                            prefetch):
-            state, metrics = trainer.step(state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            stats = meter.record(i + 1, metrics)
-            if verbose and (i + 1) % config.train.log_every == 0:
-                log_json({"step": stats.step,
-                          "step_time_s": round(stats.step_time_s, 5),
-                          "samples_per_sec": round(stats.samples_per_sec, 1),
-                          **{k: round(v, 5) for k, v in metrics.items()}})
-            if step_callback is not None:
-                step_callback(i + 1, state, stats)
-    finally:
-        prefetch.close()
-        if created_source and hasattr(source, "close"):
-            source.close()
+    for i, batch in zip(range(state.step, config.train.num_steps), batches):
+        state, metrics = trainer.step(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        stats = meter.record(i + 1, metrics)
+        if verbose and (i + 1) % config.train.log_every == 0:
+            log_json({"step": stats.step,
+                      "step_time_s": round(stats.step_time_s, 5),
+                      "samples_per_sec": round(stats.samples_per_sec, 1),
+                      **{k: round(v, 5) for k, v in metrics.items()}})
+        if step_callback is not None:
+            step_callback(i + 1, state, stats)
     return state, meter

@@ -17,8 +17,8 @@ from serverless_learn_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash)
 from serverless_learn_tpu_torch.ops.attention import dot_product_attention
 from serverless_learn_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_dkv, flash_dkv_reference, flash_dq,
-    flash_dq_reference, flash_fwd, flash_fwd_reference)
+    NEG, flash_attention, flash_dkv, flash_dkv_reference, flash_dq,
+    flash_dq_reference, flash_fwd, flash_fwd_reference, kernel_tolerance)
 
 B, T, H, K, D = 1, 256, 4, 2, 32
 VLEN = 200  # "len" mode: the last 56 positions are padding
@@ -139,6 +139,56 @@ def test_auto_policy_thresholds(monkeypatch, T_, lengths, impl):
     assert seen == [impl]
 
 
+def _k1_arithmetic_bf16(q, k, v, tile=64):
+    """K1's forward as the kernel computes it, in torch: 64-key tiles, a
+    running max and sum, p rounded to bf16 against the running max before
+    ``p @ v``, f32 accumulators rescaled as the max grows; causal."""
+    Bq, Tq, Hq, Dq = q.shape
+    kf = k.float().repeat_interleave(Hq // k.shape[2], dim=2)
+    vf = v.float().repeat_interleave(Hq // k.shape[2], dim=2)
+    t = torch.arange(Tq)
+    m = torch.full((Bq, Hq, Tq, 1), NEG)
+    l = torch.zeros(Bq, Hq, Tq, 1)
+    acc = torch.zeros(Bq, Hq, Tq, Dq)
+    for j in range(0, Tq, tile):
+        s = torch.einsum("bthd,bshd->bhts", q.float(),
+                         kf[:, j:j + tile]) * Dq ** -0.5
+        s = s.masked_fill(t[None, :, None] < t[None, None, j:j + tile], NEG)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(s <= NEG * 0.5, 0.0, torch.exp(s - m_new))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhts,bshd->bhtd", p.to(torch.bfloat16).float(), vf[:, j:j + tile])
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def test_kernel_tolerance_passes_k1_rounding_and_fails_wrong_tiles():
+    """The bf16 limit the card tests and chip_smoke.py hold K1-K3 to: K1's
+    own arithmetic (p rounded against the running max) stays within half
+    of it over 4096 causal keys, while a kernel that gets the later rows'
+    p @ v wrong by one typical value of the row, or reads one k tile's v
+    as zero, fails it in every row of the later half."""
+    b, t, h, k, d = 1, 4096, 2, 1, 64
+    q, kk, v, _, _ = _inputs(7, b=b, t=t, h=h, k=k, d=d)
+    q, kk, v = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kk, v))
+    ref, lse = flash_fwd_reference(q, kk, v, causal=True)
+    limit = kernel_tolerance(ref)
+    err = (_k1_arithmetic_bf16(q, kk, v).float() - ref.float()).abs()
+    assert (err / limit).max().item() <= 0.5
+    late = slice(t // 2, None)
+    typical = ref[:, late].float().abs().median(dim=-1, keepdim=True).values
+    off_by_typical = ref[:, late].float() + typical
+    assert bool((off_by_typical - ref[:, late].float()).abs().gt(
+        limit[:, late]).any(dim=-1).all())  # every late row fails
+    v0 = v.clone()
+    v0[:, :64] = 0
+    wrong_tile = flash_fwd_reference(q, kk, v0, causal=True)[0]
+    assert bool(((wrong_tile.float() - ref.float()).abs() > limit)[
+        :, late].any(dim=-1).all())  # every late row fails
+
+
 # ------------------------------------------------------------ on the card --
 
 
@@ -158,17 +208,6 @@ CARD_CASES = [
     (2, 256, 256, 4, 2, 64, True, "len", torch.bfloat16),
     (2, 256, 256, 4, 2, 64, False, "rows", torch.float32),
 ]
-
-
-def _card_tolerance(dtype, ref):
-    """f32: the sums run in another order (1e-5 of the largest value).
-    bf16: the kernel rounds p against each tile's running max and the
-    plain version against the row's max, and both round the output to
-    bf16: a few bf16 ulps (2^-8 relative) of the largest values."""
-    big = ref.abs().max()
-    if dtype == torch.float32:
-        return 1e-5 * ref.abs() + 1e-5 * big
-    return 2 ** -7 * ref.abs() + 2e-2 * big
 
 
 @pytest.mark.cuda
@@ -198,10 +237,10 @@ def test_kernels_match_plain_on_card(card, case):
     for name, got, ref in [("out", out, want_out), ("lse", lse, want_lse),
                            ("dq", dq, want[0]), ("dk", dk, want[1]),
                            ("dv", dv, want[2])]:
-        got, ref = got.float(), ref.float()
         if name == "lse":
             ok = (got - ref).abs() <= 1e-4 * (1 + ref.abs())
-        else:
-            ok = (got - ref).abs() <= _card_tolerance(dtype, ref)
+        else:  # the limit follows the plain output's own dtype
+            ok = (got.float() - ref.float()).abs() <= kernel_tolerance(ref)
+        got, ref = got.float(), ref.float()
         assert bool(torch.isfinite(got).all()), name
         assert bool(ok.all()), (name, (got - ref).abs().max().item())

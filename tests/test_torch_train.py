@@ -28,9 +28,10 @@ from serverless_learn_tpu.parallel.mesh import make_mesh
 from serverless_learn_tpu.training.train_step import (
     build_trainer as jax_build_trainer)
 from serverless_learn_tpu_torch.bridge import from_jax_params
-from serverless_learn_tpu_torch.config import (DataConfig, ExperimentConfig,
+from serverless_learn_tpu_torch.config import (_FIELDS_NOT_PORTED,
+                                               DataConfig, ExperimentConfig,
                                                OptimizerConfig, TrainConfig)
-from serverless_learn_tpu_torch.data.datasets import SyntheticSource
+from serverless_learn_tpu_torch.data.datasets import SyntheticSource, prefetch
 from serverless_learn_tpu_torch.ops import flash_attention as fa
 from serverless_learn_tpu_torch.training.loop import run_training
 from serverless_learn_tpu_torch.training.train_step import build_trainer
@@ -176,6 +177,52 @@ def test_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_trainer(tcfg)  # the card is the default device
+
+
+# A value away from the default for every field the port keeps but does not
+# run.
+UNPORTED_VALUES = {
+    ("train", "checkpoint_every"): 200, ("train", "zero_stage"): 1,
+    ("train", "eval_every"): 5, ("train", "eval_steps"): 3,
+    ("train", "donate_state"): False,
+    ("data", "shard_server_addr"): "shards:50053",
+    ("data", "dataset"): "sft_corpus", ("data", "eval_dataset"): "held_out",
+    ("data", "augment"): True, ("data", "mask_rate"): 0.3,
+    ("data", "learnable"): True,
+}
+
+
+def test_every_unported_field_has_a_case():
+    assert set(UNPORTED_VALUES) == set(_FIELDS_NOT_PORTED)
+
+
+@pytest.mark.parametrize("field", sorted(UNPORTED_VALUES),
+                         ids=lambda f: ".".join(f))
+def test_unported_field_raises_off_its_default(field):
+    section, name = field
+    raw = {"model": "llama_tiny", section: {name: UNPORTED_VALUES[field]}}
+    with pytest.raises(NotImplementedError,
+                       match=rf"{section}\.{name}=.*ROADMAP"):
+        ExperimentConfig.from_dict(raw)
+    default = getattr(ExperimentConfig(), section)
+    raw[section][name] = getattr(default, name)
+    ExperimentConfig.from_dict(raw)  # its default loads
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_prefetch_places_batches_ahead_in_order(depth):
+    placed = []
+
+    def place(b):
+        placed.append(b)
+        return -b
+
+    got = []
+    for b in prefetch(range(5), place, depth):
+        # the batch handed out and the `depth` after it are placed
+        assert len(placed) == min(len(got) + 1 + depth, 5)
+        got.append(b)
+    assert got == [0, -1, -2, -3, -4] and placed == list(range(5))
 
 
 def test_train_cli_on_cpu():
