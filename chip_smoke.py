@@ -7,9 +7,9 @@ Drives ``serverless_learn_tpu_torch`` (never JAX) on one card, in phases;
 any failing phase exits non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the port from ``csrc/`` with nvcc, one
-   process per source, all at once, and prints each kernel's registers and
-   spills;
+2. builds every CUDA kernel of the port from ``csrc/`` (three sources) with
+   nvcc, one process per source, all at once, and prints each kernel's
+   registers and spills;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, for every row tile the kernel has and every
    row count phase 9 serves (decode batches and prefills);
@@ -22,13 +22,30 @@ any failing phase exits non-zero:
    and "rows" masks, f32, and the head dims 32 and 128;
 7. times them at the training shape beside their bounds, their plain
    versions and ``scaled_dot_product_attention``;
+6b. holds the cross-entropy kernels (K4 forward, K5 backward) against
+    their plain versions: the llama_8b loss shape read through the strided
+    ``logits[:, :-1]``, a ragged and an odd (unaligned) vocab, f32, equal
+    rows, +-80 outliers, labels at the vocab's edges, expanded and random
+    loss cotangents; and shows the check fails a K5 that zeroes the
+    non-label columns and a K4 that drops the last 256 columns;
+7b. times them at the 8B loss shape beside their bounds, their plain
+    versions and ``F.cross_entropy``;
 8. trains llama_tiny with flash attention for three adamw steps on the card
    (kernels) and on the CPU (plain) from the same weights and batches and
-   compares losses and params; then trains full-width llama_1b (batch 2 x
-   4096 tokens, 5 adamw steps) through the port's ``run_training`` and
-   checks the losses, that every attention layer of every step went
-   through the three kernels and that the dense path never ran; then
-   profiles one more step;
+   compares losses and params (8c: the same with rank-4 LoRA and the fused
+   loss); then trains full-width llama_1b (batch 2 x 4096 tokens, 5 adamw
+   steps) through the port's ``run_training`` and checks the losses, that
+   every attention layer of every step went through the three kernels and
+   that the dense path never ran; then profiles one more step;
+   8d. trains full-depth llama_8b with rank-16 LoRA, remat and the fused
+   loss (the one-card cut of ``configs/llama8b_lora_elastic.json``, 8 x
+   4096 tokens in 4 microbatches, 3 steps) through ``run_training``, and
+   checks the losses, the exact launches of K1-K5, that neither the dense
+   attention nor the unfused loss ran, that the frozen base is
+   bit-identical and that the optimizer state holds the adapters alone;
+   8e. compares one batch-2 microbatch's loss and adapter gradients with
+   the fused loss and the unfused one, with their times and peak memory;
+   8f. profiles one batch-2 fused step;
 9. builds full-width llama_8b int8 from a seed, serves concurrent greedy
    and sampled requests through the port's ``GenerationServer`` and checks
    the replies, by the launch counter that every projection of every
@@ -800,6 +817,494 @@ def train_full_width(torch, card):
     return launches
 
 
+# ------------------------------------------------------- cross-entropy --
+
+F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores, NVIDIA's data sheet
+# The LoRA slice's loss shape: llama_8b logits [2, 4096, 128256] in bf16,
+# of which the causal loss reads logits[:, :-1] in place (N = 2 x 4095).
+CE_B, CE_T, CE_V = 2, 4096, 128256
+CE_CASES = [
+    # name, (A, T) rows, V, dtype, strided view of [A, T + 1, V], g
+    ("train_8b_view", (CE_B, CE_T - 1), CE_V, "bfloat16", True, "expanded"),
+    ("ragged_v1000_n77", (1, 77), 1000, "bfloat16", False, "random"),
+    ("odd_v_unaligned", (1, 50), 1001, "bfloat16", False, "expanded"),
+    ("f32", (2, 40), 5000, "float32", True, "random"),
+    ("outliers_full_v", (1, 64), CE_V, "bfloat16", False, "random"),
+]
+
+
+def ce_inputs(torch, g, rows, V, dtype, view, g_kind):
+    """Logits ~ 4 N(0, 1); the first rows hold equal logits, a +80 and a -80
+    outlier; labels at 0, V - 1, inside the last partial pass of K4's loop
+    (it walks 8192 bf16 columns a pass, four 16-byte loads of 256 threads)
+    and at random; g one value expanded with stride 0 (as .mean()'s
+    backward gives it) or a random value a row."""
+    A, T = rows
+    dt = getattr(torch, dtype)
+    full = 4 * torch.randn(A, T + int(view), V, generator=g, device="cuda")
+    flat = full.view(-1, V)
+    flat[0] = 1.5
+    flat[1, 3] = 80.0
+    flat[2, 5] = -80.0
+    x = full.to(dt)
+    x = x[:, :-1] if view else x
+    labels = torch.randint(0, V, (A, T), generator=g, device="cuda")
+    labels.view(-1)[:3] = torch.tensor([0, V - 1, V - 1 - (V % 8192) // 2])
+    n = A * T
+    if g_kind == "expanded":
+        gg = torch.full((1, 1), 1.0 / n, device="cuda").expand(A, T)
+    else:
+        gg = torch.rand(A, T, generator=g, device="cuda") * (2.0 / n)
+    return x, labels, gg
+
+
+def ce_ratio(torch, err, limit) -> float:
+    """The worst err / limit; where the limit is 0 only an exact 0 passes."""
+    return torch.where(limit > 0, err / limit.clamp_min(1e-38),
+                       torch.where(err > 0, math.inf, 0.0)).max().item()
+
+
+def check_ce(torch, card):
+    """Phase 6b: K4 and K5 against their plain versions in every case; the
+    worst error / limit of each output. Then the check's teeth: at the 8B
+    shape and the ragged one, a plain K5 that zeroes every column but the
+    label's and a plain K4 that drops the last 256 vocab columns must fail
+    the same limits."""
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"cross_entropy_fwd": 0.0, "cross_entropy_bwd": 0.0}
+    worst_ratio = {"loss": 0.0, "lse": 0.0, "dx": 0.0}
+    teeth = {}
+    for name, rows, V, dtype, view, g_kind in CE_CASES:
+        x, labels, gg = ce_inputs(torch, g, rows, V, dtype, view, g_kind)
+        loss, lse = ce.cross_entropy_fwd(x, labels)
+        dx = ce.cross_entropy_bwd(x, labels, lse, gg)
+        torch.cuda.synchronize()
+        ref_loss, ref_lse = ce.cross_entropy_fwd_reference(x, labels)
+        ref_dx = ce.cross_entropy_bwd_reference(x, labels, ref_lse, gg)
+        if dx.shape != x.shape or dx.dtype != x.dtype:
+            fail(f"ce {name}: dx {tuple(dx.shape)} {dx.dtype}, expected "
+                 f"{tuple(x.shape)} {x.dtype}")
+        lim = ce.fwd_tolerance(ref_lse)
+        dlim = ce.bwd_tolerance(ref_dx)
+        errs, ratios = {}, {}
+        for out_name, got, ref, limit in [("loss", loss, ref_loss, lim),
+                                          ("lse", lse, ref_lse, lim),
+                                          ("dx", dx, ref_dx, dlim)]:
+            if not bool(torch.isfinite(got).all()):
+                fail(f"ce {name}: non-finite {out_name}")
+            err = (got.float() - ref.float()).abs()
+            errs[out_name] = err.max().item()
+            ratios[out_name] = ce_ratio(torch, err, limit)
+            worst_ratio[out_name] = max(worst_ratio[out_name],
+                                        ratios[out_name])
+            if not ratios[out_name] <= 1:
+                fail(f"ce {name}: {out_name} disagrees with plain: worst "
+                     f"error / limit {ratios[out_name]:.4g}, max abs "
+                     f"{errs[out_name]:.4g}")
+        worst["cross_entropy_fwd"] = max(worst["cross_entropy_fwd"],
+                                         errs["loss"], errs["lse"])
+        worst["cross_entropy_bwd"] = max(worst["cross_entropy_bwd"],
+                                         errs["dx"])
+        if name in ("train_8b_view", "ragged_v1000_n77"):
+            bad_dx = torch.zeros_like(ref_dx)
+            bad_dx.scatter_(-1, labels.long()[..., None],
+                            ref_dx.gather(-1, labels.long()[..., None]))
+            _, bad_lse = ce.cross_entropy_fwd_reference(x[..., :-256],
+                                                        labels)
+            bad_loss = bad_lse - (ref_lse - ref_loss)  # the label still read
+            teeth[name] = {
+                "k5_zero_off_label_dx": ce_ratio(
+                    torch, (bad_dx.float() - ref_dx.float()).abs(), dlim),
+                "k4_drop_last_256_lse": ce_ratio(
+                    torch, (bad_lse - ref_lse).abs(), lim),
+                "k4_drop_last_256_loss": ce_ratio(
+                    torch, (bad_loss - ref_loss).abs(), lim)}
+            if not all(r > 1 for r in teeth[name].values()):
+                fail(f"ce {name}: a planted fault passed the check: "
+                     f"{teeth[name]}")
+            del bad_dx, bad_lse, bad_loss
+        emit("check_ce", card=card, case=name, rows=list(rows), vocab=V,
+             dtype=dtype, strided_view=view, g=g_kind, max_abs_err=errs,
+             worst_err_over_limit=ratios,
+             max_abs_ref={"loss": ref_loss.abs().max().item(),
+                          "dx": ref_dx.float().abs().max().item()})
+        del x, labels, gg, loss, lse, dx, ref_loss, ref_lse, ref_dx
+        torch.cuda.empty_cache()
+    emit("check_ce_summary", card=card, cases=len(CE_CASES), worst=worst,
+         worst_err_over_limit=worst_ratio,
+         planted_faults_err_over_limit=teeth,
+         tolerance="loss, lse: 2e-5 (|lse| + 1) (f32 sums of exps in "
+         "another order); dx per element: bf16 2^-7 |ref| (one ulp: a flip "
+         "at a power of two reads just under 1), f32 2e-5 |ref|, both + "
+         "2^-10 of the row's median |ref| + 2^-126 "
+         "(ops.cross_entropy.fwd_tolerance / bwd_tolerance)")
+    return worst
+
+
+def ce_bounds(N: int, V: int, esize: int = 2):
+    """(ms, bound_by) of K4 and K5 over N rows of V: the bytes (K4 reads x,
+    the labels and writes loss and lse; K5 reads x, labels, lse, g and
+    writes dx) over 3.35 TB/s against the f32 operations (4 an element:
+    max, subtract, exp, add; K5 subtract, exp, onehot, multiply) over the
+    67 TFLOP/s outside the tensor cores."""
+    out = {}
+    for name, moved in (("cross_entropy_fwd", N * V * esize + 12 * N),
+                        ("cross_entropy_bwd", 2 * N * V * esize + 12 * N)):
+        bytes_s, ops_s = moved / HBM_BYTES_PER_S, 4 * N * V / F32_FLOP_PER_S
+        out[name] = (max(bytes_s, ops_s) * 1e3,
+                     "bytes" if bytes_s >= ops_s else "operations")
+    return out
+
+
+def time_ce(torch, card):
+    """Phase 7b: K4 and K5 at the 8B loss shape (the strided view, as the
+    main path reads it), beside their bounds, their plain versions and
+    F.cross_entropy(x_bf16, labels, reduction="none") on a contiguous
+    [N, V] copy: its forward for K4, its backward alone for K5."""
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x, labels, gg = ce_inputs(torch, g, (CE_B, CE_T - 1), CE_V, "bfloat16",
+                              True, "expanded")
+    loss, lse = ce.cross_entropy_fwd(x, labels)
+    ms = {"cross_entropy_fwd": time_ms(
+              torch, lambda i: ce.cross_entropy_fwd(x, labels), 20),
+          "cross_entropy_bwd": time_ms(
+              torch, lambda i: ce.cross_entropy_bwd(x, labels, lse, gg), 20)}
+    plain = {"cross_entropy_fwd": time_ms(
+                 torch, lambda i: ce.cross_entropy_fwd_reference(x, labels),
+                 3, warmup=1),
+             "cross_entropy_bwd": time_ms(
+                 torch, lambda i: ce.cross_entropy_bwd_reference(
+                     x, labels, lse, gg), 3, warmup=1)}
+    torch.cuda.empty_cache()
+    N = CE_B * (CE_T - 1)
+    F = torch.nn.functional
+    x2, lab2 = x.reshape(N, CE_V), labels.reshape(N).long()
+    lib_fwd = time_ms(torch, lambda i: F.cross_entropy(
+        x2, lab2, reduction="none"), 20)
+    xg = x2.detach().requires_grad_()
+    lo = F.cross_entropy(xg, lab2, reduction="none")
+    gv = gg.reshape(N).to(lo.dtype)
+    lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
+        lo, xg, gv, retain_graph=True), 10)
+    library = {"cross_entropy_fwd": lib_fwd, "cross_entropy_bwd": lib_bwd}
+    rows = {}
+    for name, (b_ms, by) in ce_bounds(N, CE_V).items():
+        rows[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=b_ms,
+                          bound_by=by, fraction_of_bound=b_ms / ms[name],
+                          library_ms=library[name])
+        emit("time_ce", card=card, kernel=name, rows=N, vocab=CE_V,
+             dtype="bfloat16", **rows[name])
+    emit("time_ce_library", card=card,
+         library_call="torch.nn.functional.cross_entropy(x_bf16 [N, V], "
+                      "labels, reduction='none'): forward for K4, its "
+                      "backward alone (autograd.grad with retain_graph) "
+                      "for K5; timed here only, never called by the port")
+    del x, x2, xg, lo, labels, gg, loss, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lora_tiny_config():
+    import dataclasses
+
+    cfg = tiny_train_config()
+    return dataclasses.replace(
+        cfg, model_overrides={"attention_impl": "flash", "lora_rank": 4,
+                              "fused_ce": True},
+        optimizer=dataclasses.replace(cfg.optimizer, warmup_steps=0))
+
+
+def train_tiny_lora_agreement(torch, card):
+    """Phase 8c: llama_tiny (f32) with rank-4 LoRA and the fused loss, three
+    adamw steps without warmup, on the card (K1-K5) and on the CPU (the
+    plain versions) from the same weights and batches."""
+    from serverless_learn_tpu_torch.models.llama import lora_trainable_mask
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+    from serverless_learn_tpu_torch.training.loop import make_source
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    cfg = lora_tiny_config()
+    cpu = build_trainer(cfg, "cpu")
+    gpu = build_trainer(cfg, "cuda")
+    cpu_state = cpu.init()
+    gpu_state = gpu.init(params=cpu_state.model.state_dict())
+
+    def run(trainer, state):
+        losses = []
+        for _, host in zip(range(cfg.train.num_steps),
+                           make_source(cfg, trainer)):
+            state, m = trainer.step(state, trainer.place(host))
+            losses.append(float(m["loss"]))
+        return losses, {k: v.detach().cpu()
+                        for k, v in state.model.state_dict().items()}
+
+    lc, pc = run(cpu, cpu_state)
+    before = (ce.cross_entropy_fwd.launches, ce.cross_entropy_bwd.launches)
+    lg, pg = run(gpu, gpu_state)
+    n = (ce.cross_entropy_fwd.launches - before[0],
+         ce.cross_entropy_bwd.launches - before[1])
+    mask = lora_trainable_mask(pc)
+    loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+    lora_err = max((pc[k] - pg[k]).abs().max().item() for k in pc if mask[k])
+    frozen_same = all(torch.equal(pc[k], pg[k]) for k in pc if not mask[k])
+    emit("train_tiny_lora_agreement", card=card, steps=len(lc),
+         cpu_losses=lc, card_losses=lg, max_loss_diff=loss_err,
+         max_lora_param_diff=lora_err, frozen_base_equal=frozen_same,
+         ce_launches=list(n),
+         tolerance="losses within 1e-4, LoRA params within 2e-5 (f32 on "
+                   "both sides, sums in other orders; adam moves every "
+                   "weight by up to lr = 1e-3 a step); the frozen base equal")
+    if n != (cfg.train.num_steps, cfg.train.num_steps):
+        fail(f"tiny LoRA training launched K4/K5 {n} times, expected "
+             f"{cfg.train.num_steps} each")
+    if not (loss_err <= 1e-4 and lora_err <= 2e-5 and frozen_same):
+        fail(f"tiny LoRA training: card vs cpu losses differ by "
+             f"{loss_err:.3g}, LoRA params by {lora_err:.3g}, frozen base "
+             f"equal {frozen_same}")
+
+
+# The one-card cut of configs/llama8b_lora_elastic.json, as a user types it.
+LORA_8B_ARGS = [
+    "train", "--model", "llama_8b",
+    "--set", "model_overrides.lora_rank=16",
+    "--set", "model_overrides.remat=true",
+    "--set", "model_overrides.fused_ce=true",
+    "--batch-size", "8", "--set", "train.grad_accum=4", "--seq-len", "4096",
+    "--lr", "2e-4", "--set", "optimizer.warmup_steps=100",
+    "--set", "optimizer.decay_steps=10000",
+    "--set", "optimizer.grad_clip_norm=1.0", "--steps", "3"]
+LORA_8B_ADAPTER_TENSORS, LORA_8B_ADAPTER_PARAMS = 128, 6_815_744
+FULL_COPIES = ("layer_0.attn.q_proj.kernel", "layer_31.mlp.down_proj.kernel",
+               "norm_f.scale")
+
+
+def checksums(torch, model, names):
+    """Per tensor, in float64: (sum, sum of squares)."""
+    params = dict(model.named_parameters())
+    out = {}
+    for n in names:
+        d = params[n].detach().double()
+        out[n] = (d.sum().item(), d.square().sum().item())
+        del d
+    return out
+
+
+def kernel_split(torch, prof, names):
+    """The profile's device time: busy and idle share, the named kernels,
+    cuBLAS's products and the rest, and the top kernels."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        fail("the profiler recorded no device events")
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    ours = {n: sum(v for k, v in by_name.items() if f"{n}_kernel" in k) / 1e3
+            for n in names}
+    # cuBLAS's products: its Hopper kernels are named nvjet_* or *gemm*.
+    matmul = sum(v for k, v in by_name.items()
+                 if "nvjet" in k or "gemm" in k) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(step_span_ms=span / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1 - busy / span, kernels_ms=ours,
+                kernels_share_of_busy=sum(ours.values()) * 1e3 / busy,
+                cublas_matmul_ms=matmul,
+                other_kernels_ms=busy / 1e3 - matmul - sum(ours.values()),
+                device_kernels=len(kern),
+                top_kernels_ms=[(k[:90], v / 1e3) for k, v in top])
+
+
+def train_lora_8b(torch, card):
+    """Phase 8d: full-depth llama_8b with rank-16 LoRA on q/v, remat and the
+    fused loss, batch 8 x 4096 in 4 microbatches, 3 adamw steps (the config's
+    lr, warmup, decay and clip) through run_training; counters read around
+    the run. Then 8e: one batch-2 microbatch's forward + backward with the
+    fused loss and with the unfused one from the same state; 8f: one
+    batch-2 fused step under torch.profiler."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from serverless_learn_tpu_torch.cli import _train_config, build_parser
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.models.llama import lm_bundle
+    from serverless_learn_tpu_torch.ops import attention, losses
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.training.loop import (make_source,
+                                                          run_training)
+    from serverless_learn_tpu_torch.training.train_step import (Trainer,
+                                                                build_trainer)
+
+    cfg = _train_config(build_parser().parse_args(LORA_8B_ARGS))
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mcfg, model = trainer.bundle.cfg, state.model
+    named = dict(model.named_parameters())
+    frozen = [n for n, p in named.items() if not p.requires_grad]
+    adapters = [n for n, p in named.items() if p.requires_grad]
+    sums_before = checksums(torch, model, frozen)
+    copies = {n: named[n].detach().cpu().clone() for n in FULL_COPIES}
+
+    counts = {"dense_attention": 0, "unfused_loss": 0}
+    real_dense, real_ce = attention.xla_attention, losses.F.cross_entropy
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ce.cross_entropy_fwd,
+               ce.cross_entropy_bwd)
+    torch.cuda.reset_peak_memory_stats()
+    attention.xla_attention = transformer.xla_attention = counting(
+        "dense_attention", real_dense)
+    losses.F.cross_entropy = counting("unfused_loss", real_ce)
+    for k in kernels:
+        k.launches = 0
+    try:
+        state, meter = run_training(cfg, trainer=trainer, state=state)
+    finally:
+        attention.xla_attention = transformer.xla_attention = real_dense
+        losses.F.cross_entropy = real_ce
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses_ = [s.metrics["loss"] for s in meter.history]
+    norms = [s.metrics["grad_norm"] for s in meter.history]
+    times = [s.step_time_s for s in meter.history]
+    summary = meter.steady_state(skip=1)
+    sums_after = checksums(torch, model, frozen)
+    changed = [n for n in frozen if sums_after[n] != sums_before[n]]
+    changed += [n for n in FULL_COPIES
+                if not torch.equal(named[n].detach().cpu(), copies[n])]
+    opt = state.opt_state
+    opt_tensors = {m: len(opt[m]) for m in ("mu", "nu")}
+    opt_params = {m: sum(t.numel() for t in opt[m]) for m in ("mu", "nu")}
+    micro = cfg.train.num_steps * cfg.train.grad_accum
+    want = {"flash_fwd": 2 * mcfg.n_layers * micro,  # remat: twice a layer
+            "flash_dq": mcfg.n_layers * micro,
+            "flash_dkv": mcfg.n_layers * micro,
+            "cross_entropy_fwd": micro, "cross_entropy_bwd": micro}
+    expected = math.log(mcfg.vocab_size) + 0.5
+    emit("train_llama_8b_lora", card=card, command=LORA_8B_ARGS,
+         layers=mcfg.n_layers, d_model=mcfg.d_model, vocab=mcfg.vocab_size,
+         lora_rank=mcfg.lora_rank, params=sum(p.numel()
+                                              for p in named.values()),
+         adapter_tensors=len(adapters),
+         adapter_params=sum(named[n].numel() for n in adapters),
+         batch=cfg.train.batch_size, grad_accum=cfg.train.grad_accum,
+         seq_len=cfg.data.seq_len, steps=cfg.train.num_steps, init_s=init_s,
+         losses=losses_, grad_norms=norms,
+         lrs=[s.metrics["lr"] for s in meter.history], step_times_s=times,
+         mean_step_s_after_1=summary["step_time_s"],
+         tokens_per_s=summary["tokens_per_sec"], mfu=summary["mfu"],
+         model_flops_per_step=meter.flops_per_step,
+         max_memory_allocated_gb=peak_gb, launches=launches,
+         expected_launches=want, calls=counts,
+         frozen_tensors=len(frozen), frozen_changed=changed,
+         optimizer_state_tensors=opt_tensors,
+         optimizer_state_params=opt_params, expected_step1_loss=expected)
+    if not all(math.isfinite(x) for x in losses_ + norms):
+        fail(f"non-finite loss or grad norm: {losses_}, {norms}")
+    # lora_b starts at zero, so the model at init is the base: as phase 8b,
+    # logits ~N(0, 1) over the vocab and E[loss] ~ ln V + 1/2.
+    if abs(losses_[0] - expected) > 0.5:
+        fail(f"step-1 loss {losses_[0]:.4f}, expected {expected:.4f} +- 0.5")
+    if launches != want or any(counts.values()):
+        fail(f"launches {launches} (expected {want}); dense attention and "
+             f"the unfused loss ran {counts}")
+    if changed:
+        fail(f"{len(changed)} frozen tensors changed, e.g. {changed[:3]}")
+    if (set(opt_tensors.values()) != {LORA_8B_ADAPTER_TENSORS}
+            or set(opt_params.values()) != {LORA_8B_ADAPTER_PARAMS}):
+        fail(f"optimizer state {opt_tensors} tensors, {opt_params} params; "
+             f"expected {LORA_8B_ADAPTER_TENSORS} adapter tensors of "
+             f"{LORA_8B_ADAPTER_PARAMS} params")
+    if not all(n > 0 for n in norms):
+        fail(f"zero grad norm: {norms}")
+    del sums_before, sums_after, copies
+
+    # 8e: fused against unfused, one batch-2 microbatch from this state.
+    batch = trainer.place(next(iter(make_source(
+        dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, batch_size=2)), trainer, start_step=state.step))))
+    bundles = {True: trainer.bundle, False: lm_bundle(mcfg, fused_ce=False)}
+    lora = [named[n] for n in adapters]
+    runs = {True: [], False: []}
+    for fused in (False, True, True, False):
+        for p in lora:
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, _ = bundles[fused].loss_fn(model, batch)
+        loss.backward()
+        value = float(loss.detach())
+        torch.cuda.synchronize()
+        runs[fused].append(dict(
+            s=time.perf_counter() - t, loss=value,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            grads=[p.grad.detach().clone() for p in lora]))
+    for p in lora:
+        p.grad = None
+    f0, u0 = runs[True][0], runs[False][0]
+    loss_rel = abs(f0["loss"] - u0["loss"]) / abs(u0["loss"])
+    grad_rel = [((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30)).item()
+                for a, b in zip(f0["grads"], u0["grads"])]
+    emit("fused_vs_unfused_llama_8b_lora", card=card, batch=2,
+         seq_len=cfg.data.seq_len,
+         fused_s=[r["s"] for r in runs[True]],
+         unfused_s=[r["s"] for r in runs[False]],
+         fused_peak_gb=max(r["peak_gb"] for r in runs[True]),
+         unfused_peak_gb=max(r["peak_gb"] for r in runs[False]),
+         fused_loss=f0["loss"], unfused_loss=u0["loss"],
+         loss_rel_diff=loss_rel, max_grad_rel_diff=max(grad_rel),
+         median_grad_rel_diff=statistics.median(grad_rel),
+         min_adapter_grad_norm=min(g.float().norm().item()
+                                   for g in u0["grads"]),
+         tolerance="loss 1e-5 relative (f32 from the same bf16 logits); "
+                   "each adapter's gradient within 1e-2 of its norm (each "
+                   "side rounds the same f32 dlogits to bf16 once, one ulp "
+                   "at most, 2^-8 relative; the rest of the backward is "
+                   "the same)")
+    if not (loss_rel <= 1e-5 and max(grad_rel) <= 1e-2):
+        fail(f"fused vs unfused: loss {loss_rel:.3g} relative, worst "
+             f"adapter gradient {max(grad_rel):.3g}")
+    del runs, f0, u0
+
+    # 8f: one batch-2 fused step (forward, backward, update) profiled.
+    one = Trainer(config=dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=2, grad_accum=1)), bundle=trainer.bundle,
+        device=trainer.device, optimizer=trainer.optimizer)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = one.step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    emit("where_time_goes_llama_8b_lora_train", card=card, batch=2,
+         seq_len=cfg.data.seq_len, **kernel_split(
+             torch, prof, [k.__name__ for k in kernels]))
+    del state, trainer, one, batch, prof, model, named, lora
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -817,7 +1322,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    sources = ["quant_matmul", "flash_attention"]
+    sources = ["quant_matmul", "flash_attention", "cross_entropy"]
     reports = build.build(sources)  # one nvcc per source, started together
     for name in sources:
         build.load(name)
@@ -833,8 +1338,12 @@ def main() -> int:
     tiny_agreement(torch, card)
     flash_err = check_flash(torch, card)
     flash_time = time_flash(torch, card)
+    ce_err = check_ce(torch, card)
+    ce_time = time_ce(torch, card)
     train_tiny_agreement(torch, card)
+    train_tiny_lora_agreement(torch, card)
     flash_launches = train_full_width(torch, card)
+    lora_launches = train_lora_8b(torch, card)
     launches = serve_full_width(torch, card)
 
     kernels = [{
@@ -858,6 +1367,21 @@ def main() -> int:
             "source": "serverless_learn_tpu_torch/csrc/flash_attention.cu",
             "replaces": where, "launches": flash_launches[name],
             "max_abs_err": flash_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    replaces = {
+        "cross_entropy_fwd":
+            "serverless_learn_tpu/ops/pallas/cross_entropy.py:94",
+        "cross_entropy_bwd":
+            "serverless_learn_tpu/ops/pallas/cross_entropy.py:125",
+    }
+    for name, where in replaces.items():
+        row = ce_time[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "serverless_learn_tpu_torch/csrc/cross_entropy.cu",
+            "replaces": where, "launches": lora_launches[name],
+            "max_abs_err": ce_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))

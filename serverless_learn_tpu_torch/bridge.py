@@ -10,6 +10,9 @@ Projection leaves are flattened to the port's ``[I, O]`` layout:
   ``lm_head`` are already ``[I, O]``;
 * int8 ``kernel_q`` the same way, and its ``scale`` (``[H, D]`` for q/k/v)
   flattened to ``[O]``;
+* LoRA adapters: ``lora_a`` ``[d, r]`` passes through, ``lora_b`` ``[r, H,
+  D]`` (``q_lora``) or ``[r, K, D]`` (``v_lora``) becomes ``[r, H*D]`` /
+  ``[r, K*D]``;
 * the f32 embedding table and the norm scales pass through.
 """
 
@@ -48,13 +51,18 @@ def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
             a = a.reshape(int(np.prod(a.shape[:nc])), -1)
         elif site in _N_CONTRACT and leaf_name == "scale":
             a = a.reshape(-1)
+        elif site == "lora_b" and leaf_name == "kernel":
+            a = a.reshape(a.shape[0], -1)
         out[name] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
     return out
 
 
-def _jax_shape(site: str, leaf_name: str, shape, cfg: TransformerConfig):
+def _jax_shape(parts, shape, cfg: TransformerConfig):
     H, K, D, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
     heads = {"q_proj": H, "k_proj": K, "v_proj": K}
+    site, leaf_name = (parts[-2], parts[-1]) if len(parts) > 1 else ("", "")
+    if site == "lora_b" and leaf_name == "kernel":
+        return (shape[0], {"q_lora": H, "v_lora": K}[parts[-3]], D)
     if site in heads and leaf_name in ("kernel", "kernel_q"):
         return (d, heads[site], D)
     if site in heads and leaf_name == "scale":
@@ -71,10 +79,9 @@ def to_jax_params(state_dict: Dict[str, torch.Tensor],
     tree: dict = {}
     for name, t in state_dict.items():
         parts = name.split(".")
-        site = parts[-2] if len(parts) > 1 else ""
         a = t.detach().cpu()
         a = (a.to(torch.float32) if a.dtype == torch.bfloat16 else a).numpy()
-        a = a.reshape(_jax_shape(site, parts[-1], a.shape, cfg))
+        a = a.reshape(_jax_shape(parts, a.shape, cfg))
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})

@@ -2,6 +2,10 @@
 
     python -m serverless_learn_tpu_torch train --model llama_1b \\
         --batch-size 2 --seq-len 4096 --steps 5
+    python -m serverless_learn_tpu_torch train --model llama_8b \\
+        --set model_overrides.lora_rank=16 --set model_overrides.remat=true \\
+        --set model_overrides.fused_ce=true --batch-size 8 \\
+        --set train.grad_accum=4 --seq-len 4096 --steps 3
     python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8
     python -m serverless_learn_tpu_torch generate --model llama_tiny \\
         --prompt 5,9,11 --max-new-tokens 8
@@ -115,10 +119,12 @@ def cmd_train(args) -> int:
         raise SystemExit(NOT_PORTED["shard_server"])
     if args.metrics_port is not None or args.health:
         raise SystemExit(NOT_PORTED["telemetry"])
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
     from serverless_learn_tpu_torch.ops import flash_attention as fa
 
     cfg = _train_config(args)
-    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ce.cross_entropy_fwd,
+               ce.cross_entropy_bwd)
     before = [k.launches for k in kernels]
     state, meter = run_training(cfg, verbose=args.verbose,
                                 device=args.device)

@@ -1,24 +1,24 @@
 """Llama-style causal-LM family: ``llama_tiny`` (tests), ``llama_1b`` and
 ``llama_8b`` (Llama-3-8B-shaped: 32 layers, 32 heads / 8 KV heads,
 d_model 4096, d_ff 14336, vocab 128256, rope_theta 5e5). The presets and the
-training bundle are those of ``serverless_learn_tpu/models/llama.py``.
+training bundle are those of ``serverless_learn_tpu/models/llama.py``:
+``lora_rank > 0`` adds frozen-base LoRA adapters on the q and v projections,
+and the bundle's ``trainable_mask`` confines training to them.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Iterable
 
 import numpy as np
 
 from serverless_learn_tpu_torch.models.registry import (ModelBundle,
                                                         register_model)
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
-from serverless_learn_tpu_torch.ops.losses import (FUSED_CE_NOT_PORTED,
-                                                  causal_lm_loss)
+from serverless_learn_tpu_torch.ops.losses import causal_lm_loss
 
 # Reference options this port does not run yet, and where they wait.
 _NOT_PORTED = {
-    "lora_rank": "LoRA adapters and the trainable-subtree partition "
-                 "(training/partition.py) are not yet ported to PyTorch "
-                 "(ROADMAP.md queue 1 item 3)",
     "n_experts": "mixture-of-experts layers are not yet ported to PyTorch "
                  "(ROADMAP.md queue 1 item 4)",
 }
@@ -44,13 +44,13 @@ def _llama_cfg(size: str, **overrides) -> TransformerConfig:
 
 def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
     """The causal-LM training bundle: next-token loss on synthetic uniform
-    tokens."""
-    if fused_ce:
-        raise NotImplementedError(FUSED_CE_NOT_PORTED)
+    tokens; ``fused_ce`` takes the loss through the cross-entropy kernels
+    (K4/K5). With ``lora_rank > 0`` only the adapters train."""
 
     def loss_fn(model, batch):
         logits = model(batch["tokens"])
-        loss, metrics = causal_lm_loss(logits, batch["tokens"])
+        loss, metrics = causal_lm_loss(logits, batch["tokens"],
+                                       fused=fused_ce)
         return loss, {"metrics": metrics}
 
     def make_batch(rng: np.random.Generator, data_config, batch_size):
@@ -59,7 +59,17 @@ def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
                 np.int32)}
 
     return ModelBundle(cfg=cfg, loss_fn=loss_fn, make_batch=make_batch,
-                       task="lm")
+                       task="lm",
+                       trainable_mask=(lora_trainable_mask
+                                       if cfg.lora_rank > 0 else None))
+
+
+def lora_trainable_mask(names: Iterable[str]) -> Dict[str, bool]:
+    """{state-dict name: trainable}: True only on LoRA adapter tensors, the
+    reference's rule (a path component that starts with ``lora_`` or ends
+    with ``_lora``); the base is frozen."""
+    return {n: any(k.startswith("lora_") or k.endswith("_lora")
+                   for k in n.split(".")) for n in names}
 
 
 @register_model("llama_tiny")

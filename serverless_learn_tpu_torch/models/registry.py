@@ -9,7 +9,7 @@ comes later; ``bridge.py`` loads a flax tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -25,12 +25,15 @@ class ModelBundle:
     ``loss_fn(model, batch) -> (loss, {"metrics": {...}})`` (an optional
     ``"loss_weight"`` beside ``"metrics"`` weights grad-accumulation
     microbatches), ``make_batch(rng, data_config, batch_size)`` -> a dict
-    of numpy arrays, and the task name."""
+    of numpy arrays, the task name, and ``trainable_mask(names) -> {name:
+    bool}`` over the model's state-dict names where only part of the model
+    trains (None: all of it)."""
 
     cfg: TransformerConfig
     loss_fn: Callable
     make_batch: Callable
     task: str = "lm"
+    trainable_mask: Optional[Callable] = None
 
 
 def register_model(name: str):

@@ -15,8 +15,14 @@ plus ``lm_head``.
 The KV cache is updated in place (the reference returns a new cache each
 step); that keeps one copy of an 8 GB cache on the card.
 
+With ``lora_rank > 0`` each attention layer also holds ``q_lora`` and
+``v_lora`` adapters (:class:`LoRAAdapter`) whose deltas are added to the q
+and v projections before the rotation, as the reference adds them.
+
 A model built with ``trainable=True`` has every float parameter
-``requires_grad``; serving builds it without and runs under ``no_grad``.
+``requires_grad`` (the trainer then freezes what the bundle's trainable
+mask leaves out, ``training/partition.py``); serving builds it without and
+runs under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from serverless_learn_tpu_torch.config import not_ported
 from serverless_learn_tpu_torch.ops.attention import (dot_product_attention,
                                                       xla_attention)
 from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
@@ -66,6 +73,8 @@ class TransformerConfig:
     quant: Optional[str] = None  # None | "int8" (weight-only, inference)
     attention_impl: str = "auto"  # "auto" | "xla" | "flash" | "ring"
     remat: bool = False
+    lora_rank: int = 0  # > 0: LoRA adapters on the q and v projections
+    lora_alpha: float = 16.0
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", _as_dtype(self.dtype))
@@ -171,6 +180,25 @@ class QuantDenseGeneral(nn.Module):
         return quant_matmul(x.to(self.dtype), self.kernel_q, self.scale)
 
 
+class LoRAAdapter(nn.Module):
+    """The low-rank delta added to a frozen projection's output,
+    ``x @ lora_a @ lora_b * (alpha / rank)``, computed in ``dtype``:
+    ``lora_a [I, rank]`` starts normal(0.02), ``lora_b [rank, O]`` at zero,
+    so a fresh adapter leaves the base model's output unchanged."""
+
+    def __init__(self, in_features: int, rank: int, alpha: float,
+                 out_features: int, dtype, param_dtype, device=None):
+        super().__init__()
+        self.lora_a = DenseGeneral(in_features, rank, dtype, param_dtype,
+                                   device)
+        self.lora_b = DenseGeneral(rank, out_features, dtype, param_dtype,
+                                   device)
+        self.scale = alpha / rank
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lora_b(self.lora_a(x)) * self.scale
+
+
 def _proj(cfg: TransformerConfig, in_features: int, out_features: int,
           device) -> nn.Module:
     if cfg.quant == "int8":
@@ -198,6 +226,12 @@ class Attention(nn.Module):
         self.k_proj = _proj(cfg, d, K * D, device)
         self.v_proj = _proj(cfg, d, K * D, device)
         self.o_proj = _proj(cfg, H * D, d, device)
+        if cfg.lora_rank > 0:
+            lora = lambda out: LoRAAdapter(d, cfg.lora_rank, cfg.lora_alpha,
+                                           out, cfg.dtype, cfg.param_dtype,
+                                           device)
+            self.q_lora = lora(H * D)
+            self.v_lora = lora(K * D)
 
     def forward(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
                 *, mode: Optional[str] = None, kv=None, index=None,
@@ -209,9 +243,13 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, T, _ = x.shape
         H, K, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        q = apply_rope(self.q_proj(x).reshape(B, T, H, D), sin, cos)
+        q, v = self.q_proj(x), self.v_proj(x)
+        if cfg.lora_rank > 0:  # before the rotation, in every mode
+            q = q + self.q_lora(x)
+            v = v + self.v_lora(x)
+        q = apply_rope(q.reshape(B, T, H, D), sin, cos)
         k = apply_rope(self.k_proj(x).reshape(B, T, K, D), sin, cos)
-        v = self.v_proj(x).reshape(B, T, K, D)
+        v = v.reshape(B, T, K, D)
         if mode == "decode":
             ck, cv = kv
             rows = torch.arange(B, device=x.device)
@@ -271,6 +309,9 @@ class Transformer(nn.Module):
                  trainable: bool = False):
         super().__init__()
         if trainable and cfg.quant is not None:
+            if cfg.lora_rank > 0:
+                raise not_ported("QLoRA (LoRA adapters trained over an int8 "
+                                 "frozen base)", "ROADMAP.md queue 1 item 3f")
             raise ValueError("training with quant set is unsupported, as in "
                              "the reference")
         self.cfg = cfg
@@ -349,11 +390,26 @@ def leaf_generator(seed: int, name: str, device) -> torch.Generator:
     return g
 
 
+def _init_lora(name: str, t: torch.Tensor, gen: torch.Generator) -> bool:
+    """Fill a LoRA adapter's tensor as flax's initializers do (``lora_a``
+    normal(0.02), ``lora_b`` zeros); False for any other tensor."""
+    if name.endswith("lora_a.kernel"):
+        t.normal_(0.0, 0.02, generator=gen)
+    elif name.endswith("lora_b.kernel"):
+        t.zero_()
+    else:
+        return False
+    return True
+
+
 @torch.no_grad()
 def random_params(model: Transformer, seed: int = 0) -> Transformer:
     """Fill a float model in place from ``seed``: kernels and the embedding
-    table normal(0, 0.02), norm scales one."""
+    table normal(0, 0.02), norm scales one, LoRA adapters as
+    :func:`init_params` fills them."""
     for name, t in model.state_dict().items():
+        if _init_lora(name, t, leaf_generator(seed, name, t.device)):
+            continue
         if t.ndim >= 2:
             t.normal_(0.0, 0.02, generator=leaf_generator(seed, name, t.device))
         else:
@@ -368,10 +424,13 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
     (truncated normal over [-2, 2] std, scaled so the variance is 1 / fan_in,
     fan_in the contracted dims: ``[I, O]`` here, as flax's DenseGeneral
     flattens them), the embedding table ``variance_scaling(1, "fan_in",
-    "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)), norm scales 1.
-    The values differ from flax's, whose generator is JAX's."""
+    "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)), norm scales 1,
+    LoRA's ``lora_a`` normal(0.02) and ``lora_b`` zeros. The values differ
+    from flax's, whose generator is JAX's."""
     for name, t in model.state_dict().items():
         gen = leaf_generator(seed, name, t.device)
+        if _init_lora(name, t, gen):
+            continue
         if name.endswith("embedding"):
             t.normal_(0.0, 1.0 / math.sqrt(t.shape[1]), generator=gen)
         elif t.ndim >= 2:

@@ -30,10 +30,15 @@ def make_source(config: ExperimentConfig, trainer: Trainer,
 
 
 def step_flops(config: ExperimentConfig, trainer: Trainer, state) -> float:
+    """Model FLOPs of one step; frozen parameters count 4 a token, trained
+    ones 6 (``utils/metrics.py``)."""
     cfg = trainer.bundle.cfg
-    n_params = sum(p.numel() for p in state.model.parameters())
-    return lm_train_flops(n_params, cfg.vocab_size, cfg.d_model, cfg.n_layers,
-                          config.train.batch_size, config.data.seq_len)
+    params = list(state.model.parameters())
+    n_trainable = (None if trainer.bundle.trainable_mask is None
+                   else sum(p.numel() for p in params if p.requires_grad))
+    return lm_train_flops(sum(p.numel() for p in params), cfg.vocab_size,
+                          cfg.d_model, cfg.n_layers, config.train.batch_size,
+                          config.data.seq_len, n_trainable)
 
 
 def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,

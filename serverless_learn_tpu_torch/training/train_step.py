@@ -5,7 +5,11 @@ with optax's semantics (``training/optimizer.py``).
 
 The reference compiles the step with ``jax.jit`` over a mesh and donates
 the state; here the step runs eagerly on one card and updates the
-:class:`TrainState` in place. Metrics are those of the reference:
+:class:`TrainState` in place. With the bundle's ``trainable_mask`` (LoRA)
+only the trainable parameters have ``requires_grad``
+(``training/partition.py``): the frozen base gets no weight-gradient
+products, and the optimizer state, the global norm and the clipping cover
+the trainable parameters alone; the state keeps the whole model. Metrics are those of the reference:
 ``loss``, ``perplexity`` (exp of the averaged loss), ``lr`` (the schedule
 at the state's step) and ``grad_norm`` (the global norm of the averaged
 gradients, before clipping), returned as 0-dim tensors on the device so
@@ -28,6 +32,7 @@ from serverless_learn_tpu_torch.models.transformer import (Transformer,
                                                            init_params)
 from serverless_learn_tpu_torch.training.optimizer import (
     Optimizer, global_norm, lr_at, make_optimizer)
+from serverless_learn_tpu_torch.training.partition import set_trainable
 from serverless_learn_tpu_torch.training.train_state import TrainState
 
 
@@ -49,7 +54,8 @@ class Trainer:
              params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh state: weights from ``seed`` (``init_params``), or from
         the state dict ``params`` (for example a flax tree through
-        ``bridge.from_jax_params``), and a zero optimizer state."""
+        ``bridge.from_jax_params``), and a zero optimizer state over the
+        trainable parameters."""
         model = Transformer(self.bundle.cfg, device=self.device,
                             trainable=True)
         if params is None:
@@ -57,6 +63,9 @@ class Trainer:
                         else seed)
         else:
             model.load_state_dict(params)
+        if self.bundle.trainable_mask is not None:
+            set_trainable(model, self.bundle.trainable_mask(
+                name for name, _ in model.named_parameters()))
         return TrainState(step=0, model=model,
                           opt_state=self.optimizer.init(
                               trainable_params(model)))

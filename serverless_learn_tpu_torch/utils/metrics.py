@@ -1,16 +1,21 @@
 """Step timing and throughput, the port of ``serverless_learn_tpu/utils/
 metrics.py``, with an analytic FLOP count in place of XLA's compiled one.
 
-FLOPs of one causal-LM training step (forward and backward, 3x the
-forward's 2 per multiply-add):
+Model FLOPs of one causal-LM training step, 2 per multiply-add:
 
-    6 * tokens * (P - V * d)  +  6 * L * B * T^2 * d
+    6 * tokens * P_train  +  4 * tokens * P_frozen  +  6 * L * B * T^2 * d
 
-``tokens`` = B * T, P all parameters, V * d the embedding table (a lookup,
-no products; ``lm_head`` is counted in P), and the second term the causal
-attention products (q k^T and p v, 4 * B * T^2 * d per layer forward,
-halved by the causal mask). MFU divides the achieved rate by the card's
-dense bf16 peak, 989e12 FLOP/s for an H100 SXM (NVIDIA's data sheet).
+``tokens`` = B * T. A trained parameter costs 6 a token (the forward, the
+input gradient and its weight gradient); a frozen one 4 (the forward and
+the input gradient: its weight gradient is never computed, as for LoRA's
+frozen base). ``P_train + P_frozen`` is every parameter but the V * d
+embedding table (a lookup, no products; ``lm_head`` is counted). The last
+term is the causal attention products (q k^T and p v, 4 * B * T^2 * d a
+layer forward, halved by the causal mask, times 3 for the forward, dq and
+dk/dv, which are all computed whatever trains). Remat's recomputed forward
+is not counted: these are model FLOPs, the work the step needs, not what
+the card runs. MFU divides the achieved rate by the card's dense bf16 peak,
+989e12 FLOP/s for an H100 SXM (NVIDIA's data sheet).
 """
 
 from __future__ import annotations
@@ -25,10 +30,15 @@ H100_BF16_PEAK = 989e12
 
 
 def lm_train_flops(n_params: int, vocab: int, d_model: int, n_layers: int,
-                   batch: int, seq: int) -> float:
-    """The analytic FLOPs of one causal-LM training step (module doc)."""
+                   batch: int, seq: int,
+                   n_trainable: Optional[int] = None) -> float:
+    """The analytic FLOPs of one causal-LM training step (module doc).
+    ``n_trainable``: the trained parameters where only part of the model
+    trains (the embedding table not among them); None: all of them."""
     tokens = batch * seq
-    return (6.0 * tokens * (n_params - vocab * d_model)
+    dense = n_params - vocab * d_model
+    trained = dense if n_trainable is None else n_trainable
+    return (6.0 * tokens * trained + 4.0 * tokens * (dense - trained)
             + 6.0 * n_layers * batch * seq * seq * d_model)
 
 
