@@ -788,30 +788,8 @@ def train_full_width(torch, card):
         state, m = trainer.step(state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        fail("the profiler recorded no device events for the training step")
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern))
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    flash = {n: sum(v for k, v in by_name.items() if f"{n}_kernel" in k) / 1e3
-             for n in ("flash_fwd", "flash_dq", "flash_dkv")}
-    # cuBLAS's products: its Hopper kernels are named nvjet_* or *gemm*.
-    matmul = sum(v for k, v in by_name.items()
-                 if "nvjet" in k or "gemm" in k) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit("where_time_goes_llama_1b_train", card=card,
-         step_span_ms=span / 1e3, device_busy_ms=busy / 1e3,
-         device_idle_share=1 - busy / span, flash_ms=flash,
-         flash_share_of_busy=sum(flash.values()) * 1e3 / busy,
-         cublas_matmul_ms=matmul,
-         other_kernels_ms=busy / 1e3 - matmul - sum(flash.values()),
-         device_kernels=len(kern),
-         top_kernels_ms=[(k[:90], v / 1e3) for k, v in top])
+    emit("where_time_goes_llama_1b_train", card=card, **kernel_split(
+        torch, prof, list(launches)))
     del state, trainer, batch, prof
     torch.cuda.empty_cache()
     return launches
@@ -1235,54 +1213,66 @@ def train_lora_8b(torch, card):
         fail(f"zero grad norm: {norms}")
     del sums_before, sums_after, copies
 
-    # 8e: fused against unfused, one batch-2 microbatch from this state.
+    # 8e: fused against unfused, one batch-2 microbatch from this state,
+    # each twice in turns; a fifth run scales the fused loss by 1 + 2^-16,
+    # which changes no gradient but for bf16 rounding: their noise floor.
     batch = trainer.place(next(iter(make_source(
         dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, batch_size=2)), trainer, start_step=state.step))))
     bundles = {True: trainer.bundle, False: lm_bundle(mcfg, fused_ce=False)}
     lora = [named[n] for n in adapters]
-    runs = {True: [], False: []}
-    for fused in (False, True, True, False):
+    scaled = 1 + 2 ** -16
+    runs = []
+    for fused, scale in ((False, 1.0), (True, 1.0), (True, 1.0),
+                         (False, 1.0), (True, scaled)):
         for p in lora:
             p.grad = None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         loss, _ = bundles[fused].loss_fn(model, batch)
-        loss.backward()
+        (loss * scale).backward()
         value = float(loss.detach())
         torch.cuda.synchronize()
-        runs[fused].append(dict(
+        runs.append(dict(
             s=time.perf_counter() - t, loss=value,
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-            grads=[p.grad.detach().clone() for p in lora]))
+            grads=[p.grad.detach().float() / scale for p in lora]))
     for p in lora:
         p.grad = None
-    f0, u0 = runs[True][0], runs[False][0]
+    u0, f0, f1, u1, fs = runs
+
+    def rel(a, b):
+        return [((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+                for x, y in zip(a["grads"], b["grads"])]
+
     loss_rel = abs(f0["loss"] - u0["loss"]) / abs(u0["loss"])
-    grad_rel = [((a.float() - b.float()).norm()
-                 / b.float().norm().clamp_min(1e-30)).item()
-                for a, b in zip(f0["grads"], u0["grads"])]
+    grad_rel, floor = rel(f0, u0), rel(fs, f0)
+    worst = sorted(zip(grad_rel, floor, adapters), reverse=True)[:3]
     emit("fused_vs_unfused_llama_8b_lora", card=card, batch=2,
-         seq_len=cfg.data.seq_len,
-         fused_s=[r["s"] for r in runs[True]],
-         unfused_s=[r["s"] for r in runs[False]],
-         fused_peak_gb=max(r["peak_gb"] for r in runs[True]),
-         unfused_peak_gb=max(r["peak_gb"] for r in runs[False]),
+         seq_len=cfg.data.seq_len, fused_s=[f0["s"], f1["s"]],
+         unfused_s=[u0["s"], u1["s"]],
+         fused_peak_gb=max(f0["peak_gb"], f1["peak_gb"]),
+         unfused_peak_gb=max(u0["peak_gb"], u1["peak_gb"]),
          fused_loss=f0["loss"], unfused_loss=u0["loss"],
          loss_rel_diff=loss_rel, max_grad_rel_diff=max(grad_rel),
          median_grad_rel_diff=statistics.median(grad_rel),
-         min_adapter_grad_norm=min(g.float().norm().item()
-                                   for g in u0["grads"]),
+         noise_floor_max=max(floor),
+         noise_floor_median=statistics.median(floor),
+         repeat_max_grad_rel_diff=max(rel(f1, f0) + rel(u1, u0)),
+         worst_tensors=worst,
+         min_adapter_grad_norm=min(g.norm().item() for g in u0["grads"]),
          tolerance="loss 1e-5 relative (f32 from the same bf16 logits); "
-                   "each adapter's gradient within 1e-2 of its norm (each "
-                   "side rounds the same f32 dlogits to bf16 once, one ulp "
-                   "at most, 2^-8 relative; the rest of the backward is "
-                   "the same)")
-    if not (loss_rel <= 1e-5 and max(grad_rel) <= 1e-2):
+                   "each adapter's gradient within 2^-5 of its norm: the "
+                   "two bf16 dlogits differ by an ulp in a few elements, "
+                   "and 32 layers of bf16 backward round such a "
+                   "difference up to the bf16 noise floor (2^-8 an "
+                   "element), measured by the run whose loss is scaled by "
+                   "1 + 2^-16")
+    if not (loss_rel <= 1e-5 and max(grad_rel) <= 2 ** -5):
         fail(f"fused vs unfused: loss {loss_rel:.3g} relative, worst "
              f"adapter gradient {max(grad_rel):.3g}")
-    del runs, f0, u0
+    del runs, u0, f0, f1, u1, fs
 
     # 8f: one batch-2 fused step (forward, backward, update) profiled.
     one = Trainer(config=dataclasses.replace(cfg, train=dataclasses.replace(

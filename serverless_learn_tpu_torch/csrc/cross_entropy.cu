@@ -123,8 +123,10 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const T* __restrict__ x, const int* __restrict__ labels,
-              float* __restrict__ loss, float* __restrict__ lse, Rows r) {
+cross_entropy_fwd_kernel(const T* __restrict__ x,
+                         const int* __restrict__ labels,
+                         float* __restrict__ loss, float* __restrict__ lse,
+                         Rows r) {
   constexpr int kVec = Vec<T>::n;
   const int64_t n = blockIdx.x;
   const T* row = row_ptr(x, n, r.T, r.sa, r.st);
@@ -181,9 +183,11 @@ ce_fwd_kernel(const T* __restrict__ x, const int* __restrict__ labels,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_bwd_kernel(const T* __restrict__ x, const int* __restrict__ labels,
-              const float* __restrict__ lse, const float* __restrict__ g,
-              T* __restrict__ dx, Rows r, int64_t da, int64_t dt) {
+cross_entropy_bwd_kernel(const T* __restrict__ x,
+                         const int* __restrict__ labels,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ g, T* __restrict__ dx,
+                         Rows r, int64_t da, int64_t dt) {
   constexpr int kVec = Vec<T>::n;
   const int64_t n = blockIdx.x;
   const T* row = row_ptr(x, n, r.T, r.sa, r.st);
@@ -238,11 +242,11 @@ extern "C" int slt_ce_fwd(const void* x, const int* labels, float* loss,
   const unsigned grid = static_cast<unsigned>(A * T);
   if (dtype == kBF16) {
     r.vec = aligned(x, sa * 2, st * 2);
-    ce_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    cross_entropy_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), labels, loss, lse, r);
   } else if (dtype == kF32) {
     r.vec = aligned(x, sa * 4, st * 4);
-    ce_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+    cross_entropy_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), labels, loss, lse, r);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -263,12 +267,12 @@ extern "C" int slt_ce_bwd(const void* x, const int* labels, const float* lse,
   const unsigned grid = static_cast<unsigned>(A * T);
   if (dtype == kBF16) {
     r.vec = aligned(x, sa * 2, st * 2) && aligned(dx, da * 2, dt * 2);
-    ce_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    cross_entropy_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), labels, lse, g,
         static_cast<__nv_bfloat16*>(dx), r, da, dt);
   } else if (dtype == kF32) {
     r.vec = aligned(x, sa * 4, st * 4) && aligned(dx, da * 4, dt * 4);
-    ce_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
+    cross_entropy_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), labels, lse, g, static_cast<float*>(dx),
         r, da, dt);
   } else {
