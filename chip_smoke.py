@@ -8,8 +8,9 @@ any failing phase exits non-zero:
 
 1. the card: name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the port from ``csrc/`` (three sources) with
-   nvcc, one process per source, all at once, and prints each kernel's
-   registers and spills;
+   nvcc, one process per source, all at once, prints each kernel's
+   registers and spills, and fails if the tensor-core flash backward
+   kernels spill;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, for every row tile the kernel has and every
    row count phase 9 serves (decode batches and prefills);
@@ -19,9 +20,13 @@ any failing phase exits non-zero:
    same weights and compares logits and greedy tokens;
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
    plain versions: the training shape, ragged, non-causal, H == K, "len"
-   and "rows" masks, f32, and the head dims 32 and 128;
-7. times them at the training shape beside their bounds, their plain
-   versions and ``scaled_dot_product_attention``;
+   and "rows" masks, T != S, f32, the head dims 32 and 128, and the
+   llama_8b head layout (D = 128) ragged and with both masks; runs dq and
+   dk/dv twice at the training shape and fails unless they repeat bit for
+   bit;
+7. times them at the llama_1b training shape and at the llama_8b
+   attention shape (D = 128) beside their bounds, their plain versions
+   and ``scaled_dot_product_attention``;
 6b. holds the cross-entropy kernels (K4 forward, K5 backward) against
     their plain versions: the llama_8b loss shape read through the strided
     ``logits[:, :-1]``, a ragged and an odd (unaligned) vocab, f32, equal
@@ -446,6 +451,8 @@ def where_time_goes(torch, model, prompts, card):
 # head dim 64), batch 2 x 4096 tokens, causal, bf16.
 TRAIN_B, TRAIN_T = 2, 4096
 FLASH_SHAPE = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 64)
+# The LoRA slice's: llama_8b (32 heads / 8 KV heads, head dim 128).
+FLASH_SHAPE_8B = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 128)
 FLASH_CASES = [
     # name, (b, t, s, h, k, d), causal, mode, dtype
     ("train_shape", FLASH_SHAPE, True, "none", "bfloat16"),
@@ -457,7 +464,18 @@ FLASH_CASES = [
     ("f32", (1, 1024, 1024, 32, 8, 64), True, "none", "float32"),
     ("tiny_d32_f32", (2, 512, 512, 4, 2, 32), True, "none", "float32"),
     ("d128", (1, 512, 512, 8, 2, 128), True, "none", "bfloat16"),
+    # the llama_8b head layout (32 / 8 heads, D = 128), ragged and masked
+    ("d128_ragged_1000", (1, 1000, 1000, 32, 8, 128), True, "none",
+     "bfloat16"),
+    ("d128_len_987_and_0", (2, 1024, 1024, 32, 8, 128), True, "len",
+     "bfloat16"),
+    ("d128_rows_mask", (2, 1024, 1024, 32, 8, 128), False, "rows",
+     "bfloat16"),
+    ("d32_ragged_520", (2, 520, 520, 4, 2, 32), True, "none", "bfloat16"),
+    ("t300_s520_rows", (2, 300, 520, 8, 2, 64), False, "rows", "bfloat16"),
 ]
+# K2 and K3 run twice on this case and must repeat bit for bit (no atomics).
+REPEAT_CASE = "train_shape"
 
 
 def flash_inputs(torch, g, shape, mode, dtype):
@@ -492,6 +510,16 @@ def check_flash(torch, card):
         delta = delta.contiguous()
         dq = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
         dk, dv = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
+        repeats = None
+        if name == REPEAT_CASE:
+            dq2 = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
+            dk2, dv2 = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
+            repeats = {"dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
+                       "dv": torch.equal(dv, dv2)}
+            del dq2, dk2, dv2
+            if not all(repeats.values()):
+                fail(f"flash {name}: K2/K3 do not repeat bit for bit: "
+                     f"{repeats}")
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
         ref_dq = fa.flash_dq_reference(q, k, v, dout, ref_lse, delta, **kw)
@@ -525,7 +553,7 @@ def check_flash(torch, card):
         emit("check_flash", card=card, case=name, shape=list(shape),
              causal=causal, mode=mode, dtype=dtype,
              max_abs_err=errs, worst_err_over_limit=ratios,
-             lse_rel_err=lse_err,
+             lse_rel_err=lse_err, repeat_bit_identical=repeats,
              max_abs_ref={"out": ref_out.float().abs().max().item(),
                           "dq": ref_dq.float().abs().max().item(),
                           "dk": ref_dk.float().abs().max().item(),
@@ -565,14 +593,22 @@ def flash_bounds(shape, causal=True):
 
 
 def time_flash(torch, card):
-    """Phase 7: K1, K2, K3 at the training shape, each beside its bound,
-    its plain version and scaled_dot_product_attention (K1: its forward;
-    K2, K3: its backward alone, split by their FLOP shares); SDPA's
-    forward + backward beside K1 + K2 + K3."""
+    """Phase 7: K1, K2, K3 at the llama_1b training shape (the kernels
+    line's figures) and at the llama_8b LoRA attention shape."""
+    rows = time_flash_shape(torch, card, FLASH_SHAPE)
+    time_flash_shape(torch, card, FLASH_SHAPE_8B)
+    return rows
+
+
+def time_flash_shape(torch, card, shape):
+    """K1, K2, K3 at ``shape`` (causal, bf16), each beside its bound, its
+    plain version and scaled_dot_product_attention (K1: its forward; K2,
+    K3: its backward alone, split by their FLOP shares); SDPA's forward +
+    backward beside K1 + K2 + K3."""
     from serverless_learn_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(6)
-    q, k, v, dout, _ = flash_inputs(torch, g, FLASH_SHAPE, "none", "bfloat16")
+    q, k, v, dout, _ = flash_inputs(torch, g, shape, "none", "bfloat16")
     kw = dict(causal=True, mode="none", arg=None)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
@@ -609,7 +645,7 @@ def time_flash(torch, card):
                                         enable_gqa=True)
     lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
         og, (qg, kg, vg), gh, retain_graph=True), 10)
-    bounds = flash_bounds(FLASH_SHAPE)
+    bounds = flash_bounds(shape)
     bwd_flops = bounds["flash_dq"][2] + bounds["flash_dkv"][2]
     # K1's library time is SDPA's forward; K2's and K3's are SDPA's
     # backward split by their FLOP shares (6 : 8).
@@ -624,9 +660,9 @@ def time_flash(torch, card):
                           tflops_per_s=flops / ms[name] / 1e9,
                           fraction_of_bound=b_ms / ms[name],
                           library_ms=library[name])
-        emit("time_flash", card=card, kernel=name, shape=list(FLASH_SHAPE),
+        emit("time_flash", card=card, kernel=name, shape=list(shape),
              causal=True, dtype="bfloat16", **rows[name])
-    emit("time_flash_fwd_bwd", card=card, shape=list(FLASH_SHAPE),
+    emit("time_flash_fwd_bwd", card=card, shape=list(shape),
          kernels_ms=sum(ms.values()),
          kernels_bwd_ms=ms["flash_dq"] + ms["flash_dkv"],
          sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
@@ -1084,7 +1120,10 @@ def kernel_split(torch, prof, names):
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    ours = {n: sum(v for k, v in by_name.items() if f"{n}_kernel" in k) / 1e3
+    # a wrapper's kernels: <name>_kernel (CUDA cores), <name>_bf16 (the
+    # tensor-core flash backward)
+    ours = {n: sum(v for k, v in by_name.items()
+                   if f"{n}_kernel" in k or f"{n}_bf16" in k) / 1e3
             for n in names}
     # cuBLAS's products: its Hopper kernels are named nvjet_* or *gemm*.
     matmul = sum(v for k, v in by_name.items()
@@ -1295,6 +1334,21 @@ def train_lora_8b(torch, card):
     return launches
 
 
+def spills(log: str, marker: str):
+    """{function: (spill stores, spill loads)} of each function in an
+    ``nvcc -Xptxas -v`` report whose name holds ``marker`` and spills."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            fn = ln.split("Function properties for ")[-1].strip()
+        elif "spill stores" in ln and fn is not None and marker in fn:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            if len(nums) == 3 and (nums[1] or nums[2]):
+                out[fn] = (nums[1], nums[2])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1322,6 +1376,9 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln
                        or "Function properties" in ln]
                 for name, log in reports.items()})
+    spilled = spills(reports.get("flash_attention", ""), "_bf16")
+    if spilled:
+        fail(f"the tensor-core flash kernels spill registers: {spilled}")
 
     max_err = check_kernel(torch, qm, card)
     fwd = time_kernel(torch, qm, card)

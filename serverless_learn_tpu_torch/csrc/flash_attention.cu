@@ -27,19 +27,23 @@
 // What bounds it on an H100 SXM: the operations. Causal attention at
 // B=2, T=4096, H=32, D=64 is 1.4e11 FLOPs forward (0.14 ms at the 989
 // TFLOP/s bf16 tensor-core rate) against 17 MB of q/k/v/out, and the
-// backward 2.5x that. This first design runs the products on the CUDA cores
-// in f32 (67 TFLOP/s peak), so it sits well above that bound; tensor cores
-// (mma.sync, then wgmma with TMA-fed tiles) are the next step. What the
-// design does keep from flash attention is the memory side: the [T, S]
-// scores never reach device memory, each q/k/v tile is read into shared
-// memory once per block and converted to f32 there, and blocks above the
-// causal diagonal or past a "len" row's length are skipped outright.
+// backward 2.5x that. Two designs share this file:
+//   * K1, and K2/K3 in f32: the products on the CUDA cores in f32 (67
+//     TFLOP/s peak), well above that bound; described next.
+//   * K2/K3 in bf16, the backward of every full-width path: the products
+//     on the tensor cores (mma.sync, ldmatrix, cp.async), described at
+//     `namespace hk` below. wgmma with TMA-fed tiles is the next step.
+// Both keep flash attention's memory side: the [T, S] scores never reach
+// device memory, each q/k/v tile is read into shared memory once per block,
+// and blocks above the causal diagonal or past a "len" row's length are
+// skipped outright.
 //
-// One block of 256 threads owns a 64 x 64 score tile: 16 x 16 threads, each
-// with 4 x 4 scores in registers, fed by float4 reads of the transposed q
-// and k tiles in shared memory. Row statistics reduce over the 16 threads of
-// a half-warp with shuffles. The D output columns are split over the same 16
-// threads (D / 16 each), so a row's rescale stays in the thread.
+// CUDA-core design. One block of 256 threads owns a 64 x 64 score tile:
+// 16 x 16 threads, each with 4 x 4 scores in registers, fed by float4 reads
+// of the transposed q and k tiles in shared memory. Row statistics reduce
+// over the 16 threads of a half-warp with shuffles. The D output columns are
+// split over the same 16 threads (D / 16 each), so a row's rescale stays in
+// the thread.
 //   * K1: a block per (q tile, head, batch row), looping over k tiles.
 //   * K2: the same grid; the loop recomputes p and dp and sums ds k.
 //   * K3: a block per (k tile, kv head, batch row) that loops over the
@@ -49,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -549,6 +555,450 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
+// ------------------------------------------- K2 and K3 in bf16 (Hopper) ----
+//
+// The bf16 backward: K2 replaces `_bwd_dq_kernel` (`:371`, call `:403`) and
+// K3 `_bwd_dkv_kernel` (call `:427`, group sum `:439-444`). What bounds them
+// is the operations: K3 does four products of 2 D FLOPs per (query, key)
+// pair, K2 three, so at llama_8b's B=2, T=S=4096, H=32, D=128 causal K3 is
+// 5.5e11 FLOPs (0.56 ms at 989 TFLOP/s) against ~0.1 GB of operands. The
+// CUDA-core design ran them at ~20 TFLOP/s: f32 FMAs, tiles widened to f32
+// and transposed in shared memory (one block an SM at D = 128), synchronous
+// loads, a mask test on every element. This design runs on the tensor
+// cores. Every product is mma.sync.m16n8k16 (bf16 in, f32 sums) with
+// operands read from shared memory by ldmatrix; tiles sit in shared memory
+// in bf16 as they lie in
+// device memory (rows padded by 16 bytes, so the 8 rows an ldmatrix reads
+// fall in 8 different bank groups), filled by a two-stage ring of 16-byte
+// cp.async copies whose zero-fill form reads rows past T or S as 0. A block
+// has 4 warps (128 threads) and a 64-row tile of each operand.
+//   * K3 (flash_dkv_bf16): each warp owns 16 keys of the block's key tile.
+//     It computes S^T = K Q^T and dP^T = V dO^T into registers, forms P^T
+//     and dS^T there, and packs them to bf16 A fragments in place (the
+//     m16n8 accumulator layout is the A layout of the next m16n8k16), so
+//     dV += P^T dO and dK += dS^T Q read dO and Q by ldmatrix.trans and
+//     nothing goes through shared memory. dK and dV stay in registers over
+//     the group's q heads and q tiles; the next q tile (with its lse and
+//     delta rows) loads while the current one computes. At D = 128 the q
+//     tile is taken 32 queries at a time to keep dK + dV (128 registers a
+//     thread) and the scores under the register limit without spills.
+//   * K2 (flash_dq_bf16): each warp owns 16 query rows; Q and dO of the
+//     block load once, the next K/V tile loads while the current one
+//     computes, and dq += dS K reads K by ldmatrix.trans.
+// Masks are tested only where a tile needs them: the causal diagonal, the
+// ragged tails, and the "len" and "rows" modes; interior tiles of mode
+// none go straight to exp2 with scale * log2(e) folded into one FFMA.
+// Tiles wholly above the causal diagonal are skipped per warp. The
+// tensor cores add each product's terms in another order than the CUDA
+// cores of the f32 path: the difference is f32 round-off, far inside the
+// bf16 limit (kernel_tolerance). No atomics: runs repeat bit for bit.
+
+namespace hk {
+
+constexpr int kTile = 64;       // rows of every tile (queries or keys)
+constexpr int kWarps = 4;       // 16 rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int kLd = D + 8;                    // padded row, bf16
+  static constexpr int kElems = kTile * kLd;
+  static constexpr int kBytes = kElems * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[4] += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums.
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Shared-memory addresses of the ldmatrix rows this lane supplies, for a
+// tile stored [row][col] with row stride LD (bf16):
+//   a_addr: the A fragment of the 16 x 16 block at (r0, c0);
+//   b_addr: the B fragments of two n-tiles (rows n0, n0 + 8) x 16 columns
+//     at c0, for a B stored [n][k] (plain ldmatrix);
+//   bt_addr: the B fragments of two n-tiles (columns n0, n0 + 8) x 16 rows
+//     at k0, for a B stored [k][n] (ldmatrix.trans).
+template <int LD>
+__device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int c0, int lane) {
+  return base + 2 * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
+}
+
+template <int LD>
+__device__ __forceinline__ uint32_t b_addr(uint32_t base, int n0, int c0, int lane) {
+  return base + 2 * ((n0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 + ((lane >> 3) & 1) * 8);
+}
+
+template <int LD>
+__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int k0, int n0, int lane) {
+  return base + 2 * ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 + (lane >> 4) * 8);
+}
+
+// Rows [row0, row0 + kTile) of one head into a padded shared tile with
+// cp.async; rows at or past `nvalid` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                          int64_t row_stride, int row0, int nvalid) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
+    const int r = c / kChunks, ch = c % kChunks;
+    const bool ok = row0 + r < nvalid;
+    const __nv_bfloat16* src = ok ? base + static_cast<int64_t>(row0 + r) * row_stride + ch * 8 : base;
+    cp16(dst + r * Tile<D>::kLd + ch * 8, src, ok ? 16 : 0);
+  }
+}
+
+// Stores a warp's 16 x D f32 accumulator rows [row0, row0 + 16) as bf16.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride, int row0,
+                                           int nvalid, float (*acc)[4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= nvalid) continue;
+    __nv_bfloat16* out = base + static_cast<int64_t>(row) * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(out + 8 * n) = pack(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K3 ----
+
+template <int D>
+constexpr int kDkvChunk = D == 128 ? 32 : 64;  // queries a K3 warp takes at once
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // K, V, then two stages of (Q, dO, lse, delta)
+  return 6 * Tile<D>::kBytes + 2 * 2 * kTile * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = Tile<D>::kLd, QC = kDkvChunk<D>, NQ = QC / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + Tile<D>::kElems;
+  bf16* sQ = sV + Tile<D>::kElems;       // [2 stages][kTile][LD]
+  bf16* sG = sQ + 2 * Tile<D>::kElems;   // dO, the same
+  float* sL = reinterpret_cast<float*>(sG + 2 * Tile<D>::kElems);  // [2][kTile]
+  float* sDl = sL + 2 * kTile;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int j = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int group = a.H / a.KH;
+  const int k0 = j * kTile, kw = k0 + 16 * warp;  // the block's and the warp's first key
+  const int vlen = row_length(a, b);
+  const int n_q = (a.T + kTile - 1) / kTile;
+  const int i0 = a.causal ? k0 / kTile : 0;
+  int i1 = n_q;
+  if (a.mask_mode == kLen) i1 = k0 >= vlen ? 0 : min(n_q, (vlen + kTile - 1) / kTile);
+  const int n_i = max(i1 - i0, 0), n_iter = group * n_i;
+  const int64_t qs = static_cast<int64_t>(a.H) * D, ks = static_cast<int64_t>(a.KH) * D;
+  const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
+  const bf16* qbase = static_cast<const bf16*>(a.q) + static_cast<int64_t>(b) * a.T * qs;
+  const bf16* gbase = static_cast<const bf16*>(a.dout) + static_cast<int64_t>(b) * a.T * qs;
+  const float scale2 = a.scale * kLog2e;
+
+  // Issues the copies of iteration `it` (q head, q tile) into stage it % 2.
+  auto issue = [&](int it) {
+    const int h = kh * group + it / n_i, q0 = (i0 + it % n_i) * kTile, st = it & 1;
+    load_rows<D>(sQ + st * Tile<D>::kElems, qbase + h * D, qs, q0, a.T);
+    load_rows<D>(sG + st * Tile<D>::kElems, gbase + h * D, qs, q0, a.T);
+    const int64_t stat = (static_cast<int64_t>(b) * a.H + h) * a.T;
+    const int r = threadIdx.x & (kTile - 1);
+    const bool ok = q0 + r < a.T;
+    const float* src = threadIdx.x < kTile ? a.lse_in : a.delta;
+    float* dst = (threadIdx.x < kTile ? sL : sDl) + st * kTile + r;
+    cp4(dst, ok ? src + stat + q0 + r : src, ok ? 4 : 0);
+  };
+
+  load_rows<D>(sK, static_cast<const bf16*>(a.k) + koff, ks, k0, a.S);
+  load_rows<D>(sV, static_cast<const bf16*>(a.v) + koff, ks, k0, a.S);
+  if (n_iter > 0) issue(0);
+  cp_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const uint32_t uK = smem_u32(sK), uV = smem_u32(sV);
+  // Rows mode: whether this thread's two keys are kept.
+  bool key_ok[2] = {true, true};
+  if (a.mask_mode == kRows) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = kw + g + 8 * hf;
+      key_ok[hf] = key < a.S && a.mask[static_cast<int64_t>(b) * a.S + key] != 0;
+    }
+  }
+
+  for (int it = 0; it < n_iter; ++it) {
+    if (it + 1 < n_iter) issue(it + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // stage it % 2 (and K, V) landed for every thread
+    const int st = it & 1, q0 = (i0 + it % n_i) * kTile;
+    const uint32_t uQ = smem_u32(sQ + st * Tile<D>::kElems);
+    const uint32_t uG = smem_u32(sG + st * Tile<D>::kElems);
+    const float* L = sL + st * kTile;
+    const float* Dl = sDl + st * kTile;
+#pragma unroll 1
+    for (int qc = 0; qc < kTile; qc += QC) {
+      const int qa = q0 + qc;  // first query of the chunk
+      if (kw >= a.S || (a.causal && kw > qa + QC - 1)) continue;  // all masked
+      const bool masked = a.mask_mode != kNone || qa + QC > a.T || kw + 16 > a.S ||
+                          (a.causal && kw + 15 > qa);
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm(ka, a_addr<LD>(uK, 16 * warp, 16 * kk, lane));
+        ldsm(va, a_addr<LD>(uV, 16 * warp, 16 * kk, lane));
+#pragma unroll
+        for (int n = 0; n < NQ; n += 2) {
+          uint32_t qb[4], gb[4];
+          ldsm(qb, b_addr<LD>(uQ, qc + 8 * n, 16 * kk, lane));
+          ldsm(gb, b_addr<LD>(uG, qc + 8 * n, 16 * kk, lane));
+          mma(s[n], ka, qb[0], qb[1]);
+          mma(s[n + 1], ka, qb[2], qb[3]);
+          mma(dp[n], va, gb[0], gb[1]);
+          mma(dp[n + 1], va, gb[2], gb[3]);
+        }
+      }
+      // P^T and dS^T, packed into the A fragments of the next products.
+      uint32_t pa[QC / 16][4], da[QC / 16][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qc + 8 * n + 2 * t + (e & 1);  // query within the tile
+          const float x = exp2f(fmaf(s[n][e], scale2, -L[qi] * kLog2e));
+          bool ok = true;
+          if (masked) {
+            const int key = kw + g + 8 * (e >> 1), row = q0 + qi;
+            ok = row < a.T && key < a.S && !(a.causal && key > row) && key_ok[e >> 1] &&
+                 !(a.mask_mode == kLen && (key >= vlen || row >= vlen));
+          }
+          p[e] = ok ? x : 0.f;
+          ds[e] = p[e] * (dp[n][e] - Dl[qi]) * a.scale;
+        }
+        pa[n / 2][2 * (n & 1)] = pack(p[0], p[1]);
+        pa[n / 2][2 * (n & 1) + 1] = pack(p[2], p[3]);
+        da[n / 2][2 * (n & 1)] = pack(ds[0], ds[1]);
+        da[n / 2][2 * (n & 1) + 1] = pack(ds[2], ds[3]);
+      }
+      // dV += P^T dO, dK += dS^T Q: k runs over the chunk's queries.
+#pragma unroll
+      for (int kq = 0; kq < QC / 16; ++kq) {
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t gb[4], qb[4];
+          ldsm_t(gb, bt_addr<LD>(uG, qc + 16 * kq, 8 * n, lane));
+          ldsm_t(qb, bt_addr<LD>(uQ, qc + 16 * kq, 8 * n, lane));
+          mma(dv[n], pa[kq], gb[0], gb[1]);
+          mma(dv[n + 1], pa[kq], gb[2], gb[3]);
+          mma(dk[n], da[kq], qb[0], qb[1]);
+          mma(dk[n + 1], da[kq], qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage it % 2 is read before iteration it + 2 refills it
+  }
+  cp_wait<0>();
+  bf16* dkb = static_cast<bf16*>(a.dk) + koff;
+  bf16* dvb = static_cast<bf16*>(a.dv) + koff;
+  store_rows<D>(dkb, ks, kw, a.S, dk, lane);
+  store_rows<D>(dvb, ks, kw, a.S, dv, lane);
+}
+
+// ---------------------------------------------------------------- K2 ----
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 6 * Tile<D>::kBytes;  // Q, dO, then two stages of (K, V)
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_bf16(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = Tile<D>::kLd, NK = kTile / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sG = sQ + Tile<D>::kElems;
+  bf16* sK = sG + Tile<D>::kElems;      // [2 stages][kTile][LD]
+  bf16* sV = sK + 2 * Tile<D>::kElems;  // the same
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_q = (a.T + kTile - 1) / kTile;
+  const int i = a.causal ? n_q - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KH);
+  const int q0 = i * kTile, qw = q0 + 16 * warp;  // the block's and the warp's first query
+  const int vlen = row_length(a, b);
+  const int64_t qs = static_cast<int64_t>(a.H) * D, ks = static_cast<int64_t>(a.KH) * D;
+  const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
+  const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + koff;
+  const bf16* vb = static_cast<const bf16*>(a.v) + koff;
+  const float scale2 = a.scale * kLog2e;
+  const int n_tiles = k_tiles_for(a, q0, vlen);
+
+  auto issue = [&](int jt) {
+    const int st = jt & 1;
+    load_rows<D>(sK + st * Tile<D>::kElems, kb, ks, jt * kTile, a.S);
+    load_rows<D>(sV + st * Tile<D>::kElems, vb, ks, jt * kTile, a.S);
+  };
+  load_rows<D>(sQ, static_cast<const bf16*>(a.q) + qoff, qs, q0, a.T);
+  load_rows<D>(sG, static_cast<const bf16*>(a.dout) + qoff, qs, q0, a.T);
+  if (n_tiles > 0) issue(0);
+  cp_commit();
+
+  // This thread's two query rows: lse (times log2 e) and delta.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = qw + g + 8 * hf;
+    const int64_t at = (static_cast<int64_t>(b) * a.H + h) * a.T + row;
+    lse2[hf] = row < a.T ? a.lse_in[at] * kLog2e : 0.f;
+    dl[hf] = row < a.T ? a.delta[at] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const uint32_t uQ = smem_u32(sQ), uG = smem_u32(sG);
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    if (jt + 1 < n_tiles) issue(jt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int st = jt & 1, k0 = jt * kTile;
+    const uint32_t uK = smem_u32(sK + st * Tile<D>::kElems);
+    const uint32_t uV = smem_u32(sV + st * Tile<D>::kElems);
+    const bool skip = qw >= a.T || (a.causal && k0 > qw + 15);  // all masked
+    if (!skip) {
+      const bool masked = a.mask_mode != kNone || qw + 16 > a.T || k0 + kTile > a.S ||
+                          (a.causal && k0 + kTile - 1 > qw);
+      float s[NK][4], dp[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4], ga[4];
+        ldsm(qa, a_addr<LD>(uQ, 16 * warp, 16 * kk, lane));
+        ldsm(ga, a_addr<LD>(uG, 16 * warp, 16 * kk, lane));
+#pragma unroll
+        for (int n = 0; n < NK; n += 2) {
+          uint32_t kf[4], vf[4];
+          ldsm(kf, b_addr<LD>(uK, 8 * n, 16 * kk, lane));
+          ldsm(vf, b_addr<LD>(uV, 8 * n, 16 * kk, lane));
+          mma(s[n], qa, kf[0], kf[1]);
+          mma(s[n + 1], qa, kf[2], kf[3]);
+          mma(dp[n], ga, vf[0], vf[1]);
+          mma(dp[n + 1], ga, vf[2], vf[3]);
+        }
+      }
+      uint32_t da[kTile / 16][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1;
+          const float x = exp2f(fmaf(s[n][e], scale2, -lse2[hf]));
+          bool ok = true;
+          if (masked) {
+            const int row = qw + g + 8 * hf, key = k0 + 8 * n + 2 * t + (e & 1);
+            ok = valid(a, b, row, key, vlen);
+          }
+          const float p = ok ? x : 0.f;
+          ds[e] = p * (dp[n][e] - dl[hf]) * a.scale;
+        }
+        da[n / 2][2 * (n & 1)] = pack(ds[0], ds[1]);
+        da[n / 2][2 * (n & 1) + 1] = pack(ds[2], ds[3]);
+      }
+      // dq += dS K: k runs over the tile's keys.
+#pragma unroll
+      for (int kq = 0; kq < kTile / 16; ++kq) {
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t kf[4];
+          ldsm_t(kf, bt_addr<LD>(uK, 16 * kq, 8 * n, lane));
+          mma(acc[n], da[kq], kf[0], kf[1]);
+          mma(acc[n + 1], da[kq], kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+  store_rows<D>(static_cast<bf16*>(a.dq) + qoff, qs, qw, a.T, acc, lane);
+}
+
+}  // namespace hk
+
 // ------------------------------------------------------------ launch ----
 
 enum Which : int { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -563,16 +1013,25 @@ constexpr size_t smem_bytes(int which) {
 
 template <typename T, int D>
 int launch(int which, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args) = which == kFwd  ? flash_fwd_kernel<T, D>
-                       : which == kDq ? flash_dq_kernel<T, D>
-                                      : flash_dkv_kernel<T, D>;
-  const size_t smem = smem_bytes<D>(which);
+  void (*kern)(Args) = flash_fwd_kernel<T, D>;
+  size_t smem = smem_bytes<D>(kFwd);
+  int threads = kThreads;
+  if (which != kFwd) {
+    if constexpr (std::is_same_v<T, float>) {  // the CUDA-core f32 backward
+      kern = which == kDq ? flash_dq_kernel<float, D> : flash_dkv_kernel<float, D>;
+      smem = smem_bytes<D>(which);
+    } else {  // the tensor-core bf16 backward
+      kern = which == kDq ? hk::flash_dq_bf16<D> : hk::flash_dkv_bf16<D>;
+      smem = which == kDq ? hk::dq_smem_bytes<D>() : hk::dkv_smem_bytes<D>();
+      threads = hk::kThreads;
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(which == kDkv ? (a.S + kBK - 1) / kBK : (a.T + kBQ - 1) / kBQ,
                   which == kDkv ? a.KH : a.H, a.B);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

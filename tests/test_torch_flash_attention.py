@@ -189,6 +189,90 @@ def test_kernel_tolerance_passes_k1_rounding_and_fails_wrong_tiles():
         :, late].any(dim=-1).all())  # every late row fails
 
 
+LOG2E = 1.4426950408889634
+
+
+def _k2_k3_arithmetic_bf16(q, k, v, dout, lse, delta, *, tile=64,
+                           drop_head=None, unmasked_diagonal=False):
+    """K2 and K3 as the tensor-core kernels compute them, in torch: causal,
+    64-query by 64-key tiles (tiles above the diagonal skipped, the mask
+    applied on diagonal tiles only), p = exp2(s * (scale log2 e) - lse
+    log2 e), p and ds rounded to bf16 before the products, every sum f32,
+    dk/dv summed over the GQA group. ``drop_head`` leaves that q head out
+    of the group sum; ``unmasked_diagonal`` skips the mask on the
+    diagonal tiles: the two faults the limit must catch."""
+    Bq, Tq, Hq, Dq = q.shape
+    Kq = k.shape[2]
+    grp = Hq // Kq
+    scale2 = torch.tensor(Dq ** -0.5, dtype=torch.float32) * LOG2E
+    qf, gf = q.float().transpose(1, 2), dout.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(grp, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(grp, dim=2).transpose(1, 2)
+    lse2 = (lse * LOG2E)[..., None]
+    dq = torch.zeros(Bq, Hq, Tq, Dq)
+    dk = torch.zeros(Bq, Hq, Tq, Dq)
+    dv = torch.zeros(Bq, Hq, Tq, Dq)
+    t = torch.arange(tile)
+    for j in range(0, Tq, tile):
+        ks, vs = kf[:, :, j:j + tile], vf[:, :, j:j + tile]
+        for i in range(j, Tq, tile):  # the q tiles at or below the diagonal
+            qs, gs = qf[:, :, i:i + tile], gf[:, :, i:i + tile]
+            s = qs @ ks.transpose(-1, -2)
+            p = torch.exp2(s * scale2 - lse2[:, :, i:i + tile])
+            if i == j and not unmasked_diagonal:
+                p = p.masked_fill(t[None, :] > t[:, None], 0.0)
+            dp = gs @ vs.transpose(-1, -2)
+            ds = p * (dp - delta[:, :, i:i + tile, None]) * Dq ** -0.5
+            p, ds = _round_bf16(p), _round_bf16(ds)
+            dq[:, :, i:i + tile] += ds @ ks
+            dk[:, :, j:j + tile] += ds.transpose(-1, -2) @ qs
+            dv[:, :, j:j + tile] += p.transpose(-1, -2) @ gs
+    if drop_head is not None:
+        dk[:, drop_head] = 0
+        dv[:, drop_head] = 0
+    dk = dk.transpose(1, 2).reshape(Bq, Tq, Kq, grp, Dq).sum(3)
+    dv = dv.transpose(1, 2).reshape(Bq, Tq, Kq, grp, Dq).sum(3)
+    return (dq.transpose(1, 2).to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+def _round_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _over_limit(got, ref):
+    """The worst |got - ref| / kernel_tolerance(ref)."""
+    err = (got.float() - ref.float()).abs()
+    return (err / kernel_tolerance(ref)).max().item()
+
+
+def test_kernel_tolerance_passes_k2_k3_tiles_and_fails_their_faults():
+    """The bf16 limit holds the tensor-core K2/K3 arithmetic (exp2 with
+    the scale folded in, bf16 p and ds, 64 x 64 tiles, the mask on the
+    diagonal tiles only, the GQA group summed) to the plain versions at
+    llama-like scales, T = S = 512; dk/dv that miss one q head of a group
+    and a diagonal tile without its mask each fail it."""
+    b, t, h, k, d = 1, 512, 4, 2, 64
+    q, kk, v, g, _ = _inputs(8, b=b, t=t, h=h, k=k, d=d)
+    q, kk, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in (q, kk, v, g))
+    out, lse = flash_fwd_reference(q, kk, v, causal=True)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    kw = dict(causal=True)
+    want = (flash_dq_reference(q, kk, v, g, lse, delta, **kw),
+            *flash_dkv_reference(q, kk, v, g, lse, delta, **kw))
+    got = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert _over_limit(x, ref) <= 1.0, name
+    missing = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta, drop_head=1)
+    assert _over_limit(missing[1], want[1]) > 1.0  # dk
+    assert _over_limit(missing[2], want[2]) > 1.0  # dv
+    unmasked = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta,
+                                      unmasked_diagonal=True)
+    assert _over_limit(unmasked[0], want[0]) > 1.0  # dq
+    assert _over_limit(unmasked[1], want[1]) > 1.0  # dk
+
+
 # ------------------------------------------------------------ on the card --
 
 
@@ -207,6 +291,8 @@ CARD_CASES = [
     (2, 192, 192, 4, 4, 128, True, "none", torch.bfloat16),
     (2, 256, 256, 4, 2, 64, True, "len", torch.bfloat16),
     (2, 256, 256, 4, 2, 64, False, "rows", torch.float32),
+    (1, 1000, 1000, 8, 2, 128, True, "none", torch.bfloat16),
+    (2, 256, 256, 8, 2, 128, True, "len", torch.bfloat16),
 ]
 
 
