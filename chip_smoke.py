@@ -9,8 +9,9 @@ any failing phase exits non-zero:
 1. the card: name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the port from ``csrc/`` (three sources) with
    nvcc, one process per source, all at once, prints each kernel's
-   registers and spills, and fails if the tensor-core flash backward
-   kernels spill;
+   registers and spills (the saved report where a kernel was built
+   before), and fails unless the report shows each tensor-core flash
+   backward kernel (dq, dk/dv at D = 32, 64, 128) with no spills;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, for every row tile the kernel has and every
    row count phase 9 serves (decode batches and prefills);
@@ -19,11 +20,11 @@ any failing phase exits non-zero:
 5. runs llama_tiny int8 on the card (kernel) and on the CPU (plain) from the
    same weights and compares logits and greedy tokens;
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
-   plain versions: the training shape, ragged, non-causal, H == K, "len"
-   and "rows" masks, T != S, f32, the head dims 32 and 128, and the
-   llama_8b head layout (D = 128) ragged and with both masks; runs dq and
-   dk/dv twice at the training shape and fails unless they repeat bit for
-   bit;
+   plain versions: the llama_1b and llama_8b training shapes, ragged,
+   non-causal, H == K, "len" and "rows" masks, T != S, f32, the head dims
+   32 and 128, and the llama_8b head layout (D = 128) ragged and with both
+   masks; runs dq and dk/dv twice at the training shape and fails unless
+   they repeat bit for bit;
 7. times them at the llama_1b training shape and at the llama_8b
    attention shape (D = 128) beside their bounds, their plain versions
    and ``scaled_dot_product_attention``;
@@ -456,6 +457,7 @@ FLASH_SHAPE_8B = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 128)
 FLASH_CASES = [
     # name, (b, t, s, h, k, d), causal, mode, dtype
     ("train_shape", FLASH_SHAPE, True, "none", "bfloat16"),
+    ("train_shape_8b", FLASH_SHAPE_8B, True, "none", "bfloat16"),
     ("ragged_1000", (1, 1000, 1000, 32, 8, 64), True, "none", "bfloat16"),
     ("non_causal", (2, 1024, 1024, 32, 8, 64), False, "none", "bfloat16"),
     ("mha_h_eq_k", (2, 1024, 1024, 8, 8, 64), True, "none", "bfloat16"),
@@ -1334,19 +1336,28 @@ def train_lora_8b(torch, card):
     return launches
 
 
-def spills(log: str, marker: str):
-    """{function: (spill stores, spill loads)} of each function in an
-    ``nvcc -Xptxas -v`` report whose name holds ``marker`` and spills."""
-    out, fn = {}, None
+# The tensor-core flash backward kernels, as their mangled names read in
+# ptxas's report: none may spill.
+NO_SPILL = [f"{kern}ILi{d}E" for kern in ("flash_dq_bf16", "flash_dkv_bf16")
+            for d in (32, 64, 128)]
+
+
+def spill_faults(log: str, kernels):
+    """What keeps ``kernels`` from passing the no-spill gate in an ``nvcc
+    -Xptxas -v`` report: each that the report does not show, or that
+    spills, with its spill stores and loads."""
+    seen, fn = {}, None
     for ln in log.splitlines():
         if "Function properties for " in ln:
             fn = ln.split("Function properties for ")[-1].strip()
-        elif "spill stores" in ln and fn is not None and marker in fn:
+        elif "spill stores" in ln and fn is not None:
             nums = [int(w) for w in ln.replace(",", " ").split()
                     if w.isdigit()]
-            if len(nums) == 3 and (nums[1] or nums[2]):
-                out[fn] = (nums[1], nums[2])
-    return out
+            for kern in kernels:
+                if kern in fn and len(nums) == 3:
+                    seen[kern] = (nums[1], nums[2])
+    return {kern: seen.get(kern, "not in the report") for kern in kernels
+            if seen.get(kern) != (0, 0)}
 
 
 def main() -> int:
@@ -1376,9 +1387,10 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln
                        or "Function properties" in ln]
                 for name, log in reports.items()})
-    spilled = spills(reports.get("flash_attention", ""), "_bf16")
-    if spilled:
-        fail(f"the tensor-core flash kernels spill registers: {spilled}")
+    faults = spill_faults(reports.get("flash_attention", ""), NO_SPILL)
+    if faults:
+        fail(f"the tensor-core flash kernels spill registers or are missing "
+             f"from the ptxas report: {faults}")
 
     max_err = check_kernel(torch, qm, card)
     fwd = time_kernel(torch, qm, card)

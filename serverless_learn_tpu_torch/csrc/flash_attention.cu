@@ -775,15 +775,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
   const uint32_t uK = smem_u32(sK), uV = smem_u32(sV);
-  // Rows mode: whether this thread's two keys are kept.
-  bool key_ok[2] = {true, true};
-  if (a.mask_mode == kRows) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int key = kw + g + 8 * hf;
-      key_ok[hf] = key < a.S && a.mask[static_cast<int64_t>(b) * a.S + key] != 0;
-    }
-  }
 
   for (int it = 0; it < n_iter; ++it) {
     if (it + 1 < n_iter) issue(it + 1);
@@ -832,11 +823,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
           const int qi = qc + 8 * n + 2 * t + (e & 1);  // query within the tile
           const float x = exp2f(fmaf(s[n][e], scale2, -L[qi] * kLog2e));
           bool ok = true;
-          if (masked) {
-            const int key = kw + g + 8 * (e >> 1), row = q0 + qi;
-            ok = row < a.T && key < a.S && !(a.causal && key > row) && key_ok[e >> 1] &&
-                 !(a.mask_mode == kLen && (key >= vlen || row >= vlen));
-          }
+          if (masked) ok = valid(a, b, q0 + qi, kw + g + 8 * (e >> 1), vlen);
           p[e] = ok ? x : 0.f;
           ds[e] = p[e] * (dp[n][e] - Dl[qi]) * a.scale;
         }

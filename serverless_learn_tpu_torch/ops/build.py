@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside the package
-(listed in ``.gitignore``). The hash covers the source and the flags, so an
+(listed in ``.gitignore``), with its ``-Xptxas -v`` report beside it in
+``<name>-<hash>.log``. The hash covers the source and the flags, so an
 edited kernel is rebuilt and an unchanged one is loaded from the file.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -49,25 +50,29 @@ def _target(name: str) -> Path:
 
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns each kernel's ``-Xptxas -v``
-    report (registers, shared memory, spills); raises if any build fails."""
+    source, all started together. Returns every named kernel's ``-Xptxas
+    -v`` report (registers, shared memory, spills), the saved one for a
+    kernel built before; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, reports = {}, {}
     for name in names:
         out = _target(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
+            reports[name] = out.with_suffix(".log").read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, out, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports, failed = {}, []
+    failed = []
     for name, (tmp, out, proc) in procs.items():
         log, _ = proc.communicate()
         reports[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        tmp.with_suffix(".log").write_text(log)
+        os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -192,15 +192,21 @@ def test_kernel_tolerance_passes_k1_rounding_and_fails_wrong_tiles():
 LOG2E = 1.4426950408889634
 
 
-def _k2_k3_arithmetic_bf16(q, k, v, dout, lse, delta, *, tile=64,
-                           drop_head=None, unmasked_diagonal=False):
-    """K2 and K3 as the tensor-core kernels compute them, in torch: causal,
-    64-query by 64-key tiles (tiles above the diagonal skipped, the mask
-    applied on diagonal tiles only), p = exp2(s * (scale log2 e) - lse
-    log2 e), p and ds rounded to bf16 before the products, every sum f32,
-    dk/dv summed over the GQA group. ``drop_head`` leaves that q head out
-    of the group sum; ``unmasked_diagonal`` skips the mask on the
-    diagonal tiles: the two faults the limit must catch."""
+def _k2_k3_arithmetic_bf16(q, k, v, dout, lse, delta, *, chunk=64,
+                           drop_head=None, unmasked_diagonal=False,
+                           early_skip=False):
+    """K2 and K3 as the tensor-core kernels compute them, in torch, causal,
+    with each warp's share of a 64-row tile: a K2 warp takes 16 query rows
+    against a 64-key tile, a K3 warp 16 keys against ``chunk`` queries of
+    a 64-query tile (64 at D = 32 and 64, 32 at D = 128). A warp skips a
+    block wholly above the diagonal and applies the mask only to a block
+    the diagonal crosses, by the kernels' own tests; p = exp2(s * (scale
+    log2 e) - lse log2 e), p and ds rounded to bf16 before the products,
+    every sum f32, dk/dv summed over the GQA group. ``drop_head`` leaves
+    that q head out of the group sum, ``unmasked_diagonal`` skips the
+    mask on the diagonal blocks, and ``early_skip`` has K3 skip a chunk
+    whose first query precedes the warp's first key (a wrong boundary):
+    the faults the limit must catch."""
     Bq, Tq, Hq, Dq = q.shape
     Kq = k.shape[2]
     grp = Hq // Kq
@@ -209,24 +215,36 @@ def _k2_k3_arithmetic_bf16(q, k, v, dout, lse, delta, *, tile=64,
     kf = k.float().repeat_interleave(grp, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(grp, dim=2).transpose(1, 2)
     lse2 = (lse * LOG2E)[..., None]
+    pos = torch.arange(Tq)
+
+    def p_ds(r0, nr, c0, nc, masked):
+        """bf16 p and ds of queries [r0, r0 + nr) against keys
+        [c0, c0 + nc), the mask applied only where ``masked``."""
+        s = qf[:, :, r0:r0 + nr] @ kf[:, :, c0:c0 + nc].transpose(-1, -2)
+        p = torch.exp2(s * scale2 - lse2[:, :, r0:r0 + nr])
+        if masked and not unmasked_diagonal:
+            p = p.masked_fill(pos[None, c0:c0 + nc]
+                              > pos[r0:r0 + nr, None], 0.0)
+        dp = gf[:, :, r0:r0 + nr] @ vf[:, :, c0:c0 + nc].transpose(-1, -2)
+        ds = p * (dp - delta[:, :, r0:r0 + nr, None]) * Dq ** -0.5
+        return _round_bf16(p), _round_bf16(ds)
+
     dq = torch.zeros(Bq, Hq, Tq, Dq)
+    for qw in range(0, Tq, 16):  # K2: a warp's 16 rows
+        for k0 in range(0, Tq, 64):
+            if k0 > qw + 15:
+                continue
+            _, ds = p_ds(qw, 16, k0, 64, k0 + 63 > qw)
+            dq[:, :, qw:qw + 16] += ds @ kf[:, :, k0:k0 + 64]
     dk = torch.zeros(Bq, Hq, Tq, Dq)
     dv = torch.zeros(Bq, Hq, Tq, Dq)
-    t = torch.arange(tile)
-    for j in range(0, Tq, tile):
-        ks, vs = kf[:, :, j:j + tile], vf[:, :, j:j + tile]
-        for i in range(j, Tq, tile):  # the q tiles at or below the diagonal
-            qs, gs = qf[:, :, i:i + tile], gf[:, :, i:i + tile]
-            s = qs @ ks.transpose(-1, -2)
-            p = torch.exp2(s * scale2 - lse2[:, :, i:i + tile])
-            if i == j and not unmasked_diagonal:
-                p = p.masked_fill(t[None, :] > t[:, None], 0.0)
-            dp = gs @ vs.transpose(-1, -2)
-            ds = p * (dp - delta[:, :, i:i + tile, None]) * Dq ** -0.5
-            p, ds = _round_bf16(p), _round_bf16(ds)
-            dq[:, :, i:i + tile] += ds @ ks
-            dk[:, :, j:j + tile] += ds.transpose(-1, -2) @ qs
-            dv[:, :, j:j + tile] += p.transpose(-1, -2) @ gs
+    for kw in range(0, Tq, 16):  # K3: a warp's 16 keys
+        for qa in range(kw // 64 * 64, Tq, chunk):
+            if kw > (qa if early_skip else qa + chunk - 1):
+                continue
+            p, ds = p_ds(qa, chunk, kw, 16, kw + 15 > qa)
+            dk[:, :, kw:kw + 16] += ds.transpose(-1, -2) @ qf[:, :, qa:qa + chunk]
+            dv[:, :, kw:kw + 16] += p.transpose(-1, -2) @ gf[:, :, qa:qa + chunk]
     if drop_head is not None:
         dk[:, drop_head] = 0
         dv[:, drop_head] = 0
@@ -246,13 +264,11 @@ def _over_limit(got, ref):
     return (err / kernel_tolerance(ref)).max().item()
 
 
-def test_kernel_tolerance_passes_k2_k3_tiles_and_fails_their_faults():
-    """The bf16 limit holds the tensor-core K2/K3 arithmetic (exp2 with
-    the scale folded in, bf16 p and ds, 64 x 64 tiles, the mask on the
-    diagonal tiles only, the GQA group summed) to the plain versions at
-    llama-like scales, T = S = 512; dk/dv that miss one q head of a group
-    and a diagonal tile without its mask each fail it."""
-    b, t, h, k, d = 1, 512, 4, 2, 64
+def _k2_k3_twin_against_plain(d, chunk):
+    """The twin at llama-like scales, T = S = 512, 4 q heads on 2 K/V
+    heads, head dim ``d``: the worst error / limit of its dq, dk, dv, and
+    of those of each fault, against the plain versions."""
+    b, t, h, k = 1, 512, 4, 2
     q, kk, v, g, _ = _inputs(8, b=b, t=t, h=h, k=k, d=d)
     q, kk, v, g = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in (q, kk, v, g))
@@ -261,16 +277,41 @@ def test_kernel_tolerance_passes_k2_k3_tiles_and_fails_their_faults():
     kw = dict(causal=True)
     want = (flash_dq_reference(q, kk, v, g, lse, delta, **kw),
             *flash_dkv_reference(q, kk, v, g, lse, delta, **kw))
-    got = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta)
-    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
-        assert _over_limit(x, ref) <= 1.0, name
-    missing = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta, drop_head=1)
-    assert _over_limit(missing[1], want[1]) > 1.0  # dk
-    assert _over_limit(missing[2], want[2]) > 1.0  # dv
-    unmasked = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta,
-                                      unmasked_diagonal=True)
-    assert _over_limit(unmasked[0], want[0]) > 1.0  # dq
-    assert _over_limit(unmasked[1], want[1]) > 1.0  # dk
+    ratios = {}
+    for fault, fkw in [("none", {}), ("drop_head", dict(drop_head=1)),
+                       ("unmasked_diagonal", dict(unmasked_diagonal=True)),
+                       ("early_skip", dict(early_skip=True))]:
+        got = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta, chunk=chunk,
+                                     **fkw)
+        ratios[fault] = {name: _over_limit(x, ref) for name, x, ref
+                         in zip(("dq", "dk", "dv"), got, want)}
+    return ratios
+
+
+def _assert_twin_within_limit_and_faults_fail(ratios):
+    assert max(ratios["none"].values()) <= 1.0, ratios["none"]
+    assert ratios["drop_head"]["dk"] > 1.0
+    assert ratios["drop_head"]["dv"] > 1.0
+    assert ratios["unmasked_diagonal"]["dq"] > 1.0
+    assert ratios["unmasked_diagonal"]["dk"] > 1.0
+    assert ratios["early_skip"]["dk"] > 1.0
+    assert ratios["early_skip"]["dv"] > 1.0
+
+
+def test_kernel_tolerance_passes_k2_k3_tiles_and_fails_their_faults():
+    """The bf16 limit holds the tensor-core K2/K3 arithmetic at D = 64
+    (exp2 with the scale folded in, bf16 p and ds, each warp's 16-row
+    share of a 64 x 64 tile, the mask on the diagonal blocks only, the
+    GQA group summed) to the plain versions; dk/dv that miss one q head
+    of a group, diagonal blocks without their mask, and a K3 that skips a
+    block the diagonal crosses each fail it."""
+    _assert_twin_within_limit_and_faults_fail(_k2_k3_twin_against_plain(64, 64))
+
+
+def test_kernel_tolerance_passes_k3_query_chunks_at_d128():
+    """The same at D = 128, where a K3 warp takes the 64-query tile 32
+    queries at a time, each chunk with its own causal skip and mask test."""
+    _assert_twin_within_limit_and_faults_fail(_k2_k3_twin_against_plain(128, 32))
 
 
 # ------------------------------------------------------------ on the card --
