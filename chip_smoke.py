@@ -13,18 +13,22 @@ any failing phase exits non-zero:
    before), and fails unless the report shows each tensor-core flash
    backward kernel (dq, dk/dv at D = 32, 64, 128) with no spills;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
-   llama_8b projection shape, for every row tile the kernel has and every
-   row count phase 9 serves (decode batches and prefills);
-4. times the kernel at the decode shapes (8 rows) beside its bound, its
-   plain version and one PyTorch library call;
+   llama_8b projection shape, on both sides of its decode/prefill
+   threshold and at every row count phase 9 serves (decode batches and
+   prefills), plus a ragged contraction that is not a multiple of the
+   split; runs every case twice and fails unless the two repeat bit for
+   bit (the split-K partials are added in a fixed order, no atomics);
+4. times the kernel at the decode shapes (8 rows) and at a 512-row
+   prefill beside its bound, its plain version, the convert-then-matmul
+   form and ``torch._weight_int8pack_mm``;
 5. runs llama_tiny int8 on the card (kernel) and on the CPU (plain) from the
    same weights and compares logits and greedy tokens;
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
    plain versions: the llama_1b and llama_8b training shapes, ragged,
    non-causal, H == K, "len" and "rows" masks, T != S, f32, the head dims
    32 and 128, and the llama_8b head layout (D = 128) ragged and with both
-   masks; runs dq and dk/dv twice at the training shape and fails unless
-   they repeat bit for bit;
+   masks; runs the forward, dq and dk/dv twice at both training shapes
+   and fails unless they repeat bit for bit;
 7. times them at the llama_1b training shape and at the llama_8b
    attention shape (D = 128) beside their bounds, their plain versions
    and ``scaled_dot_product_attention``;
@@ -56,7 +60,8 @@ any failing phase exits non-zero:
    and sampled requests through the port's ``GenerationServer`` and checks
    the replies, by the launch counter that every projection of every
    forward went through the kernel, and that phase 3 checked every row
-   count it served; then times prefill and a decode step and profiles
+   count it served; then times prefill and a decode step, profiles one
+   prefill forward (the int8 matmul's share of its device time) and
    decode steps;
 10. prints one JSON line of kernels, then the card's name and power limit,
     then the result line ``{"ok": true, "device": {...}}``.
@@ -64,6 +69,14 @@ any failing phase exits non-zero:
 Every time and memory figure is printed beside the card's name and power
 limit. Exits non-zero without printing the result line where there is no
 card, or where the port's package is missing.
+
+    python3 chip_smoke.py --quant-matmul-only
+
+runs only phase 4 and phase 9b (the int8 matmul's times, and a prefill
+forward and decode steps of llama_8b int8 with their profiles) on the
+``serverless_learn_tpu_torch`` next to this file, and prints no result
+line: copied into a checkout of another commit, it times that commit's
+kernel with the same yardsticks.
 """
 
 from __future__ import annotations
@@ -89,13 +102,18 @@ LLAMA8B_SHAPES = {
 }
 PROMPT_LEN, NEW_TOKENS = 128, 32
 SERVE_BATCH = 4  # the greedy requests of phase 9 form one group of 4
-# Rows the kernel is checked at in phase 3: each row tile (1, 2, 4 and 8,
-# with a masked 3 and a ragged 8 * 37), and every row count phase 9 can
+# Rows the kernel is checked at in phase 3: both sides of each of its tile
+# boundaries (decode with one n8 tile up to 8 rows, two up to 16, prefill
+# above), a masked 3 and a ragged 8 * 37, and every row count phase 9 can
 # serve: decode at each batch bucket up to SERVE_BATCH (the sampled request
 # runs alone) and those buckets' prefills.
-CHECK_ROWS = (1, 2, 3, 4, 8, 8 * 37) + tuple(
+CHECK_ROWS = (1, 2, 3, 4, 8, 9, 16, 17, 8 * 37) + tuple(
     b * PROMPT_LEN for b in (1, 2, 4) if b <= SERVE_BATCH)
 DECODE_ROWS = 8
+PREFILL_ROWS = SERVE_BATCH * PROMPT_LEN  # 512: phase 9's largest prefill
+# A contraction that is not a multiple of any split (k_split is a multiple
+# of 64 rows): the last split is ragged.
+RAGGED_I = (4136, 1024)
 
 
 def emit(phase: str, **fields):
@@ -126,34 +144,54 @@ def bound(R: int, I: int, O: int):
                                        else "operations")
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+def time_ms(torch, fn, iters: int, warmup: int = 3,
+            graph: bool = False) -> float:
+    """Device ms per call of ``fn(i)``, by CUDA events around ``iters``
+    calls. ``graph``: the calls are captured once into a CUDA graph and
+    the replay is timed, so the host's time to enqueue a call (tens of us
+    for a small kernel behind a Python wrapper) leaves no gap between
+    launches."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
+    run = lambda: [fn(i) for i in range(iters)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fn(i)
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def row_tile(R: int) -> int:
-    """The kernel's row tile for R rows (csrc/quant_matmul.cu)."""
-    return 1 if R == 1 else 2 if R <= 2 else 4 if R <= 4 else 8
+def row_tile(qm, R: int) -> str:
+    """The kernel's tile for R rows: ``ops.quant_matmul.plan``'s path, and
+    for decode its n8 tiles (one up to 8 rows, two up to 16;
+    csrc/quant_matmul.cu)."""
+    if qm.plan(R, 1, 1).path == "prefill":
+        return "prefill"
+    return "decode_n8" if R <= 8 else "decode_n16"
 
 
 def check_kernel(torch, qm, card):
     """Phase 3: kernel vs plain version, bf16 in and out, at every shape
-    and every row count of CHECK_ROWS; the worst error of each row tile."""
+    and every row count of CHECK_ROWS, each case run twice; the worst error
+    of each row tile."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {}  # (row tile, dtype) -> (max abs err, max rel err, cases)
     cases = [(I, O, torch.bfloat16, CHECK_ROWS) for (I, O) in LLAMA8B_SHAPES]
-    # Ragged I and O (no 16-byte weight loads), and the f32 instantiations
-    # that llama_tiny (phase 5) runs.
-    cases.append((100, 77, torch.float32, (1, 2, 3, 8, 37)))
+    # A ragged last split; ragged I and O (no 16-byte weight loads); and the
+    # f32 instantiations that llama_tiny (phase 5) runs.
+    cases.append((*RAGGED_I, torch.bfloat16, (1, 8, 9, 16, 17, PREFILL_ROWS)))
+    cases.append((100, 77, torch.float32, (1, 2, 3, 8, 9, 17, 37)))
+    cases.append((100, 77, torch.bfloat16, (3, 16, 37)))
     cases.append((256, 384, torch.float32, (1, 2, 4, 32)))
     for I, O, dt, rows in cases:
         wq = torch.randint(-127, 128, (I, O), generator=g, device="cuda",
@@ -170,7 +208,7 @@ def check_kernel(torch, qm, card):
     for row in per_tile:
         emit("check_row_tile", card=card, **row)
     emit("check", card=card, cases=sum(r["cases"] for r in per_tile),
-         rows=list(CHECK_ROWS),
+         rows=list(CHECK_ROWS), repeat_bit_identical=True,
          max_abs_err=max(r["max_abs_err"] for r in per_tile),
          max_rel_err=max(r["max_rel_err"] for r in per_tile),
          tolerance="|err| <= 2^-7*|ref| + 1e-3*max|ref| (bf16 rounding of "
@@ -184,7 +222,11 @@ def check_case(torch, qm, g, R, wq, scale, dt, worst):
     I, O = wq.shape
     x = torch.randn(R, I, generator=g, device="cuda").to(dt)
     got = qm.quant_matmul(x, wq, scale)
+    again = qm.quant_matmul(x, wq, scale)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"the kernel does not repeat bit for bit at R={R} I={I} O={O} "
+             f"{dt} ({qm.plan(R, I, O)})")
     want = qm.quant_matmul_reference(x, wq, scale)
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"kernel output {got.shape} {got.dtype} != plain "
@@ -198,21 +240,25 @@ def check_case(torch, qm, g, R, wq, scale, dt, worst):
     if not bool(torch.isfinite(got.float()).all()):
         fail(f"non-finite kernel output at R={R} I={I} O={O}")
     if bool((err > limit).any()):
-        fail(f"kernel disagrees with plain at R={R} I={I} O={O} {dt}: max "
-             f"abs {err.max().item():.4g}, max |ref| {ref.max().item():.4g}")
-    key = (row_tile(R), dt)
+        fail(f"kernel disagrees with plain at R={R} I={I} O={O} {dt} "
+             f"({qm.plan(R, I, O)}): max abs {err.max().item():.4g}, max "
+             f"|ref| {ref.max().item():.4g}")
+    key = (row_tile(qm, R), dt)
     a, r, n = worst.get(key, (0.0, 0.0, 0))
     worst[key] = (max(a, err.max().item()),
                   max(r, err.max().item() / ref.max().item()), n + 1)
 
 
-def time_kernel(torch, qm, card):
-    """Phase 4: decode shapes, 8 rows; weights cycled over copies worth
-    >= 256 MB so each launch reads them from device memory, not L2."""
+def time_kernel(torch, qm, card, R=DECODE_ROWS):
+    """Phase 4: the llama_8b projections at R rows (a decode forward at 8,
+    a prefill at 512); weights cycled over copies worth >= 256 MB so each
+    launch reads them from device memory, not L2. The kernel's launches
+    are replayed from a CUDA graph (its device time; eagerly, a small
+    shape's time is the wrapper's host time); the plain version and the
+    two library forms, slower by far, run eagerly."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for (I, O), (sites, per_fwd) in LLAMA8B_SHAPES.items():
-        R = DECODE_ROWS
         n = max(2, math.ceil(256e6 / (I * O)))
         x = torch.randn(R, I, generator=g, device="cuda").to(torch.bfloat16)
         wqs = [torch.randint(-127, 128, (I, O), generator=g, device="cuda",
@@ -220,7 +266,7 @@ def time_kernel(torch, qm, card):
         scale = torch.rand(O, generator=g, device="cuda") * 4e-4
         iters = max(20, 2 * n)
         ms = time_ms(torch, lambda i: qm.quant_matmul(x, wqs[i % n], scale),
-                     iters)
+                     iters, graph=True)
         plain = time_ms(torch, lambda i: qm.quant_matmul_reference(
             x, wqs[i % n], scale), 10, warmup=1)
         conv = time_ms(torch, lambda i: (x @ wqs[i % n].to(torch.bfloat16))
@@ -237,7 +283,8 @@ def time_kernel(torch, qm, card):
         else:
             lib_error = None
         b, by = bound(R, I, O)
-        rows.append(dict(I=I, O=O, sites=sites, per_forward=per_fwd, ms=ms,
+        rows.append(dict(I=I, O=O, R=R, sites=sites, per_forward=per_fwd,
+                         ms=ms,
                          plain_ms=plain, library_ms=lib,
                          convert_matmul_ms=conv, bound_ms=b, bound_by=by,
                          fraction_of_bound=b / ms, library_error=lib_error))
@@ -252,7 +299,8 @@ def time_kernel(torch, qm, card):
                convert_matmul_ms=total("convert_matmul_ms"),
                bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                          else "operations"))
-    emit("time_per_decode_forward", card=card, rows=DECODE_ROWS,
+    emit("time_per_decode_forward" if R == DECODE_ROWS
+         else "time_per_prefill_forward", card=card, rows=R,
          launches=sum(r["per_forward"] for r in rows), **fwd,
          library_call="torch._weight_int8pack_mm (bf16 scales, one call)",
          convert_matmul="x @ wq.to(bf16) then * scale: three calls, the "
@@ -295,6 +343,13 @@ def tiny_agreement(torch, card):
              f"(max {scale:.4g}), token agreement {agree:.3f}")
 
 
+def serve_prompts(torch, vocab: int):
+    """Phase 9's greedy prompts: SERVE_BATCH of them, from seed 3."""
+    g = torch.Generator().manual_seed(3)
+    lens = (128, 120, 101, 128)[:SERVE_BATCH]
+    return [torch.randint(0, vocab, (n,), generator=g).tolist() for n in lens]
+
+
 def serve_full_width(torch, card):
     """Phase 9: llama_8b int8 served through the port's GenerationServer."""
     from serverless_learn_tpu_torch.inference.server import (GenerationServer,
@@ -319,10 +374,7 @@ def serve_full_width(torch, card):
                               batch_wait_ms=50.0).start()
     try:
         server.engine.warm(PROMPT_LEN, NEW_TOKENS, batch_sizes=(SERVE_BATCH,))
-        g = torch.Generator().manual_seed(3)
-        lens = (128, 120, 101, 128)[:SERVE_BATCH]
-        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
-                   for n in lens]
+        prompts = serve_prompts(torch, cfg.vocab_size)
         greedy = [{"prompt": p, "max_new_tokens": NEW_TOKENS} for p in prompts]
         sampled = {"prompt": prompts[0], "max_new_tokens": NEW_TOKENS,
                    "temperature": 0.8, "top_k": 40, "seed": 1}
@@ -388,11 +440,29 @@ def serve_full_width(torch, card):
     return launches
 
 
+def device_time(torch, prof, match):
+    """A profile's device kernels: (span us, busy us, us of the kernels whose
+    name holds ``match``, us by kernel name, the kernel events)."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        fail("the profiler recorded no device events")
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    ours = sum(v for k, v in by_name.items() if match in k)
+    return span, sum(by_name.values()), ours, by_name, kern
+
+
 def where_time_goes(torch, model, prompts, card):
     """Phase 9b: the batch-4 group of phase 9 run on the model directly:
-    prefill and decode-step times by CUDA events, then 5 decode steps under
-    torch.profiler for the device's busy share, kernel time by name, and
-    the eager ops and device kernels a step dispatches."""
+    prefill and decode-step times by CUDA events, one prefill forward under
+    torch.profiler (the int8 matmul's share of its device time), then 5
+    decode steps under torch.profiler for the device's busy share, kernel
+    time by name, and the eager ops and device kernels a step
+    dispatches."""
     from torch.profiler import ProfilerActivity, profile
 
     from serverless_learn_tpu_torch.inference.generate import init_cache
@@ -409,6 +479,11 @@ def where_time_goes(torch, model, prompts, card):
     with torch.inference_mode():
         prefill_ms = time_ms(torch, lambda i: model(
             toks, cache=cache, prefill=True, seq_lengths=lens), 3, warmup=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pprof:
+            model(toks, cache=cache, prefill=True, seq_lengths=lens)
+            torch.cuda.synchronize()
         decode_ms = time_ms(torch, lambda i: model(
             step, cache=cache, decode=True), 10, warmup=1)
         with profile(activities=[ProfilerActivity.CPU,
@@ -416,22 +491,23 @@ def where_time_goes(torch, model, prompts, card):
             for _ in range(n):
                 model(step, cache=cache, decode=True)
             torch.cuda.synchronize()
-    events = prof.events()
-    kern = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        fail("the profiler recorded no device events for the decode steps")
+    # K6's kernels: quant_decode, quant_prefill, quant_reduce (and an older
+    # build's quant_matmul_kernel).
+    span, busy, k6, by_name, _ = device_time(torch, pprof, "quant_")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit("where_time_goes_llama_8b_int8_prefill", card=card, batch=B,
+         prompt_bucket=PROMPT_LEN, rows=B * PROMPT_LEN,
+         prefill_span_ms=span / 1e3, device_busy_ms=busy / 1e3,
+         device_idle_share=1 - busy / span, quant_matmul_ms=k6 / 1e3,
+         quant_matmul_share_of_busy=k6 / busy,
+         quant_matmul_kernels_ms={k[:80]: v / 1e3 for k, v in by_name.items()
+                                  if "quant_" in k},
+         top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+    span, busy, k6, by_name, kern = device_time(torch, prof, "quant_")
     # Ops dispatched from Python: aten ops not nested inside another op.
-    top_ops = [e for e in events
+    top_ops = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.cpu_parent is None and e.name.startswith("aten::")]
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern))
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    k6 = sum(v for k, v in by_name.items() if "quant_matmul" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit("where_time_goes_llama_8b_int8_decode", card=card, batch=B,
          prompt_bucket=PROMPT_LEN, prefill_ms=prefill_ms,
@@ -476,8 +552,9 @@ FLASH_CASES = [
     ("d32_ragged_520", (2, 520, 520, 4, 2, 32), True, "none", "bfloat16"),
     ("t300_s520_rows", (2, 300, 520, 8, 2, 64), False, "rows", "bfloat16"),
 ]
-# K2 and K3 run twice on this case and must repeat bit for bit (no atomics).
-REPEAT_CASE = "train_shape"
+# K1, K2 and K3 run twice on these cases and must repeat bit for bit (no
+# atomics).
+REPEAT_CASES = ("train_shape", "train_shape_8b")
 
 
 def flash_inputs(torch, g, shape, mode, dtype):
@@ -513,14 +590,17 @@ def check_flash(torch, card):
         dq = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
         dk, dv = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
         repeats = None
-        if name == REPEAT_CASE:
+        if name in REPEAT_CASES:
+            out2, lse2 = fa.flash_fwd(q, k, v, **kw)
             dq2 = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
             dk2, dv2 = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
-            repeats = {"dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
+            repeats = {"out": torch.equal(out, out2),
+                       "lse": torch.equal(lse, lse2),
+                       "dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
                        "dv": torch.equal(dv, dv2)}
-            del dq2, dk2, dv2
+            del out2, lse2, dq2, dk2, dv2
             if not all(repeats.values()):
-                fail(f"flash {name}: K2/K3 do not repeat bit for bit: "
+                fail(f"flash {name}: K1-K3 do not repeat bit for bit: "
                      f"{repeats}")
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
@@ -1112,18 +1192,9 @@ def checksums(torch, model, names):
 def kernel_split(torch, prof, names):
     """The profile's device time: busy and idle share, the named kernels,
     cuBLAS's products and the rest, and the top kernels."""
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        fail("the profiler recorded no device events")
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern))
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
+    span, busy, _, by_name, kern = device_time(torch, prof, "")
     # a wrapper's kernels: <name>_kernel (CUDA cores), <name>_bf16 (the
-    # tensor-core flash backward)
+    # tensor-core flash kernels)
     ours = {n: sum(v for k, v in by_name.items()
                    if f"{n}_kernel" in k or f"{n}_bf16" in k) / 1e3
             for n in names}
@@ -1336,28 +1407,52 @@ def train_lora_8b(torch, card):
     return launches
 
 
-# The tensor-core flash backward kernels, as their mangled names read in
-# ptxas's report: none may spill.
-NO_SPILL = [f"{kern}ILi{d}E" for kern in ("flash_dq_bf16", "flash_dkv_bf16")
-            for d in (32, 64, 128)]
+# The tensor-core kernels of each source, as parts of their mangled names
+# in ptxas's report: every function that holds one may not spill, and each
+# must appear.
+NO_SPILL = {
+    "flash_attention": [f"{kern}ILi{d}E" for kern in (
+        "flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
+        for d in (32, 64, 128)],
+    "quant_matmul": ["quant_decodeI", "quant_prefillI", "quant_reduceI"],
+}
 
 
 def spill_faults(log: str, kernels):
     """What keeps ``kernels`` from passing the no-spill gate in an ``nvcc
-    -Xptxas -v`` report: each that the report does not show, or that
-    spills, with its spill stores and loads."""
-    seen, fn = {}, None
+    -Xptxas -v`` report: each that the report does not show, and each
+    function holding one that spills, with its spill stores and loads."""
+    spills, fn = {}, None
     for ln in log.splitlines():
         if "Function properties for " in ln:
             fn = ln.split("Function properties for ")[-1].strip()
         elif "spill stores" in ln and fn is not None:
             nums = [int(w) for w in ln.replace(",", " ").split()
                     if w.isdigit()]
-            for kern in kernels:
-                if kern in fn and len(nums) == 3:
-                    seen[kern] = (nums[1], nums[2])
-    return {kern: seen.get(kern, "not in the report") for kern in kernels
-            if seen.get(kern) != (0, 0)}
+            if len(nums) == 3:
+                spills[fn] = (nums[1], nums[2])
+    faults = {}
+    for kern in kernels:
+        found = {fn: v for fn, v in spills.items() if kern in fn}
+        if not found:
+            faults[kern] = "not in the report"
+        faults.update({fn: v for fn, v in found.items() if v != (0, 0)})
+    return faults
+
+
+def quant_matmul_only(torch, qm, build, card) -> int:
+    """Phases 4 and 9b alone, for whichever kernel the package beside this
+    file builds: its decode and prefill times, then llama_8b int8's
+    prefill forward and decode steps with their profiles."""
+    from serverless_learn_tpu_torch.models.registry import build_model
+
+    build.load("quant_matmul")
+    time_kernel(torch, qm, card)
+    time_kernel(torch, qm, card, R=PREFILL_ROWS)
+    model = build_model("llama_8b", device="cuda", quant="int8", seed=0)
+    where_time_goes(torch, model, serve_prompts(torch, model.cfg.vocab_size),
+                    card)
+    return 0
 
 
 def main() -> int:
@@ -1376,6 +1471,9 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    if "--quant-matmul-only" in sys.argv[1:]:
+        return quant_matmul_only(torch, qm, build, card)
+
     t0 = time.perf_counter()
     sources = ["quant_matmul", "flash_attention", "cross_entropy"]
     reports = build.build(sources)  # one nvcc per source, started together
@@ -1387,13 +1485,15 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln
                        or "Function properties" in ln]
                 for name, log in reports.items()})
-    faults = spill_faults(reports.get("flash_attention", ""), NO_SPILL)
-    if faults:
-        fail(f"the tensor-core flash kernels spill registers or are missing "
-             f"from the ptxas report: {faults}")
+    faults = {name: spill_faults(reports.get(name, ""), kernels)
+              for name, kernels in NO_SPILL.items()}
+    if any(faults.values()):
+        fail(f"tensor-core kernels spill registers or are missing from the "
+             f"ptxas report: {faults}")
 
     max_err = check_kernel(torch, qm, card)
     fwd = time_kernel(torch, qm, card)
+    time_kernel(torch, qm, card, R=PREFILL_ROWS)
     tiny_agreement(torch, card)
     flash_err = check_flash(torch, card)
     flash_time = time_flash(torch, card)

@@ -28,11 +28,13 @@
 // B=2, T=4096, H=32, D=64 is 1.4e11 FLOPs forward (0.14 ms at the 989
 // TFLOP/s bf16 tensor-core rate) against 17 MB of q/k/v/out, and the
 // backward 2.5x that. Two designs share this file:
-//   * K1, and K2/K3 in f32: the products on the CUDA cores in f32 (67
-//     TFLOP/s peak), well above that bound; described next.
-//   * K2/K3 in bf16, the backward of every full-width path: the products
-//     on the tensor cores (mma.sync, ldmatrix, cp.async), described at
-//     `namespace hk` below. wgmma with TMA-fed tiles is the next step.
+//   * K1-K3 in f32 (llama_tiny's f32 tests): the products on the CUDA
+//     cores in f32 (67 TFLOP/s peak), well above that bound; described
+//     next.
+//   * K1-K3 in bf16, the forward and backward of every full-width path:
+//     the products on the tensor cores (mma.sync, ldmatrix, cp.async),
+//     described at `namespace hk` below. wgmma with TMA-fed tiles is the
+//     next step.
 // Both keep flash attention's memory side: the [T, S] scores never reach
 // device memory, each q/k/v tile is read into shared memory once per block,
 // and blocks above the causal diagonal or past a "len" row's length are
@@ -96,27 +98,6 @@ struct Elem<float> {
   }
   __device__ static float round(float x) { return x; }
   __device__ static void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  __device__ static void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
 };
 
 // The D columns of a row split over the 16 threads of a half-warp: D / 16
@@ -555,13 +536,14 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// ------------------------------------------- K2 and K3 in bf16 (Hopper) ----
+// --------------------------------------- K1, K2 and K3 in bf16 (Hopper) ----
 //
-// The bf16 backward: K2 replaces `_bwd_dq_kernel` (`:371`, call `:403`) and
-// K3 `_bwd_dkv_kernel` (call `:427`, group sum `:439-444`). What bounds them
-// is the operations: K3 does four products of 2 D FLOPs per (query, key)
-// pair, K2 three, so at llama_8b's B=2, T=S=4096, H=32, D=128 causal K3 is
-// 5.5e11 FLOPs (0.56 ms at 989 TFLOP/s) against ~0.1 GB of operands. The
+// K1 replaces `_fwd_kernel` (call `:223`), K2 `_bwd_dq_kernel` (`:371`,
+// call `:403`) and K3 `_bwd_dkv_kernel` (call `:427`, group sum
+// `:439-444`). What bounds them is the operations: K3 does four products
+// of 2 D FLOPs per (query, key) pair, K2 three, K1 two, so at llama_8b's
+// B=2, T=S=4096, H=32, D=128 causal K3 is 5.5e11 FLOPs (0.56 ms at 989
+// TFLOP/s) against ~0.1 GB of operands. The
 // CUDA-core design ran them at ~20 TFLOP/s: f32 FMAs, tiles widened to f32
 // and transposed in shared memory (one block an SM at D = 128), synchronous
 // loads, a mask test on every element. This design runs on the tensor
@@ -585,6 +567,17 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 //   * K2 (flash_dq_bf16): each warp owns 16 query rows; Q and dO of the
 //     block load once, the next K/V tile loads while the current one
 //     computes, and dq += dS K reads K by ldmatrix.trans.
+//   * K1 (flash_fwd_bf16): each warp owns 16 query rows, whose Q stays in
+//     registers as A fragments; 64-key K/V tiles flow through the same
+//     two-stage ring. S = Q K^T (K by plain ldmatrix) stays in the
+//     accumulators, where the online softmax runs per row: the max over a
+//     quad by shuffles, p = exp2(s * scale log2 e - m), the running sum
+//     and out rescaled by exp2(m_old - m_new). p is packed to bf16 A
+//     fragments in place (rounded against the running max, as the
+//     reference's block-wise p), so out += P V reads V by ldmatrix.trans
+//     and P never touches shared memory. A masked p is selected to 0
+//     after the exp, and a row masked so far keeps its max at the floor,
+//     where the rescale is exp2(0) = 1: no inf or NaN reaches a product.
 // Masks are tested only where a tile needs them: the causal diagonal, the
 // ragged tails, and the "len" and "rows" modes; interior tiles of mode
 // none go straight to exp2 with scale * log2(e) folded into one FFMA.
@@ -984,6 +977,188 @@ __global__ void __launch_bounds__(kThreads) flash_dq_bf16(Args a) {
   store_rows<D>(static_cast<bf16*>(a.dq) + qoff, qs, qw, a.T, acc, lane);
 }
 
+// ---------------------------------------------------------------- K1 ----
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return 5 * Tile<D>::kBytes;  // Q, then two stages of (K, V)
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = Tile<D>::kLd, NK = kTile / 8, ND = D / 8;
+  static_assert(NK * 4 == 32, "one mask bit per score of a thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + Tile<D>::kElems;      // [2 stages][kTile][LD]
+  bf16* sV = sK + 2 * Tile<D>::kElems;  // the same
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_q = (a.T + kTile - 1) / kTile;
+  const int i = a.causal ? n_q - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KH);
+  const int q0 = i * kTile, qw = q0 + 16 * warp;  // the block's and the warp's first query
+  const int vlen = row_length(a, b);
+  const int64_t qs = static_cast<int64_t>(a.H) * D, ks = static_cast<int64_t>(a.KH) * D;
+  const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
+  const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + koff;
+  const bf16* vb = static_cast<const bf16*>(a.v) + koff;
+  const float scale2 = a.scale * kLog2e;
+  const int n_tiles = k_tiles_for(a, q0, vlen);
+
+  auto issue = [&](int jt) {
+    const int st = jt & 1;
+    load_rows<D>(sK + st * Tile<D>::kElems, kb, ks, jt * kTile, a.S);
+    load_rows<D>(sV + st * Tile<D>::kElems, vb, ks, jt * kTile, a.S);
+  };
+  load_rows<D>(sQ, static_cast<const bf16*>(a.q) + qoff, qs, q0, a.T);
+  cp_commit();
+  if (n_tiles > 0) issue(0);
+  cp_commit();
+  cp_wait<1>();  // Q landed
+  __syncthreads();
+
+  // The warp's 16 query rows stay in registers as A fragments.
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldsm(qa[kk], a_addr<LD>(smem_u32(sQ), 16 * warp, 16 * kk, lane));
+
+  // This thread's two rows (g, g + 8): running max in log2 units, its own
+  // share of the running sum (summed over the quad at the end), out.
+  float m2[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    if (jt + 1 < n_tiles) issue(jt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int st = jt & 1, k0 = jt * kTile;
+    const uint32_t uK = smem_u32(sK + st * Tile<D>::kElems);
+    const uint32_t uV = smem_u32(sV + st * Tile<D>::kElems);
+    const bool skip = qw >= a.T || (a.causal && k0 > qw + 15);  // all masked
+    if (!skip) {
+      const bool masked = a.mask_mode != kNone || qw + 16 > a.T || k0 + kTile > a.S ||
+                          (a.causal && k0 + kTile - 1 > qw);
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NK; n += 2) {
+          uint32_t kf[4];
+          ldsm(kf, b_addr<LD>(uK, 8 * n, 16 * kk, lane));
+          mma(s[n], qa[kk], kf[0], kf[1]);
+          mma(s[n + 1], qa[kk], kf[2], kf[3]);
+        }
+      }
+      // Masked scores leave the max at the floor; their p is selected to 0
+      // after the exp (bit 4n + e of `ok`).
+      uint32_t ok = 0xffffffffu;
+      if (masked) {
+        ok = 0u;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = qw + g + 8 * (e >> 1), key = k0 + 8 * n + 2 * t + (e & 1);
+            if (valid(a, b, row, key, vlen)) {
+              ok |= 1u << (4 * n + e);
+            } else {
+              s[n][e] = kNeg;
+            }
+          }
+      }
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      float alpha[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+        const float m_new = fmaxf(m2[hf], mx[hf] * scale2);
+        alpha[hf] = exp2f(m2[hf] - m_new);  // <= 1, and 1 while the row is all masked
+        m2[hf] = m_new;
+      }
+      // p against the running max, packed to bf16 A fragments in place.
+      uint32_t pa[kTile / 16][4];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = exp2f(fmaf(s[n][e], scale2, -m2[e >> 1]));
+          p[e] = (ok >> (4 * n + e)) & 1u ? x : 0.f;
+          rs[e >> 1] += p[e];
+        }
+        pa[n / 2][2 * (n & 1)] = pack(p[0], p[1]);
+        pa[n / 2][2 * (n & 1) + 1] = pack(p[2], p[3]);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + rs[hf];
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // out += P V: k runs over the tile's keys.
+#pragma unroll
+      for (int kq = 0; kq < kTile / 16; ++kq) {
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t vf[4];
+          ldsm_t(vf, bt_addr<LD>(uV, 16 * kq, 8 * n, lane));
+          mma(acc[n], pa[kq], vf[0], vf[1]);
+          mma(acc[n + 1], pa[kq], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage jt % 2 is read before iteration jt + 2 refills it
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+  }
+  // A row with no valid key: l = 0, so out = 0 and lse = the floor.
+  const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    acc[n][0] *= inv0;
+    acc[n][1] *= inv0;
+    acc[n][2] *= inv1;
+    acc[n][3] *= inv1;
+  }
+  store_rows<D>(static_cast<bf16*>(a.out) + qoff, qs, qw, a.T, acc, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = qw + g + 8 * hf;
+      if (row < a.T) {
+        a.lse[(static_cast<int64_t>(b) * a.H + h) * a.T + row] =
+            l[hf] > 0.f ? m2[hf] * (1.f / kLog2e) + logf(l[hf]) : kNeg;
+      }
+    }
+  }
+}
+
 }  // namespace hk
 
 // ------------------------------------------------------------ launch ----
@@ -1000,18 +1175,20 @@ constexpr size_t smem_bytes(int which) {
 
 template <typename T, int D>
 int launch(int which, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args) = flash_fwd_kernel<T, D>;
-  size_t smem = smem_bytes<D>(kFwd);
-  int threads = kThreads;
-  if (which != kFwd) {
-    if constexpr (std::is_same_v<T, float>) {  // the CUDA-core f32 backward
-      kern = which == kDq ? flash_dq_kernel<float, D> : flash_dkv_kernel<float, D>;
-      smem = smem_bytes<D>(which);
-    } else {  // the tensor-core bf16 backward
-      kern = which == kDq ? hk::flash_dq_bf16<D> : hk::flash_dkv_bf16<D>;
-      smem = which == kDq ? hk::dq_smem_bytes<D>() : hk::dkv_smem_bytes<D>();
-      threads = hk::kThreads;
-    }
+  void (*kern)(Args);
+  size_t smem;
+  int threads;
+  if constexpr (std::is_same_v<T, float>) {  // the CUDA-core f32 kernels
+    kern = which == kFwd ? flash_fwd_kernel<float, D>
+           : which == kDq ? flash_dq_kernel<float, D> : flash_dkv_kernel<float, D>;
+    smem = smem_bytes<D>(which);
+    threads = kThreads;
+  } else {  // the tensor-core bf16 kernels
+    kern = which == kFwd ? hk::flash_fwd_bf16<D>
+           : which == kDq ? hk::flash_dq_bf16<D> : hk::flash_dkv_bf16<D>;
+    smem = which == kFwd ? hk::fwd_smem_bytes<D>()
+           : which == kDq ? hk::dq_smem_bytes<D>() : hk::dkv_smem_bytes<D>();
+    threads = hk::kThreads;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -5,194 +5,512 @@
 // Replaces the TPU kernel `_kernel` / `quant_matmul` in
 // serverless_learn_tpu/ops/pallas/quant_matmul.py (call at :119) and
 // computes the same function: activations rounded to bf16, int8 weights
-// converted in registers, products summed in f32, the per-column f32 scale
-// applied once at the end, the result cast to the output type.
+// converted exactly to bf16 in registers, products summed in f32, the
+// per-column f32 scale applied once at the end, the result cast to x's
+// type. The weights keep the layout the bridge and `inference/quantize`
+// give them: int8 [I, O], O contiguous.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
-//   * decode (R <= 16): the int8 weight bytes. Llama-3-8B reads ~7.5 GB of
-//     projections per forward, so a decode step cannot take less than
-//     ~2.2 ms.
-//   * prefill (R = B*T in the thousands): the 2*R*I*O operations at the
-//     tensor-core rate.
-// This first design addresses the byte bound only: every weight byte is
-// read from device memory once per block row, 16 bytes per thread, with
-// neighbouring threads on neighbouring columns, and the loads of a pass are
-// all issued before its arithmetic. The arithmetic runs on the CUDA cores
-// in f32, so at prefill sizes it sits far below the tensor-core bound, and
-// at decode the 16 blocks of a k/v projection leave most SMs idle. Tensor
-// cores (mma.sync/wgmma), TMA staging and split-K for decode are later work.
+//   * decode (R <= 16 rows): the int8 weight bytes. Llama-3-8B reads ~7.5
+//     GB of projections a forward, so a decode forward cannot take less
+//     than ~2.2 ms.
+//   * prefill (R in the hundreds): the 2 R I O operations at the
+//     tensor-core rate (~7.8 ms a llama_8b forward at R = 512).
+// Both run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums),
+// fed by rings of 16-byte cp.async copies with neighbouring threads on
+// neighbouring columns; the paths differ in their tiles:
+//   * decode (quant_decode): out^T = wq^T x^T, so the 16 rows of an m16
+//     tile are output columns and x's rows fill one n8 tile (two up to 16
+//     rows). A block owns 128 columns; its 4 warps each take one 16-row
+//     step of every 64-row stage of a 4-stage ring, and the weights go
+//     from shared memory straight into A fragments: the order of the
+//     contraction inside an m16n8k16 is free, so a thread's k slots are 4
+//     consecutive weight rows (and the B fragment 4 consecutive values of
+//     x) and its 16 columns one 16-byte read; a byte permute pairs two
+//     rows' bytes and the int8 -> bf16 rule below converts them. The
+//     warps' sums are added in shared memory in warp order. The
+//     contraction is split across blocks (k_split rows each) so that even
+//     the 8 column tiles of a k/v projection fill the card.
+//   * prefill (quant_prefill): out = x wq with x as A through ldmatrix; a
+//     block of 8 warps owns a 128 x 128 tile, so each weight byte is read
+//     from device memory R / 128 times; each 64-row int8 stage of a
+//     3-stage ring is converted once into a bf16 tile in shared memory,
+//     which every warp reads by ldmatrix.trans. Split across blocks too
+//     where the tiles alone leave SMs idle.
+// Split partials go to an f32 workspace [splits, R, O] that the caller
+// allocates; quant_reduce adds them in split order, applies the scale and
+// casts. No atomics anywhere: a run repeats bit for bit.
 //
-// Layout of one block (256 threads): 4 threads across 64 output columns
-// (16 each) times 64 threads across the contraction dim. Each thread keeps
-// ROWS x 16 f32 partial sums in registers; the ROWS rows of x are staged in
-// shared memory (rounded to bf16, held as f32) 256 contraction steps at a
-// time. The 64 partial sums of each output are added in shared memory at
-// the end. Ragged R, I and O are masked here, so any shape is accepted.
+// int8 -> bf16: bf16 holds 8 significant bits, so no single magic number
+// turns all 256 byte values into bf16 by one subtract. Two do: for a
+// signed byte s in the low byte of a 16-bit half, (0x4300 | s & 0x7f) is
+// 128 + (s & 0x7f) and (0x4300 | s & 0x80) is 128 or 256, and one bf16x2
+// subtract of the two gives s exactly. Two LOP3s and a subtract convert
+// two values; no I2F per element.
+//
+// Ragged R, I and O are masked here: rows past R or I and columns past O
+// read as 0 (cp.async with src-size 0). A weight matrix whose rows are not
+// 16-byte aligned (O % 16 != 0 or an unaligned pointer), an f32 x and a
+// bf16 x with I % 8 != 0 are copied to shared memory element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kCols = 16;                  // int8 columns per thread: one 16-byte load
-constexpr int kTx = 4;                     // threads across columns
-constexpr int kTy = 64;                    // threads across the contraction dim
-constexpr int kThreads = kTx * kTy;        // 256
-constexpr int kBlockO = kTx * kCols;       // 64 output columns per block
-constexpr int kChunk = 256;                // contraction steps staged per pass
-constexpr int kUnroll = kChunk / kTy;      // weight rows per thread per pass
+using bf16 = __nv_bfloat16;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float as_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ float as_bf16(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int kCols = 128;            // output columns per block, both paths
+constexpr int kStep = 64;             // contraction rows a stage, both paths
+constexpr int kDecodeMaxRows = 16;    // R <= 16: quant_decode, else quant_prefill
+
+struct Params {
+  const void* x;
+  const int8_t* wq;
+  const float* scale;
+  void* out;
+  float* ws;       // [splits, R, O] partial sums, or null when splits == 1
+  int R, I, O;      // below 2^31 each (checked at the entry point)
+  int k_split;      // contraction rows per split
+  bool vec;         // wq rows 16-byte aligned: cp.async copies
+  bool xvec;        // bf16 x with 16-byte aligned rows: cp.async copies
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[4] += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums.
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The signed bytes in the low bytes of t's two 16-bit halves as bf16x2,
+// exactly (the rule in the header).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t t) {
+  const uint32_t v = (t & 0x007f007fu) | 0x43004300u;
+  const uint32_t o = (t & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&o));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Byte b of lo and byte b of hi in the low bytes of the two halves.
+__device__ __forceinline__ uint32_t pair_bytes(uint32_t lo, uint32_t hi, int b) {
+  return __byte_perm(lo, hi, b | (b << 4) | ((4 + b) << 8) | ((4 + b) << 12));
+}
+
+__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16(v); }
+__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ void unpack(const int4 w, float (&f)[kCols]) {
-  const int32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      f[q * 4 + b] = static_cast<float>(static_cast<int8_t>(words[q] >> (8 * b)));
+// Decode tiles swizzle a row's eight 16-byte chunks so that the reads of a
+// quarter-warp (4 rows 4 apart, 2 chunks each) hit 8 different bank groups.
+__device__ __forceinline__ int swz(int r) { return 2 * ((r >> 2) & 3); }
+
+// Weight rows [k0, k0 + ROWS) x columns [c0, c0 + kCols) into dst
+// [ROWS][kCols] int8; rows at or past kend and columns past O read as 0.
+template <int ROWS, bool SWZ>
+__device__ __forceinline__ void load_w(uint8_t* dst, const Params& p, int k0, int kend, int c0,
+                                       int tid, int nthreads) {
+  if (p.vec) {
+    for (int ch = tid; ch < ROWS * (kCols / 16); ch += nthreads) {
+      const int r = ch / (kCols / 16), c = ch % (kCols / 16);
+      const int k = k0 + r, col = c0 + 16 * c;
+      const bool ok = k < kend && col < p.O;
+      cp16(dst + r * kCols + 16 * (SWZ ? c ^ swz(r) : c),
+           ok ? p.wq + static_cast<int64_t>(k) * p.O + col : p.wq, ok ? 16 : 0);
+    }
+  } else {  // one byte at a time, not unrolled: it is the rare path
+#pragma unroll 1
+    for (int idx = tid; idx < ROWS * kCols; idx += nthreads) {
+      const int r = idx / kCols, col = idx % kCols, c = col / 16;
+      const int k = k0 + r, gc = c0 + col;
+      dst[r * kCols + 16 * (SWZ ? c ^ swz(r) : c) + col % 16] =
+          k < kend && gc < p.O ? static_cast<uint8_t>(p.wq[static_cast<int64_t>(k) * p.O + gc])
+                               : 0;
     }
   }
 }
 
-template <int ROWS, typename T>
-__global__ void __launch_bounds__(kThreads)
-quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
-                    const float* __restrict__ scale, T* __restrict__ out,
-                    int64_t R, int64_t I, int64_t O, bool vec) {
-  __shared__ float xs[ROWS][kChunk];
-  __shared__ float red[kTy][kBlockO + 1];  // +1: spread the banks
-  const int tx = threadIdx.x % kTx;
-  const int ty = threadIdx.x / kTx;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kBlockO + tx * kCols;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * ROWS;
-
-  float acc[ROWS][kCols];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
-  }
-
-  for (int64_t k0 = 0; k0 < I; k0 += kChunk) {
-    __syncthreads();  // the previous pass has finished reading xs
-    for (int i = threadIdx.x; i < ROWS * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = i % kChunk;
-      const int64_t gr = r0 + r, gk = k0 + k;
-      xs[r][k] = (gr < R && gk < I) ? as_bf16(x[gr * I + gk]) : 0.f;
+// x rows [r0, r0 + ROWS) x contraction [k0, k0 + KC) into dst [ROWS][LD]
+// bf16 (rounded from f32 here); rows past R and k at or past kend read 0.
+template <typename T, int ROWS, int KC, int LD>
+__device__ __forceinline__ void load_x(bf16* dst, const Params& p, int r0, int k0, int kend,
+                                       int tid, int nthreads) {
+  const T* x = static_cast<const T*>(p.x);
+  if (std::is_same_v<T, bf16> && p.xvec) {
+    for (int ch = tid; ch < ROWS * (KC / 8); ch += nthreads) {
+      const int r = ch / (KC / 8), c = ch % (KC / 8);
+      const int gr = r0 + r, k = k0 + 8 * c;
+      const bool ok = gr < p.R && k < kend;
+      cp16(dst + r * LD + 8 * c, ok ? x + static_cast<int64_t>(gr) * p.I + k : x, ok ? 16 : 0);
     }
-    __syncthreads();
-    if (c0 >= O) continue;
-
-    int4 w[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t k = k0 + ty + u * kTy;
-      w[u] = make_int4(0, 0, 0, 0);
-      if (k >= I) continue;
-      const int8_t* src = wq + k * O + c0;
-      if (vec) {
-        w[u] = __ldg(reinterpret_cast<const int4*>(src));
-      } else {
-        int8_t b[kCols];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) b[j] = (c0 + j < O) ? src[j] : 0;
-        int32_t words[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          words[q] = (static_cast<uint8_t>(b[4 * q])) |
-                     (static_cast<uint8_t>(b[4 * q + 1]) << 8) |
-                     (static_cast<uint8_t>(b[4 * q + 2]) << 16) |
-                     (static_cast<uint32_t>(static_cast<uint8_t>(b[4 * q + 3])) << 24);
-        }
-        w[u] = make_int4(words[0], words[1], words[2], words[3]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float wf[kCols];
-      unpack(w[u], wf);
-      const int kk = ty + u * kTy;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float xv = xs[r][kk];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r0 + r >= R) break;  // the same for every thread of the block
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) red[ty][tx * kCols + j] = acc[r][j];
-    __syncthreads();
-    if (threadIdx.x < kBlockO) {
-      const int64_t c = static_cast<int64_t>(blockIdx.x) * kBlockO + threadIdx.x;
-      if (c < O) {
-        float s = 0.f;
-        for (int t = 0; t < kTy; ++t) s += red[t][threadIdx.x];
-        store(out + (r0 + r) * O + c, s * scale[c]);
-      }
-    }
-  }
-}
-
-template <int ROWS, typename T>
-void launch(const void* x, const void* wq, const void* scale, void* out,
-            int64_t R, int64_t I, int64_t O, bool vec, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((O + kBlockO - 1) / kBlockO),
-                  static_cast<unsigned>((R + ROWS - 1) / ROWS));
-  quant_matmul_kernel<ROWS, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(scale), static_cast<T*>(out), R, I, O, vec);
-}
-
-template <int ROWS>
-int dispatch(const void* x, const void* wq, const void* scale, void* out,
-             int dtype, int64_t R, int64_t I, int64_t O, bool vec,
-             cudaStream_t s) {
-  if (dtype == kBF16) {
-    launch<ROWS, __nv_bfloat16>(x, wq, scale, out, R, I, O, vec, s);
-  } else if (dtype == kF32) {
-    launch<ROWS, float>(x, wq, scale, out, R, I, O, vec, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#pragma unroll 1
+    for (int idx = tid; idx < ROWS * KC; idx += nthreads) {
+      const int r = idx / KC, c = idx % KC;
+      const int gr = r0 + r, k = k0 + c;
+      dst[r * LD + c] =
+          gr < p.R && k < kend ? to_bf16(x[static_cast<int64_t>(gr) * p.I + k]) : to_bf16(0.f);
+    }
   }
+}
+
+// ------------------------------------------------------------- decode ----
+
+constexpr int kDecThreads = 128;      // 4 warps, 16 rows of each stage apiece
+constexpr int kDecStages = 4;
+constexpr int kDecXLd = kStep + 16;   // bf16; 160-byte rows: conflict-free 8-byte reads
+
+template <int NT>
+struct Dec {
+  static constexpr int kWBytes = kStep * kCols;
+  static constexpr int kXBytes = 8 * NT * kDecXLd * 2;
+  static constexpr int kStageBytes = kWBytes + kXBytes;
+  static constexpr int kSmem = kDecStages * kStageBytes;
+  static_assert(kSmem >= 4 * 8 * NT * kCols * 4, "the warps' sums fit the ring");
+};
+
+// NT n-tiles of 8 rows: R <= 8 NT. Grid (column tiles, splits).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kDecThreads) quant_decode(Params p) {
+  using L = Dec<NT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * kCols;
+  const int split = blockIdx.y;
+  const int kbeg = split * p.k_split;
+  const int kend = kbeg + p.k_split < p.I ? kbeg + p.k_split : p.I;
+  const int n_st = (kend - kbeg + kStep - 1) / kStep;
+
+  auto issue = [&](int it) {
+    unsigned char* st = smem + (it % kDecStages) * L::kStageBytes;
+    const int k0 = kbeg + it * kStep;
+    load_w<kStep, true>(st, p, k0, kend, c0, tid, kDecThreads);
+    load_x<T, 8 * NT, kStep, kDecXLd>(reinterpret_cast<bf16*>(st + L::kWBytes), p, 0, k0,
+                                          kend, tid, kDecThreads);
+  };
+#pragma unroll
+  for (int s = 0; s < kDecStages - 1; ++s) {
+    if (s < n_st) issue(s);
+    cp_commit();
+  }
+
+  float acc[NT][8][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][m][e] = 0.f;
+
+  for (int it = 0; it < n_st; ++it) {
+    cp_wait<kDecStages - 2>();
+    __syncthreads();  // stage it landed; every warp is done with stage it - 1
+    if (it + kDecStages - 1 < n_st) issue(it + kDecStages - 1);
+    cp_commit();
+    const unsigned char* st = smem + (it % kDecStages) * L::kStageBytes;
+    const bf16* xs = reinterpret_cast<const bf16*>(st + L::kWBytes);
+    // This thread's k slots 2t, 2t + 1, 2t + 8, 2t + 9 are the weight rows
+    // 16 warp + 4t + (0, 1, 2, 3), its m rows g and g + 8 of m-tile m the
+    // columns 16 g + 2 m and 16 g + 2 m + 1.
+    uint32_t w[4][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          st + (16 * warp + 4 * t + e) * kCols + 16 * (g ^ (2 * t)));
+      w[e][0] = v.x; w[e][1] = v.y; w[e][2] = v.z; w[e][3] = v.w;
+    }
+    uint2 xb[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      xb[nt] = *reinterpret_cast<const uint2*>(xs + (8 * nt + g) * kDecXLd + 16 * warp + 4 * t);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int j = m >> 1, b = 2 * (m & 1);
+      uint32_t a[4];
+      a[0] = i8x2_to_bf16x2(pair_bytes(w[0][j], w[1][j], b));
+      a[1] = i8x2_to_bf16x2(pair_bytes(w[0][j], w[1][j], b + 1));
+      a[2] = i8x2_to_bf16x2(pair_bytes(w[2][j], w[3][j], b));
+      a[3] = i8x2_to_bf16x2(pair_bytes(w[2][j], w[3][j], b + 1));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma(acc[nt][m], a, xb[nt].x, xb[nt].y);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+  // The warps' sums [warp][row][column] in the ring's memory, then added
+  // in warp order: thread (g, t) holds rows 8 nt + 2t + hf, columns 16 g ..
+  // 16 g + 15 (m rows g: c[hf], g + 8: c[2 + hf]).
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float4* dst = reinterpret_cast<float4*>(
+          red + (warp * 8 * NT + 8 * nt + 2 * t + hf) * kCols + 16 * g);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        dst[q] = make_float4(acc[nt][2 * q][hf], acc[nt][2 * q][2 + hf],
+                             acc[nt][2 * q + 1][hf], acc[nt][2 * q + 1][2 + hf]);
+    }
+  __syncthreads();
+  const int col = c0 + tid;  // 128 threads, 128 columns
+  if (col >= p.O) return;
+  const int rows = p.R < 8 * NT ? p.R : 8 * NT;
+  for (int n = 0; n < rows; ++n) {
+    float s = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < 4; ++wp) s += red[(wp * 8 * NT + n) * kCols + tid];
+    if (p.ws != nullptr) {
+      p.ws[(static_cast<int64_t>(split) * p.R + n) * p.O + col] = s;
+    } else {
+      store(static_cast<T*>(p.out) + static_cast<int64_t>(n) * p.O + col, s * p.scale[col]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ prefill ----
+
+constexpr int kPreThreads = 256;      // 8 warps: 2 along rows x 4 along columns
+constexpr int kPreRows = 128;         // x rows a block
+constexpr int kPreStages = 3;
+constexpr int kPreXLd = kStep + 8;    // bf16, padded rows for ldmatrix
+constexpr int kPreWLd = kCols + 8;     // bf16, the converted weight tile
+
+struct Pre {
+  static constexpr int kXBytes = kPreRows * kPreXLd * 2;
+  static constexpr int kWqBytes = kStep * kCols;
+  static constexpr int kStageBytes = kXBytes + kWqBytes;
+  static constexpr int kWbBytes = kStep * kPreWLd * 2;
+  static constexpr int kSmem = kPreStages * kStageBytes + kWbBytes;
+};
+
+// Grid (column tiles, row tiles, splits).
+template <typename T>
+__global__ void __launch_bounds__(kPreThreads, 2) quant_prefill(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sWb = reinterpret_cast<bf16*>(smem + kPreStages * Pre::kStageBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // rows 64 wm.., columns 32 wn..
+  const int c0 = blockIdx.x * kCols, r0 = blockIdx.y * kPreRows;
+  const int split = blockIdx.z;
+  const int kbeg = split * p.k_split;
+  const int kend = kbeg + p.k_split < p.I ? kbeg + p.k_split : p.I;
+  const int n_st = (kend - kbeg + kStep - 1) / kStep;
+
+  auto issue = [&](int it) {
+    unsigned char* st = smem + (it % kPreStages) * Pre::kStageBytes;
+    const int k0 = kbeg + it * kStep;
+    load_x<T, kPreRows, kStep, kPreXLd>(reinterpret_cast<bf16*>(st), p, r0, k0, kend, tid,
+                                           kPreThreads);
+    load_w<kStep, false>(st + Pre::kXBytes, p, k0, kend, c0, tid, kPreThreads);
+  };
+#pragma unroll
+  for (int s = 0; s < kPreStages - 1; ++s) {
+    if (s < n_st) issue(s);
+    cp_commit();
+  }
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const uint32_t uWb = smem_u32(sWb);
+
+  for (int it = 0; it < n_st; ++it) {
+    cp_wait<kPreStages - 2>();
+    __syncthreads();  // stage it landed; every warp is done with stage it - 1 and sWb
+    if (it + kPreStages - 1 < n_st) issue(it + kPreStages - 1);
+    cp_commit();
+    const unsigned char* st = smem + (it % kPreStages) * Pre::kStageBytes;
+    // The int8 stage -> bf16, once for the block: 16 columns of a row at a
+    // time.
+#pragma unroll 1
+    for (int ch = tid; ch < kStep * (kCols / 16); ch += kPreThreads) {
+      const int r = ch >> 3, c = ch & 7;
+      const uint4 v = *reinterpret_cast<const uint4*>(st + Pre::kXBytes + r * kCols + 16 * c);
+      const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
+      uint32_t o[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[2 * j] = i8x2_to_bf16x2(__byte_perm(wv[j], 0u, 0x1100));
+        o[2 * j + 1] = i8x2_to_bf16x2(__byte_perm(wv[j], 0u, 0x3322));
+      }
+      uint4* dst = reinterpret_cast<uint4*>(sWb + r * kPreWLd + 16 * c);
+      dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+    __syncthreads();
+    const uint32_t uX = smem_u32(st);
+#pragma unroll
+    for (int kk = 0; kk < kStep / 16; ++kk) {
+      uint32_t b[2][4];  // the warp's 4 n-tiles of this k16 step
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldsm_t(b[np], uWb + 2 * ((16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kPreWLd +
+                                 32 * wn + 16 * np + (lane >> 4) * 8));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        ldsm(a, uX + 2 * ((64 * wm + 16 * mt + (lane & 15)) * kPreXLd + 16 * kk +
+                          (lane >> 4) * 8));
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], a, b[nt >> 1][2 * (nt & 1)],
+                                           b[nt >> 1][2 * (nt & 1) + 1]);
+      }
+    }
+  }
+  cp_wait<0>();
+  const int cw = c0 + 32 * wn + 2 * t;  // this thread's first column
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r0 + 64 * wm + 16 * mt + g + 8 * hf;
+      if (row >= p.R) continue;
+      float* wrow = p.ws + (static_cast<int64_t>(split) * p.R + row) * p.O;
+      T* orow = static_cast<T*>(p.out) + static_cast<int64_t>(row) * p.O;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = cw + 8 * nt + e;
+          if (col >= p.O) continue;
+          const float v = acc[mt][nt][2 * hf + e];
+          if (p.ws != nullptr) {
+            wrow[col] = v;
+          } else {
+            store(orow + col, v * p.scale[col]);
+          }
+        }
+    }
+}
+
+// ------------------------------------------------------------- reduce ----
+
+// out = (sum of the splits' partials, in split order) * scale, cast.
+template <typename T>
+__global__ void __launch_bounds__(256) quant_reduce(const float* __restrict__ ws,
+                                                    const float* __restrict__ scale,
+                                                    T* __restrict__ out, int64_t R, int64_t O,
+                                                    int splits) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= R * O) return;
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += ws[sp * R * O + e];
+  store(out + e, s * scale[e % O]);
+}
+
+// ------------------------------------------------------------- launch ----
+
+template <typename T>
+int launch(const Params& p, int64_t splits, cudaStream_t stream) {
+  const unsigned col_tiles = static_cast<unsigned>((p.O + kCols - 1) / kCols);
+  if (p.R <= kDecodeMaxRows) {
+    const dim3 grid(col_tiles, static_cast<unsigned>(splits));
+    if (p.R <= 8) {
+      quant_decode<T, 1><<<grid, kDecThreads, Dec<1>::kSmem, stream>>>(p);
+    } else {
+      quant_decode<T, 2><<<grid, kDecThreads, Dec<2>::kSmem, stream>>>(p);
+    }
+  } else {
+    static bool attr_set = false;  // above 48 KB only by opting in
+    if (!attr_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          quant_prefill<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Pre::kSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    const dim3 grid(col_tiles, static_cast<unsigned>((p.R + kPreRows - 1) / kPreRows),
+                    static_cast<unsigned>(splits));
+    quant_prefill<T><<<grid, kPreThreads, Pre::kSmem, stream>>>(p);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.ws == nullptr) return static_cast<int>(err);
+  const int64_t n = static_cast<int64_t>(p.R) * p.O;
+  quant_reduce<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      p.ws, p.scale, static_cast<T*>(p.out), p.R, p.O, static_cast<int>(splits));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x [R, I] and out [R, O] of one dtype (code 0 = f32, 1 = bf16), wq int8
-// [I, O], scale f32 [O]; all row-major and contiguous. Launches on `stream`
-// without synchronising and returns cudaGetLastError().
-extern "C" int slt_quant_matmul(const void* x, const void* wq,
-                                const void* scale, void* out, int dtype,
-                                long long R, long long I, long long O,
-                                void* stream) {
-  if (R <= 0 || I <= 0 || O <= 0 || (R + 7) / 8 > 65535) {
+// [I, O], scale f32 [O]; all row-major and contiguous. The contraction is
+// split into ceil(I / k_split) parts of k_split rows (a multiple of the
+// 64-row stage of both paths); with more than one, ws
+// holds [splits, R, O] f32 and may not be null, else it must be null.
+// Launches on `stream` without synchronising and returns
+// cudaGetLastError().
+extern "C" int slt_quant_matmul(const void* x, const void* wq, const void* scale, void* out,
+                                float* ws, int dtype, long long R, long long I, long long O,
+                                long long k_split, void* stream) {
+  constexpr long long kMax = 0x7fffffff;
+  if (R <= 0 || I <= 0 || O <= 0 || R > kMax || I > kMax || O > kMax || k_split <= 0 ||
+      k_split > kMax || k_split % kStep != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = O % kCols == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+  const long long splits = (I + k_split - 1) / k_split;
+  if (splits > 65535 || (R + kPreRows - 1) / kPreRows > 65535 || (splits > 1) != (ws != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p = {};
+  p.x = x;
+  p.wq = static_cast<const int8_t*>(wq);
+  p.scale = static_cast<const float*>(scale);
+  p.out = out;
+  p.ws = ws;
+  p.R = static_cast<int>(R);
+  p.I = static_cast<int>(I);
+  p.O = static_cast<int>(O);
+  p.k_split = static_cast<int>(k_split);
+  p.vec = O % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+  p.xvec = dtype == kBF16 && I % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R == 1) return dispatch<1>(x, wq, scale, out, dtype, R, I, O, vec, s);
-  if (R <= 2) return dispatch<2>(x, wq, scale, out, dtype, R, I, O, vec, s);
-  if (R <= 4) return dispatch<4>(x, wq, scale, out, dtype, R, I, O, vec, s);
-  return dispatch<8>(x, wq, scale, out, dtype, R, I, O, vec, s);
+  if (dtype == kBF16) return launch<bf16>(p, splits, s);
+  if (dtype == kF32) return launch<float>(p, splits, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,18 +6,56 @@ hand-written Hopper kernel (``csrc/quant_matmul.cu``); a build or launch
 failure raises. On a CPU tensor it runs :func:`quant_matmul_reference`, the
 plain PyTorch version with the same casts, which the tests and
 ``chip_smoke.py`` hold the kernel against.
+
+:func:`plan` is the one place that picks the kernel's path (decode for up
+to 16 rows, prefill above) and how the contraction is split across blocks;
+the wrapper passes its split to the kernel and allocates the split
+partials' f32 workspace.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from serverless_learn_tpu_torch.ops import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+DECODE_MAX_ROWS = 16  # R <= 16: the split-K decode kernel; above: prefill
+TILE_COLS = 128       # output columns a block owns, both paths
+PREFILL_TILE_ROWS = 128
+STEP_ROWS = 64        # contraction rows a stage, both paths
+# Blocks to aim for (H100 SXM: 132 SMs): decode blocks are small (4 warps,
+# 38-43 KB of shared memory) and stream bytes, so about four an SM; prefill
+# blocks hold a 128 x 128 tile and fit two an SM, so one full wave.
+TARGET_BLOCKS = {"decode": 4 * 132, "prefill": 2 * 132}
+
+
+class Plan(NamedTuple):
+    path: str     # "decode" or "prefill"
+    k_split: int  # contraction rows a split, a multiple of STEP_ROWS
+    splits: int   # ceil(I / k_split); above 1 the partials go through f32
+
+
+@functools.lru_cache(maxsize=256)
+def plan(R: int, I: int, O: int) -> Plan:
+    """The kernel's path for R rows, and the split of I across blocks that
+    brings the blocks of an [R, I] x [I, O] product up to, not past,
+    TARGET_BLOCKS (past it, a partial second wave of blocks costs more
+    than the split saves)."""
+    path = "decode" if R <= DECODE_MAX_ROWS else "prefill"
+    tiles = math.ceil(O / TILE_COLS)
+    if path == "prefill":
+        tiles *= math.ceil(R / PREFILL_TILE_ROWS)
+    steps = math.ceil(I / STEP_ROWS)
+    want = min(steps, max(1, TARGET_BLOCKS[path] // tiles))
+    k_split = math.ceil(steps / want) * STEP_ROWS
+    return Plan(path, k_split, math.ceil(I / k_split))
 
 
 def quant_matmul_reference(x: torch.Tensor, wq: torch.Tensor,
@@ -39,7 +77,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.slt_quant_matmul
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, ll, ll, ll, p]
+        fn.argtypes = [p, p, p, p, p, i, ll, ll, ll, ll, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -74,13 +112,16 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     x2 = x.reshape(-1, I).contiguous()
     R = x2.shape[0]
     out = torch.empty((R, O), dtype=out_dtype, device=x.device)
+    pl = plan(R, I, O)
+    ws = (torch.empty((pl.splits, R, O), dtype=torch.float32, device=x.device)
+          if pl.splits > 1 else None)
     rc = _lib().slt_quant_matmul(
         x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[x.dtype], R, I, O,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        None if ws is None else ws.data_ptr(), _DTYPE_CODE[x.dtype], R, I, O,
+        pl.k_split, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}"
-                           f" at R={R} I={I} O={O}")
+                           f" at R={R} I={I} O={O} ({pl})")
     quant_matmul.launches += 1
     return out.reshape(*lead, O)
 

@@ -314,6 +314,72 @@ def test_kernel_tolerance_passes_k3_query_chunks_at_d128():
     _assert_twin_within_limit_and_faults_fail(_k2_k3_twin_against_plain(128, 32))
 
 
+def _k1_tensor_core_arithmetic_bf16(q, k, v, *, drop_rescale=False,
+                                    skip_off_by_tile=False):
+    """K1 as the tensor-core kernel computes it, in torch, causal: each
+    warp's 16 query rows against 64-key tiles; a warp skips a tile wholly
+    above the diagonal and masks only a tile the diagonal crosses, by the
+    kernel's own tests; the running max m in log2 units, p = exp2(s scale
+    log2 e - m) selected to 0 where masked, packed to bf16 against the
+    running max before p @ v; the running sum and out rescaled per row by
+    exp2(m_old - m_new); every sum f32. ``drop_rescale`` leaves out's
+    rescale out, ``skip_off_by_tile`` moves the skip boundary one tile
+    down (the diagonal tile is skipped): the faults the limit must catch."""
+    Bq, Tq, Hq, Dq = q.shape
+    grp = Hq // k.shape[2]
+    scale2 = torch.tensor(Dq ** -0.5, dtype=torch.float32) * LOG2E
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(grp, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(grp, dim=2).transpose(1, 2)
+    pos = torch.arange(Tq)
+    out = torch.zeros(Bq, Hq, Tq, Dq)
+    for qw in range(0, Tq, 16):  # a warp's 16 rows
+        rows = slice(qw, qw + 16)
+        m2 = torch.full((Bq, Hq, 16, 1), NEG)
+        l = torch.zeros(Bq, Hq, 16, 1)
+        acc = torch.zeros(Bq, Hq, 16, Dq)
+        for k0 in range(0, Tq, 64):
+            if k0 > qw + 15 - (64 if skip_off_by_tile else 0):
+                continue  # all masked
+            s = qf[:, :, rows] @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
+            ok = torch.ones(16, 64, dtype=torch.bool)
+            if k0 + 63 > qw:  # the diagonal crosses the tile
+                ok = pos[None, k0:k0 + 64] <= pos[rows, None]
+                s = s.masked_fill(~ok, NEG)
+            m_new = torch.maximum(m2, s.amax(-1, keepdim=True) * scale2)
+            alpha = torch.exp2(m2 - m_new)
+            p = torch.where(ok, torch.exp2(s * scale2 - m_new), 0.0)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = (acc if drop_rescale else acc * alpha) + (
+                _round_bf16(p) @ vf[:, :, k0:k0 + 64])
+            m2 = m_new
+        out[:, :, rows] = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_tolerance_passes_k1_tensor_core_tiles_and_fails_faults(d):
+    """The bf16 limit holds the tensor-core K1 arithmetic (16-row warps,
+    64-key tiles, exp2 with the scale folded in, p packed to bf16 against
+    the running max, the per-row rescale, the causal skip) within half of
+    itself against both the plain version and the reference's Pallas
+    kernel (interpret mode, bf16 in); an out without its rescale and a skip
+    boundary one tile off each fail it."""
+    b, t, h, k = 1, 512, 4, 2
+    q, kk, v, _, _ = _inputs(9, b=b, t=t, h=h, k=k, d=d)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kk, v))
+    plain, _ = flash_fwd_reference(tq, tk, tv, causal=True)
+    pallas = torch.from_numpy(np.asarray(jax_flash(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, kk, v)), causal=True,
+        interpret=True), np.float32)).to(torch.bfloat16)
+    twin = _k1_tensor_core_arithmetic_bf16(tq, tk, tv)
+    assert _over_limit(twin, plain) <= 0.5
+    assert _over_limit(twin, pallas) <= 0.5
+    for fault in ("drop_rescale", "skip_off_by_tile"):
+        bad = _k1_tensor_core_arithmetic_bf16(tq, tk, tv, **{fault: True})
+        assert _over_limit(bad, plain) > 1.0, fault
+
+
 # ------------------------------------------------------------ on the card --
 
 
@@ -352,12 +418,14 @@ def test_kernels_match_plain_on_card(card, case):
     kw = dict(causal=causal, mode=mode, arg=arg)
     n = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
     out, lse = flash_fwd(q, kk, v, **kw)
+    out2, lse2 = flash_fwd(q, kk, v, **kw)  # K1 repeats bit for bit
     delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = flash_dq(q, kk, v, g, lse, delta, **kw)
     dk, dv = flash_dkv(q, kk, v, g, lse, delta, **kw)
     torch.cuda.synchronize()
     assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == (
-        n[0] + 1, n[1] + 1, n[2] + 1)
+        n[0] + 2, n[1] + 1, n[2] + 1)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     want_out, want_lse = flash_fwd_reference(q, kk, v, **kw)
     want = (flash_dq_reference(q, kk, v, g, want_lse, delta, **kw),
             *flash_dkv_reference(q, kk, v, g, want_lse, delta, **kw))

@@ -9,7 +9,7 @@ import torch
 from serverless_learn_tpu.ops.pallas.quant_matmul import (
     quant_matmul as jax_quant_matmul)
 from serverless_learn_tpu_torch.ops.quant_matmul import (
-    quant_matmul, quant_matmul_reference)
+    STEP_ROWS, plan, quant_matmul, quant_matmul_reference)
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -69,6 +69,75 @@ def test_leading_dims_and_out_dtype():
         quant_matmul(x, wq, scale, out_dtype=torch.float32)
 
 
+def _int8_to_bf16_like_kernel(wq, offset_undone=True):
+    """The kernel's int8 -> bf16 rule on each byte s: the bf16 halves
+    0x4300 | (s & 0x7f) = 128 + (s & 0x7f) and 0x4300 | (s & 0x80) = 128 or
+    256, subtracted in bf16. ``offset_undone=False`` is the fault that
+    leaves the biased s + 128."""
+    u = wq.to(torch.int16) & 0xFF
+    v = (0x4300 | (u & 0x7F)).view(torch.bfloat16)
+    o = (0x4300 | (u & 0x80)).view(torch.bfloat16)
+    out = v - o
+    return out if offset_undone else out + 128
+
+
+def test_int8_to_bf16_rule_is_exact_on_every_byte():
+    every = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    got = _int8_to_bf16_like_kernel(every)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, every.to(torch.bfloat16))
+
+
+def _split_k_twin(x, wq, scale, *, drop_split=None, offset_undone=True):
+    """The kernel's split-K product in torch: ``plan``'s splits of I, each
+    split's partial bf16(x) @ bf16(wq) summed in f32, the partials added in
+    split order, then the scale and the cast (the decode and prefill
+    kernels' f32 workspace and quant_reduce). ``drop_split`` leaves that
+    split's partial out."""
+    R, I = x.shape
+    pl = plan(R, I, wq.shape[1])
+    xb = x.to(torch.bfloat16).float()
+    total = torch.zeros(R, wq.shape[1])
+    for sp in range(pl.splits):
+        a, b = sp * pl.k_split, min(I, (sp + 1) * pl.k_split)
+        if sp != drop_split:
+            w = _int8_to_bf16_like_kernel(wq[a:b], offset_undone).float()
+            total = total + xb[:, a:b] @ w
+    return (total * scale).to(x.dtype)
+
+
+# (R, I, O): decode and prefill plans whose splits leave I ragged
+SPLIT_CASES = [(8, 100, 77), (3, 4096, 384), (17, 4096, 384),
+               (8, 14336, 256), (40, 14336, 64)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_CASES)
+def test_split_k_partition_covers_i_and_matches_plain(shape):
+    """``plan``'s splits cover I exactly (ragged I: 100, 4096, 14336), each
+    a whole number of its path's stages; the ordered sum of the split
+    partials stays within phase 3's limit of the plain version, while a
+    dropped split and an int8 + 128 left in the weights both fail it."""
+    R, I, O = shape
+    pl = plan(R, I, O)
+    assert pl.k_split % STEP_ROWS == 0 and pl.splits > 1
+    bounds = [(sp * pl.k_split, min(I, (sp + 1) * pl.k_split))
+              for sp in range(pl.splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == I
+    assert all(a < b for a, b in bounds)
+    assert all(b == a2 for (_, b), (a2, _) in zip(bounds, bounds[1:]))
+    x, wq, scale = (torch.from_numpy(a) for a in _inputs(R, I, O, seed=I))
+    x = x.to(torch.bfloat16)
+    ref = quant_matmul_reference(x, wq, scale).float()
+    limit = 2 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+
+    def fails(got):
+        return bool(((got.float() - ref).abs() > limit).any())
+
+    assert not fails(_split_k_twin(x, wq, scale))
+    assert fails(_split_k_twin(x, wq, scale, drop_split=1))
+    assert fails(_split_k_twin(x, wq, scale, offset_undone=False))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -79,16 +148,23 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 4096, 1024), (2, 256, 384),
                                    (3, 512, 1024), (4, 256, 384),
-                                   (8, 256, 384), (37, 300, 77)])
+                                   (8, 256, 384), (37, 300, 77),
+                                   (9, 4096, 1024), (16, 4136, 1024),
+                                   (17, 4136, 1024), (200, 512, 384)])
 def test_kernel_matches_plain_on_card(card, shape):
+    """Decode (up to 16 rows) and prefill tiles, split and unsplit, ragged
+    I (4136 is no multiple of a split) and ragged I and O; two launches of
+    one case repeat bit for bit."""
     R, I, O = shape
     x, wq, scale = _inputs(R, I, O)
     xc = torch.from_numpy(x).to(card, torch.bfloat16)
     wc, sc = torch.from_numpy(wq).to(card), torch.from_numpy(scale).to(card)
     before = quant_matmul.launches
     got = quant_matmul(xc, wc, sc)
+    again = quant_matmul(xc, wc, sc)
     torch.cuda.synchronize()
-    assert quant_matmul.launches == before + 1
+    assert quant_matmul.launches == before + 2
+    assert torch.equal(got, again)
     want = quant_matmul_reference(xc, wc, sc).float()
     # Summed in another order than cuBLAS's f32 product: a bf16 output may
     # round to a neighbouring value (one ulp <= 2^-7 relative), and the f32
