@@ -20,7 +20,8 @@ any failing phase exits non-zero:
    bit (the split-K partials are added in a fixed order, no atomics);
 4. times the kernel at the decode shapes (8 rows) and at a 512-row
    prefill beside its bound, its plain version, the convert-then-matmul
-   form and ``torch._weight_int8pack_mm``;
+   form and ``torch._weight_int8pack_mm``: eagerly, as the model calls it
+   (host time included), and replayed from a CUDA graph (device time);
 5. runs llama_tiny int8 on the card (kernel) and on the CPU (plain) from the
    same weights and compares logits and greedy tokens;
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
@@ -60,9 +61,9 @@ any failing phase exits non-zero:
    and sampled requests through the port's ``GenerationServer`` and checks
    the replies, by the launch counter that every projection of every
    forward went through the kernel, and that phase 3 checked every row
-   count it served; then times prefill and a decode step, profiles one
-   prefill forward (the int8 matmul's share of its device time) and
-   decode steps;
+   count it served; then times prefill and each of 40 decode steps
+   (median and quartiles), profiles one prefill forward (the int8
+   matmul's share of its device time) and decode steps;
 10. prints one JSON line of kernels, then the card's name and power limit,
     then the result line ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +82,7 @@ kernel with the same yardsticks.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -111,6 +113,7 @@ CHECK_ROWS = (1, 2, 3, 4, 8, 9, 16, 17, 8 * 37) + tuple(
     b * PROMPT_LEN for b in (1, 2, 4) if b <= SERVE_BATCH)
 DECODE_ROWS = 8
 PREFILL_ROWS = SERVE_BATCH * PROMPT_LEN  # 512: phase 9's largest prefill
+DECODE_STEPS = 40  # phase 9b's timed decode steps
 # A contraction that is not a multiple of any split (k_split is a multiple
 # of 64 rows): the last split is ragged.
 RAGGED_I = (4136, 1024)
@@ -144,13 +147,17 @@ def bound(R: int, I: int, O: int):
                                        else "operations")
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3,
-            graph: bool = False) -> float:
-    """Device ms per call of ``fn(i)``, by CUDA events around ``iters``
-    calls. ``graph``: the calls are captured once into a CUDA graph and
-    the replay is timed, so the host's time to enqueue a call (tens of us
-    for a small kernel behind a Python wrapper) leaves no gap between
-    launches."""
+def time_ms(torch, fn, iters: int, warmup: int = 3, graph: bool = False,
+            reps: int = 1) -> float:
+    """ms per call of ``fn(i)``, by CUDA events around ``iters`` calls: the
+    median of ``reps`` such runs. Eagerly, where a call's device time is
+    shorter than the host's time to make the call, the host's time is what
+    is measured. Python's garbage collector is held off during a run, as
+    ``timeit`` does: a collection of a large process (milliseconds) inside
+    a run of 20 short calls would otherwise count as tens of microseconds
+    a call. ``graph``: the calls are captured once into a CUDA graph and
+    the replay is timed, so the host's time leaves no gap between launches
+    and device time alone is measured."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -162,22 +169,21 @@ def time_ms(torch, fn, iters: int, warmup: int = 3,
         run = g.replay
         run()
         torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def row_tile(qm, R: int) -> str:
-    """The kernel's tile for R rows: ``ops.quant_matmul.plan``'s path, and
-    for decode its n8 tiles (one up to 8 rows, two up to 16;
-    csrc/quant_matmul.cu)."""
-    if qm.plan(R, 1, 1).path == "prefill":
-        return "prefill"
-    return "decode_n8" if R <= 8 else "decode_n16"
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        gc.collect()
+        gc.disable()
+        try:
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+        finally:
+            gc.enable()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 def check_kernel(torch, qm, card):
@@ -243,7 +249,7 @@ def check_case(torch, qm, g, R, wq, scale, dt, worst):
         fail(f"kernel disagrees with plain at R={R} I={I} O={O} {dt} "
              f"({qm.plan(R, I, O)}): max abs {err.max().item():.4g}, max "
              f"|ref| {ref.max().item():.4g}")
-    key = (row_tile(qm, R), dt)
+    key = (qm.plan(R, I, O).tiling, dt)
     a, r, n = worst.get(key, (0.0, 0.0, 0))
     worst[key] = (max(a, err.max().item()),
                   max(r, err.max().item() / ref.max().item()), n + 1)
@@ -252,10 +258,11 @@ def check_case(torch, qm, g, R, wq, scale, dt, worst):
 def time_kernel(torch, qm, card, R=DECODE_ROWS):
     """Phase 4: the llama_8b projections at R rows (a decode forward at 8,
     a prefill at 512); weights cycled over copies worth >= 256 MB so each
-    launch reads them from device memory, not L2. The kernel's launches
-    are replayed from a CUDA graph (its device time; eagerly, a small
-    shape's time is the wrapper's host time); the plain version and the
-    two library forms, slower by far, run eagerly."""
+    launch reads them from device memory, not L2. The kernel runs eagerly,
+    as the model calls it (``ms``: where a launch's device time is shorter
+    than the wrapper's host time, the host's), and replayed from a CUDA
+    graph (``graph_ms``: device time alone); the plain version and the two
+    library forms, slower by far, run eagerly."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for (I, O), (sites, per_fwd) in LLAMA8B_SHAPES.items():
@@ -266,7 +273,9 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
         scale = torch.rand(O, generator=g, device="cuda") * 4e-4
         iters = max(20, 2 * n)
         ms = time_ms(torch, lambda i: qm.quant_matmul(x, wqs[i % n], scale),
-                     iters, graph=True)
+                     iters, reps=5)
+        graph_ms = time_ms(torch, lambda i: qm.quant_matmul(
+            x, wqs[i % n], scale), iters, graph=True, reps=5)
         plain = time_ms(torch, lambda i: qm.quant_matmul_reference(
             x, wqs[i % n], scale), 10, warmup=1)
         conv = time_ms(torch, lambda i: (x @ wqs[i % n].to(torch.bfloat16))
@@ -284,7 +293,7 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
             lib_error = None
         b, by = bound(R, I, O)
         rows.append(dict(I=I, O=O, R=R, sites=sites, per_forward=per_fwd,
-                         ms=ms,
+                         ms=ms, graph_ms=graph_ms,
                          plain_ms=plain, library_ms=lib,
                          convert_matmul_ms=conv, bound_ms=b, bound_by=by,
                          fraction_of_bound=b / ms, library_error=lib_error))
@@ -294,7 +303,8 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
     total = lambda key: sum(r[key] * r["per_forward"] for r in rows)
     lib_total = (None if any(r["library_ms"] is None for r in rows)
                  else total("library_ms"))
-    fwd = dict(ms=total("ms"), plain_ms=total("plain_ms"),
+    fwd = dict(ms=total("ms"), graph_ms=total("graph_ms"),
+               plain_ms=total("plain_ms"),
                bound_ms=total("bound_ms"), library_ms=lib_total,
                convert_matmul_ms=total("convert_matmul_ms"),
                bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -458,10 +468,12 @@ def device_time(torch, prof, match):
 
 def where_time_goes(torch, model, prompts, card):
     """Phase 9b: the batch-4 group of phase 9 run on the model directly:
-    prefill and decode-step times by CUDA events, one prefill forward under
-    torch.profiler (the int8 matmul's share of its device time), then 5
-    decode steps under torch.profiler for the device's busy share, kernel
-    time by name, and the eager ops and device kernels a step
+    prefill time by CUDA events, one prefill forward under torch.profiler
+    (the int8 matmul's share of its device time), the wall time of each of
+    DECODE_STEPS decode steps (host clock, each ending in a synchronize, as
+    the engine's steps end reading their tokens: median and quartiles),
+    then 5 decode steps under torch.profiler for the device's busy share,
+    kernel time by name, and the eager ops and device kernels a step
     dispatches."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -484,8 +496,14 @@ def where_time_goes(torch, model, prompts, card):
                                  ProfilerActivity.CUDA]) as pprof:
             model(toks, cache=cache, prefill=True, seq_lengths=lens)
             torch.cuda.synchronize()
-        decode_ms = time_ms(torch, lambda i: model(
-            step, cache=cache, decode=True), 10, warmup=1)
+        model(step, cache=cache, decode=True)
+        walls = []
+        for _ in range(DECODE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model(step, cache=cache, decode=True)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -509,9 +527,13 @@ def where_time_goes(torch, model, prompts, card):
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.cpu_parent is None and e.name.startswith("aten::")]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    q1, decode_ms, q3 = statistics.quantiles(walls, n=4)
     emit("where_time_goes_llama_8b_int8_decode", card=card, batch=B,
          prompt_bucket=PROMPT_LEN, prefill_ms=prefill_ms,
-         decode_step_ms=decode_ms, decode_tokens_per_s=B * 1e3 / decode_ms,
+         decode_steps=len(walls), decode_step_ms=decode_ms,
+         decode_step_ms_q1=q1, decode_step_ms_q3=q3,
+         decode_step_ms_min=min(walls), decode_step_ms_max=max(walls),
+         decode_tokens_per_s=B * 1e3 / decode_ms,
          profiled_steps=n, device_busy_share=busy / span,
          device_idle_share=1 - busy / span,
          kernel_ms_per_step=busy / n / 1e3,
@@ -1400,8 +1422,6 @@ def train_lora_8b(torch, card):
          seq_len=cfg.data.seq_len, **kernel_split(
              torch, prof, [k.__name__ for k in kernels]))
     del state, trainer, one, batch, prof, model, named, lora
-    import gc
-
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1510,7 +1530,8 @@ def main() -> int:
         "source": "serverless_learn_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "serverless_learn_tpu/ops/pallas/quant_matmul.py:88",
         "launches": launches, "max_abs_err": max_err,
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "ms": fwd["ms"], "graph_ms": fwd["graph_ms"],
+        "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
     }]

@@ -37,9 +37,9 @@
 //     3-stage ring is converted once into a bf16 tile in shared memory,
 //     which every warp reads by ldmatrix.trans. Split across blocks too
 //     where the tiles alone leave SMs idle.
-// Split partials go to an f32 workspace [splits, R, O] that the caller
-// allocates; quant_reduce adds them in split order, applies the scale and
-// casts. No atomics anywhere: a run repeats bit for bit.
+// Split partials go to an f32 workspace [splits, R, O] that the wrapper
+// allocates once a stream; quant_reduce adds them in split order, applies
+// the scale and casts. No atomics anywhere: a run repeats bit for bit.
 //
 // int8 -> bf16: bf16 holds 8 significant bits, so no single magic number
 // turns all 256 byte values into bf16 by one subtract. Two do: for a
@@ -59,15 +59,22 @@
 
 #include <type_traits>
 
+#include "hopper_ptx.cuh"
+
 namespace {
 
+using namespace ptx;  // hopper_ptx.cuh: cp.async, ldmatrix, mma, fragment addresses
 using bf16 = __nv_bfloat16;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+// The tile geometry that ops/quant_matmul.py's plan() counts blocks with
+// (TILE_COLS, STEP_ROWS, PREFILL_TILE_ROWS, DECODE_MAX_ROWS; checked on
+// loading through slt_quant_matmul_geometry); plan() picks the tiling.
 constexpr int kCols = 128;            // output columns per block, both paths
 constexpr int kStep = 64;             // contraction rows a stage, both paths
-constexpr int kDecodeMaxRows = 16;    // R <= 16: quant_decode, else quant_prefill
+constexpr int kDecodeMaxRows = 16;    // two n8 tiles of x's rows
+enum Tiling : int { kDecodeN8 = 0, kDecodeN16 = 1, kPrefill = 2 };
 
 struct Params {
   const void* x;
@@ -80,45 +87,6 @@ struct Params {
   bool vec;         // wq rows 16-byte aligned: cp.async copies
   bool xvec;        // bf16 x with 16-byte aligned rows: cp.async copies
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes.
-__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c[4] += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums.
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The signed bytes in the low bytes of t's two 16-bit halves as bf16x2,
 // exactly (the rule in the header).
@@ -390,13 +358,11 @@ __global__ void __launch_bounds__(kPreThreads, 2) quant_prefill(Params p) {
       uint32_t b[2][4];  // the warp's 4 n-tiles of this k16 step
 #pragma unroll
       for (int np = 0; np < 2; ++np)
-        ldsm_t(b[np], uWb + 2 * ((16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kPreWLd +
-                                 32 * wn + 16 * np + (lane >> 4) * 8));
+        ldsm_t(b[np], bt_addr<kPreWLd>(uWb, 16 * kk, 32 * wn + 16 * np, lane));
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
         uint32_t a[4];
-        ldsm(a, uX + 2 * ((64 * wm + 16 * mt + (lane & 15)) * kPreXLd + 16 * kk +
-                          (lane >> 4) * 8));
+        ldsm(a, a_addr<kPreXLd>(uX, 64 * wm + 16 * mt, 16 * kk, lane));
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], a, b[nt >> 1][2 * (nt & 1)],
                                            b[nt >> 1][2 * (nt & 1) + 1]);
@@ -447,23 +413,18 @@ __global__ void __launch_bounds__(256) quant_reduce(const float* __restrict__ ws
 // ------------------------------------------------------------- launch ----
 
 template <typename T>
-int launch(const Params& p, int64_t splits, cudaStream_t stream) {
+int launch(const Params& p, int tiling, int64_t splits, cudaStream_t stream) {
   const unsigned col_tiles = static_cast<unsigned>((p.O + kCols - 1) / kCols);
-  if (p.R <= kDecodeMaxRows) {
-    const dim3 grid(col_tiles, static_cast<unsigned>(splits));
-    if (p.R <= 8) {
-      quant_decode<T, 1><<<grid, kDecThreads, Dec<1>::kSmem, stream>>>(p);
-    } else {
-      quant_decode<T, 2><<<grid, kDecThreads, Dec<2>::kSmem, stream>>>(p);
-    }
+  if (tiling == kDecodeN8) {
+    quant_decode<T, 1><<<dim3(col_tiles, static_cast<unsigned>(splits)), kDecThreads, Dec<1>::kSmem, stream>>>(p);
+  } else if (tiling == kDecodeN16) {
+    quant_decode<T, 2><<<dim3(col_tiles, static_cast<unsigned>(splits)), kDecThreads, Dec<2>::kSmem, stream>>>(p);
   } else {
-    static bool attr_set = false;  // above 48 KB only by opting in
-    if (!attr_set) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          quant_prefill<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Pre::kSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      attr_set = true;
-    }
+    // Above 48 KB only by opting in, for the current device: set on every
+    // launch, as a per-process flag would miss a second card.
+    const cudaError_t err = cudaFuncSetAttribute(
+        quant_prefill<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Pre::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(col_tiles, static_cast<unsigned>((p.R + kPreRows - 1) / kPreRows),
                     static_cast<unsigned>(splits));
     quant_prefill<T><<<grid, kPreThreads, Pre::kSmem, stream>>>(p);
@@ -478,19 +439,33 @@ int launch(const Params& p, int64_t splits, cudaStream_t stream) {
 
 }  // namespace
 
+// The tile geometry plan() counts blocks with, for the wrapper to check
+// its copy against on loading: output columns a block, contraction rows a
+// stage, x rows a prefill block, most rows of the decode tilings.
+extern "C" void slt_quant_matmul_geometry(int* out) {
+  out[0] = kCols;
+  out[1] = kStep;
+  out[2] = kPreRows;
+  out[3] = kDecodeMaxRows;
+}
+
 // x [R, I] and out [R, O] of one dtype (code 0 = f32, 1 = bf16), wq int8
-// [I, O], scale f32 [O]; all row-major and contiguous. The contraction is
-// split into ceil(I / k_split) parts of k_split rows (a multiple of the
-// 64-row stage of both paths); with more than one, ws
-// holds [splits, R, O] f32 and may not be null, else it must be null.
-// Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// [I, O], scale f32 [O]; all row-major, contiguous and on card `device`.
+// `tiling` (0: decode, one n8 tile, R <= 8; 1: decode, two, R <= 16; 2:
+// prefill) and `k_split` come from ops/quant_matmul.py's plan(): the
+// contraction is split into ceil(I / k_split) parts of k_split rows (a
+// multiple of the 64-row stage of both paths); with more than one, ws
+// holds at least [splits, R, O] f32 and may not be null, else it must be
+// null. Launches on `stream` without synchronising, with `device` current
+// for the call, and returns cudaGetLastError().
 extern "C" int slt_quant_matmul(const void* x, const void* wq, const void* scale, void* out,
-                                float* ws, int dtype, long long R, long long I, long long O,
-                                long long k_split, void* stream) {
+                                float* ws, int dtype, int tiling, long long R, long long I,
+                                long long O, long long k_split, int device, void* stream) {
   constexpr long long kMax = 0x7fffffff;
   if (R <= 0 || I <= 0 || O <= 0 || R > kMax || I > kMax || O > kMax || k_split <= 0 ||
-      k_split > kMax || k_split % kStep != 0) {
+      k_split > kMax || k_split % kStep != 0 || (dtype != kF32 && dtype != kBF16) ||
+      (tiling == kDecodeN8 && R > 8) || (tiling == kDecodeN16 && R > kDecodeMaxRows) ||
+      (tiling != kDecodeN8 && tiling != kDecodeN16 && tiling != kPrefill)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long splits = (I + k_split - 1) / k_split;
@@ -509,8 +484,13 @@ extern "C" int slt_quant_matmul(const void* x, const void* wq, const void* scale
   p.k_split = static_cast<int>(k_split);
   p.vec = O % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
   p.xvec = dtype == kBF16 && I % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch<bf16>(p, splits, s);
-  if (dtype == kF32) return launch<float>(p, splits, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = dtype == kBF16 ? launch<bf16>(p, tiling, splits, s)
+                                : launch<float>(p, tiling, splits, s);
+  if (current != device) cudaSetDevice(current);
+  return rc;
 }

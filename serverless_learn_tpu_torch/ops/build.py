@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside the package
 (listed in ``.gitignore``), with its ``-Xptxas -v`` report beside it in
-``<name>-<hash>.log``. The hash covers the source and the flags, so an
-edited kernel is rebuilt and an unchanged one is loaded from the file.
+``<name>-<hash>.log``. The hash covers the source, the headers of
+``csrc/`` (``*.cuh``) and the flags, so an edited kernel is rebuilt and an
+unchanged one is loaded from the file.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by the sources
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -7,10 +7,14 @@ failure raises. On a CPU tensor it runs :func:`quant_matmul_reference`, the
 plain PyTorch version with the same casts, which the tests and
 ``chip_smoke.py`` hold the kernel against.
 
-:func:`plan` is the one place that picks the kernel's path (decode for up
-to 16 rows, prefill above) and how the contraction is split across blocks;
-the wrapper passes its split to the kernel and allocates the split
-partials' f32 workspace.
+:func:`plan` is the one place that picks the kernel's tiling (decode with
+one n8 tile of x's rows up to 8 rows, two up to 16, prefill above) and how
+the contraction is split across blocks; the wrapper passes both to the
+kernel. The split partials go to an f32 workspace of a fixed size that the
+wrapper allocates once for each stream and keeps, so a call allocates
+nothing but its output: a decode forward makes 225 calls of a few
+microseconds of device time each, and the host's time for a call is what
+an eager forward waits on.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,6 +31,8 @@ from serverless_learn_tpu_torch.ops import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# csrc/quant_matmul.cu's tile geometry, which plan() counts blocks with
+# (checked against the built kernel's on loading).
 DECODE_MAX_ROWS = 16  # R <= 16: the split-K decode kernel; above: prefill
 TILE_COLS = 128       # output columns a block owns, both paths
 PREFILL_TILE_ROWS = 128
@@ -34,28 +41,49 @@ STEP_ROWS = 64        # contraction rows a stage, both paths
 # 38-43 KB of shared memory) and stream bytes, so about four an SM; prefill
 # blocks hold a 128 x 128 tile and fit two an SM, so one full wave.
 TARGET_BLOCKS = {"decode": 4 * 132, "prefill": 2 * 132}
+# The kernel's tilings, by the code its entry point takes.
+TILINGS = {"decode_n8": 0, "decode_n16": 1, "prefill": 2}
+# The most f32 partials a split plan writes: with more than one split,
+# splits * tiles <= TARGET_BLOCKS, and a tile covers at most DECODE_MAX_ROWS
+# (decode) or PREFILL_TILE_ROWS (prefill) rows of TILE_COLS columns, so
+# splits * R * O stays under this (17.3 MB).
+WORKSPACE_FLOATS = TILE_COLS * max(
+    TARGET_BLOCKS["decode"] * DECODE_MAX_ROWS,
+    TARGET_BLOCKS["prefill"] * PREFILL_TILE_ROWS)
 
 
 class Plan(NamedTuple):
-    path: str     # "decode" or "prefill"
+    tiling: str   # a key of TILINGS
     k_split: int  # contraction rows a split, a multiple of STEP_ROWS
     splits: int   # ceil(I / k_split); above 1 the partials go through f32
+
+    @property
+    def path(self) -> str:
+        return "prefill" if self.tiling == "prefill" else "decode"
 
 
 @functools.lru_cache(maxsize=256)
 def plan(R: int, I: int, O: int) -> Plan:
-    """The kernel's path for R rows, and the split of I across blocks that
-    brings the blocks of an [R, I] x [I, O] product up to, not past,
+    """The kernel's tiling for R rows, and the split of I across blocks
+    that brings the blocks of an [R, I] x [I, O] product up to, not past,
     TARGET_BLOCKS (past it, a partial second wave of blocks costs more
     than the split saves)."""
-    path = "decode" if R <= DECODE_MAX_ROWS else "prefill"
+    if R > DECODE_MAX_ROWS:
+        tiling = "prefill"
+    else:
+        tiling = "decode_n8" if R <= 8 else "decode_n16"
+    path = "prefill" if tiling == "prefill" else "decode"
     tiles = math.ceil(O / TILE_COLS)
     if path == "prefill":
         tiles *= math.ceil(R / PREFILL_TILE_ROWS)
     steps = math.ceil(I / STEP_ROWS)
     want = min(steps, max(1, TARGET_BLOCKS[path] // tiles))
     k_split = math.ceil(steps / want) * STEP_ROWS
-    return Plan(path, k_split, math.ceil(I / k_split))
+    pl = Plan(tiling, k_split, math.ceil(I / k_split))
+    if pl.splits > 1 and pl.splits * R * O > WORKSPACE_FLOATS:
+        raise AssertionError(f"{pl} at R={R} I={I} O={O} outgrows the "
+                             f"workspace of {WORKSPACE_FLOATS} floats")
+    return pl
 
 
 def quant_matmul_reference(x: torch.Tensor, wq: torch.Tensor,
@@ -72,14 +100,41 @@ def quant_matmul_reference(x: torch.Tensor, wq: torch.Tensor,
     return (y * scale.to(torch.float32)).to(out_dtype)
 
 
-def _lib() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _kernel():
     lib = build.load("quant_matmul")
+    geometry = (ctypes.c_int * 4)()
+    lib.slt_quant_matmul_geometry(geometry)
+    mine = (TILE_COLS, STEP_ROWS, PREFILL_TILE_ROWS, DECODE_MAX_ROWS)
+    if tuple(geometry) != mine:
+        raise RuntimeError(f"csrc/quant_matmul.cu's tiles {tuple(geometry)} "
+                           f"are not the {mine} that plan() counts with")
     fn = lib.slt_quant_matmul
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, i, ll, ll, ll, ll, p]
-        fn.restype = ctypes.c_int
-    return lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, p, i, i, ll, ll, ll, ll, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# The current stream's handle without building a torch.cuda.Stream (a
+# private call that PyTorch's own generated code uses), where it exists.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+# (device, stream) -> (workspace, its address): one a stream, so calls on
+# one stream, graph replays included, use theirs in launch order.
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+# A split call is two launches, the split kernel then the reduce, and the
+# foreign call releases the GIL: the lock keeps another thread's call on
+# the same stream from landing between them and overwriting the partials.
+_launch_lock = threading.Lock()
+
+
+def _workspace(device: int, stream: int) -> int:
+    found = _workspaces.get((device, stream))
+    if found is None:
+        ws = torch.empty(WORKSPACE_FLOATS, dtype=torch.float32,
+                         device=torch.device("cuda", device))
+        found = _workspaces[(device, stream)] = (ws, ws.data_ptr())
+    return found[1]
 
 
 def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -87,43 +142,46 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     """``x [..., I]`` (bf16 or f32) times int8 ``wq [I, O]`` times f32
     ``scale [O]`` -> ``[..., O]`` in x's dtype; ``out_dtype``, where given,
     must be that dtype."""
-    if out_dtype not in (None, x.dtype):
+    if out_dtype is not None and out_dtype != x.dtype:
         raise TypeError(f"quant_matmul returns x's dtype {x.dtype}, not "
                         f"{out_dtype}")
-    out_dtype = x.dtype
-    if x.device.type == "cpu":
-        return quant_matmul_reference(x, wq, scale, out_dtype)
-    if x.device.type != "cuda":
+    if x.is_cpu:
+        return quant_matmul_reference(x, wq, scale, x.dtype)
+    if not x.is_cuda:
         raise ValueError(f"quant_matmul runs on cpu or cuda, got {x.device}")
     I, O = wq.shape
-    lead = x.shape[:-1]
     if x.shape[-1] != I or scale.shape != (O,):
         raise ValueError(f"shapes x {tuple(x.shape)}, wq {tuple(wq.shape)}, "
                          f"scale {tuple(scale.shape)} do not match")
-    if x.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if wq.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"wq must be int8 and scale float32, got {wq.dtype}, "
                         f"{scale.dtype}")
-    if not (wq.device == x.device == scale.device):
+    dev = x.get_device()
+    if wq.get_device() != dev or scale.get_device() != dev:
         raise ValueError("x, wq and scale must lie on one device")
     if not (wq.is_contiguous() and scale.is_contiguous()):
         raise ValueError("wq and scale must be contiguous")
-    x2 = x.reshape(-1, I).contiguous()
-    R = x2.shape[0]
-    out = torch.empty((R, O), dtype=out_dtype, device=x.device)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    R = x.numel() // I if I else 0
+    out = x.new_empty(x.shape[:-1] + (O,))
     pl = plan(R, I, O)
-    ws = (torch.empty((pl.splits, R, O), dtype=torch.float32, device=x.device)
-          if pl.splits > 1 else None)
-    rc = _lib().slt_quant_matmul(
-        x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), _DTYPE_CODE[x.dtype], R, I, O,
-        pl.k_split, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = (_raw_stream(dev) if _raw_stream is not None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    kernel = _kernel()
+    with _launch_lock:
+        rc = kernel(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _workspace(dev, stream) if pl.splits > 1 else None, code,
+            TILINGS[pl.tiling], R, I, O, pl.k_split, dev, stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}"
                            f" at R={R} I={I} O={O} ({pl})")
     quant_matmul.launches += 1
-    return out.reshape(*lead, O)
+    return out
 
 
 # Kernel launches since the last reset; chip_smoke.py zeroes it before the

@@ -8,8 +8,10 @@ import torch
 
 from serverless_learn_tpu.ops.pallas.quant_matmul import (
     quant_matmul as jax_quant_matmul)
+from serverless_learn_tpu_torch.ops import build
 from serverless_learn_tpu_torch.ops.quant_matmul import (
-    STEP_ROWS, plan, quant_matmul, quant_matmul_reference)
+    STEP_ROWS, TILINGS, WORKSPACE_FLOATS, plan, quant_matmul,
+    quant_matmul_reference)
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -138,6 +140,46 @@ def test_split_k_partition_covers_i_and_matches_plain(shape):
     assert fails(_split_k_twin(x, wq, scale, offset_undone=False))
 
 
+@pytest.mark.parametrize("R, tiling", [(1, "decode_n8"), (8, "decode_n8"),
+                                       (9, "decode_n16"), (16, "decode_n16"),
+                                       (17, "prefill"), (512, "prefill")])
+def test_plan_picks_the_tiling_by_rows(R, tiling):
+    pl = plan(R, 4096, 1024)
+    assert pl.tiling == tiling and tiling in TILINGS
+    assert pl.path == ("prefill" if tiling == "prefill" else "decode")
+
+
+# Row counts on both sides of each tiling's edge and of the prefill row
+# tile, and every llama_8b projection shape with ragged neighbours.
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 15, 16, 17, 127, 128, 129, 512,
+                               4096])
+def test_every_split_fits_the_one_workspace(R):
+    """The wrapper keeps one workspace of WORKSPACE_FLOATS a stream, so
+    every plan that splits must fit its [splits, R, O] partials there."""
+    dims = (64, 100, 1024, 1030, 4096, 4136, 14336, 128256)
+    for I in dims:
+        for O in dims:
+            pl = plan(R, I, O)
+            assert pl.splits == 1 or pl.splits * R * O <= WORKSPACE_FLOATS, (
+                R, I, O, pl)
+
+
+def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edit to a header of csrc/ rebuilds every source that may include
+    it, and an edit to one source rebuilds that source alone."""
+    (tmp_path / "a.cu").write_text("a")
+    (tmp_path / "b.cu").write_text("b")
+    (tmp_path / "shared.cuh").write_text("1")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._target(n) for n in "ab"}
+    (tmp_path / "shared.cuh").write_text("2")
+    after = {n: build._target(n) for n in "ab"}
+    assert all(before[n] != after[n] for n in "ab")
+    (tmp_path / "a.cu").write_text("a2")
+    assert build._target("a") != after["a"]
+    assert build._target("b") == after["b"]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -172,3 +214,51 @@ def test_kernel_matches_plain_on_card(card, shape):
     err = (got.float() - want).abs()
     assert bool((err <= 2 ** -7 * want.abs()
                  + 1e-3 * want.abs().max()).all()), err.max().item()
+
+
+@pytest.mark.cuda
+def test_kernel_in_a_cuda_graph_matches_eager(card):
+    """Split calls share their stream's workspace: a decode and a prefill
+    call that both split, captured into a CUDA graph (on another stream,
+    so with another workspace) and replayed, give the eager results bit
+    for bit."""
+    args = []
+    for R, I, O in [(8, 4096, 1024), (512, 4096, 1024)]:
+        assert plan(R, I, O).splits > 1
+        x, wq, scale = _inputs(R, I, O, seed=R)
+        args.append((torch.from_numpy(x).to(card, torch.bfloat16),
+                     torch.from_numpy(wq).to(card),
+                     torch.from_numpy(scale).to(card)))
+    want = [quant_matmul(*a) for a in args]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [quant_matmul(*a) for a in args]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_kernel_from_two_threads_on_one_stream(card):
+    """Split calls from two threads share the default stream's workspace:
+    each call's split kernel and reduce stay together, so every result
+    equals the one-thread result bit for bit."""
+    import threading
+
+    x, wq, scale = _inputs(8, 4096, 1024)
+    args = (torch.from_numpy(x).to(card, torch.bfloat16),
+            torch.from_numpy(wq).to(card), torch.from_numpy(scale).to(card))
+    want = quant_matmul(*args)
+    outs = [[], []]
+
+    def work(i):
+        for _ in range(50):
+            outs[i].append(quant_matmul(*args))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs[0] + outs[1])
