@@ -468,13 +468,15 @@ def device_time(torch, prof, match):
 
 def where_time_goes(torch, model, prompts, card):
     """Phase 9b: the batch-4 group of phase 9 run on the model directly:
-    prefill time by CUDA events, one prefill forward under torch.profiler
-    (the int8 matmul's share of its device time), the wall time of each of
-    DECODE_STEPS decode steps (host clock, each ending in a synchronize, as
-    the engine's steps end reading their tokens: median and quartiles),
-    then 5 decode steps under torch.profiler for the device's busy share,
-    kernel time by name, and the eager ops and device kernels a step
-    dispatches."""
+    prefill time by CUDA events and the wall time of each of DECODE_STEPS
+    decode steps (host clock, each ending in a synchronize, as the
+    engine's steps end reading their tokens: median and quartiles), both
+    before any profiler runs in the phase, since a profiler session can
+    leave the launches after it slower on the host; then one prefill
+    forward under torch.profiler (the int8 matmul's share of its device
+    time) and 5 decode steps under torch.profiler for the device's busy
+    share, kernel time by name, and the eager ops and device kernels a
+    step dispatches."""
     from torch.profiler import ProfilerActivity, profile
 
     from serverless_learn_tpu_torch.inference.generate import init_cache
@@ -491,11 +493,6 @@ def where_time_goes(torch, model, prompts, card):
     with torch.inference_mode():
         prefill_ms = time_ms(torch, lambda i: model(
             toks, cache=cache, prefill=True, seq_lengths=lens), 3, warmup=1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as pprof:
-            model(toks, cache=cache, prefill=True, seq_lengths=lens)
-            torch.cuda.synchronize()
         model(step, cache=cache, decode=True)
         walls = []
         for _ in range(DECODE_STEPS):
@@ -504,6 +501,10 @@ def where_time_goes(torch, model, prompts, card):
             model(step, cache=cache, decode=True)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pprof:
+            model(toks, cache=cache, prefill=True, seq_lengths=lens)
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
