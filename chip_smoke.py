@@ -64,6 +64,22 @@ any failing phase exits non-zero:
    count it served; then times prefill and each of 40 decode steps
    (median and quartiles), profiles one prefill forward (the int8
    matmul's share of its device time) and decode steps;
+9c. serves the same model through ``GenerationServer``'s defaults, the
+    continuous engine over the paged KV pool (block 16, prefill chunk 32,
+    budget 64, prefix cache on) with each decode bucket a CUDA graph of
+    one step: phase 9's four greedy prompts and a sampled one, then a
+    fifth prompt sharing prompt 0's first 100 tokens (6 blocks from the
+    prefix trie, the 7th copied on write), a 1,500-token prompt prefilled
+    in chunks between decode boundaries and a request with an eos_id.
+    Checks the replies (each greedy one equals the static path's or
+    leaves it only where the static top-2 margin is below twice the
+    measured logit gap, and that gap is no wider than the static path's
+    own between batch shapes), the EOS stop, no leaked page, the prefix
+    hits, 225 launches of the int8 matmul a forward (graph replays
+    counted), that phase 3 checked every row count served, that decode
+    chunks replayed from graphs and that a replayed chunk equals the
+    eager one bit for bit; then times a decode round and profiles one
+    replayed chunk;
 10. prints one JSON line of kernels, then the card's name and power limit,
     then the result line ``{"ok": true, "device": {...}}``.
 
@@ -110,7 +126,12 @@ SERVE_BATCH = 4  # the greedy requests of phase 9 form one group of 4
 # serve: decode at each batch bucket up to SERVE_BATCH (the sampled request
 # runs alone) and those buckets' prefills.
 CHECK_ROWS = (1, 2, 3, 4, 8, 9, 16, 17, 8 * 37) + tuple(
-    b * PROMPT_LEN for b in (1, 2, 4) if b <= SERVE_BATCH)
+    b * PROMPT_LEN for b in (1, 2, 4) if b <= SERVE_BATCH) + (
+    # phase 9c's continuous engine: decode at its live-batch buckets (1, 2,
+    # 4, 8) and prefill chunks of nb * T rows, T in {8, 16, 32}: 8 to 256;
+    # and the prefills of its solo static references (SHARED + 5 and
+    # LONG_PROMPT rows)
+    32, 64, 105, 1500)
 DECODE_ROWS = 8
 PREFILL_ROWS = SERVE_BATCH * PROMPT_LEN  # 512: phase 9's largest prefill
 DECODE_STEPS = 40  # phase 9b's timed decode steps
@@ -362,6 +383,7 @@ def serve_prompts(torch, vocab: int):
 
 def serve_full_width(torch, card):
     """Phase 9: llama_8b int8 served through the port's GenerationServer."""
+    from serverless_learn_tpu_torch.config import KVCacheConfig
     from serverless_learn_tpu_torch.inference.server import (GenerationServer,
                                                             request)
     from serverless_learn_tpu_torch.models.registry import build_model
@@ -381,7 +403,8 @@ def serve_full_width(torch, card):
 
     model.register_forward_pre_hook(count_forward)
     server = GenerationServer(model, port=0, max_batch=8,
-                              batch_wait_ms=50.0).start()
+                              batch_wait_ms=50.0, engine="static",
+                              kv=KVCacheConfig(paged=False)).start()
     try:
         server.engine.warm(PROMPT_LEN, NEW_TOKENS, batch_sizes=(SERVE_BATCH,))
         prompts = serve_prompts(torch, cfg.vocab_size)
@@ -446,8 +469,9 @@ def serve_full_width(torch, card):
          round1_wall_s=wall1, round2_wall_s=wall2,
          round2_new_tokens_per_s=len(again) * NEW_TOKENS / wall2,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    where_time_goes(torch, model, prompts, card)
-    return launches
+    static = where_time_goes(torch, model, prompts, card)
+    return launches, model, [r["new_tokens"] for r in first[:SERVE_BATCH]], \
+        static
 
 
 def device_time(torch, prof, match):
@@ -529,20 +553,400 @@ def where_time_goes(torch, model, prompts, card):
                and e.cpu_parent is None and e.name.startswith("aten::")]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     q1, decode_ms, q3 = statistics.quantiles(walls, n=4)
-    emit("where_time_goes_llama_8b_int8_decode", card=card, batch=B,
-         prompt_bucket=PROMPT_LEN, prefill_ms=prefill_ms,
-         decode_steps=len(walls), decode_step_ms=decode_ms,
-         decode_step_ms_q1=q1, decode_step_ms_q3=q3,
-         decode_step_ms_min=min(walls), decode_step_ms_max=max(walls),
-         decode_tokens_per_s=B * 1e3 / decode_ms,
-         profiled_steps=n, device_busy_share=busy / span,
-         device_idle_share=1 - busy / span,
-         kernel_ms_per_step=busy / n / 1e3,
-         quant_matmul_ms_per_step=k6 / n / 1e3,
-         quant_matmul_share_of_busy=k6 / busy,
-         top_level_aten_ops_per_step=len(top_ops) / n,
-         device_kernels_per_step=len(kern) / n,
-         top_kernels_ms_per_step=[(k[:80], v / n / 1e3) for k, v in top])
+    out = dict(
+        batch=B, prompt_bucket=PROMPT_LEN, prefill_ms=prefill_ms,
+        decode_steps=len(walls), decode_step_ms=decode_ms,
+        decode_step_ms_q1=q1, decode_step_ms_q3=q3,
+        decode_step_ms_min=min(walls), decode_step_ms_max=max(walls),
+        decode_tokens_per_s=B * 1e3 / decode_ms,
+        profiled_steps=n, device_busy_share=busy / span,
+        device_idle_share=1 - busy / span,
+        kernel_ms_per_step=busy / n / 1e3,
+        quant_matmul_ms_per_step=k6 / n / 1e3,
+        quant_matmul_share_of_busy=k6 / busy,
+        top_level_aten_ops_per_step=len(top_ops) / n,
+        device_kernels_per_step=len(kern) / n,
+        top_kernels_ms_per_step=[(k[:80], v / n / 1e3) for k, v in top])
+    emit("where_time_goes_llama_8b_int8_decode", card=card, **out)
+    return out
+
+
+# ------------------------------------------------------ continuous engine --
+
+# Phase 9c's fifth prompt repeats prompt 0's first 100 tokens and adds 5
+# (6 full blocks shared, the 7th copied on write), and its long prompt
+# (1,500 tokens) prefills in chunks between decode boundaries.
+SHARED, LONG_PROMPT = 100, 1500
+DECODE_ROUND = 128  # new tokens a request in phase 9c's decode round
+# How far the paged path's logits may part from the static path's, as
+# multiples of how far the static path parts from itself between a batch
+# of four and each prompt alone (on an H100 80GB HBM3 at 700 W: 1.00x the
+# mean and 1.12x the max).
+PART_LIMIT = {"mean": 1.25, "max": 1.5}
+
+
+def forced_logits(torch, model, prompts, tokens, window=None, chunk=32):
+    """[B, N, V] f32: the logits of each step that chose ``tokens`` [B][N]
+    after the right-padded ``prompts``, fed those tokens. ``window`` None:
+    over the monolithic cache, generate's path (the static engine's);
+    else over a paged cache of ``window`` pages a row, the prompts
+    prefilled in chunks of ``chunk`` as the continuous engine does."""
+    from serverless_learn_tpu_torch.inference.generate import init_cache
+    from serverless_learn_tpu_torch.inference.kvcache import (
+        paged_cache, sequential_table)
+
+    cfg = model.cfg
+    B, P = len(prompts), max(len(p) for p in prompts)
+    toks = torch.zeros(B, P, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    toks = toks.cuda()
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32).cuda()
+    rows = torch.arange(B, device="cuda")
+    with torch.inference_mode():
+        if window is None:
+            cache = init_cache(model, B)
+            last = model(toks, cache=cache, prefill=True,
+                         seq_lengths=lens)[rows, lens.long() - 1]
+        else:
+            cache = paged_cache(cfg.n_layers, B * window, 16, cfg.kv_heads,
+                                cfg.head_dim, cfg.dtype, "cuda",
+                                sequential_table(B, window, B * window))
+            last = torch.zeros(B, cfg.vocab_size, dtype=cfg.dtype,
+                               device="cuda")
+            for start in range(0, P, chunk):
+                n = (lens - start).clamp(0, chunk)
+                out = model(toks[:, start:start + chunk], cache=cache,
+                            extend=True, seq_lengths=n)
+                ends = (n > 0) & (lens - start <= chunk)
+                last[ends] = out[rows, (n.long() - 1).clamp(min=0)][ends]
+        steps = [last]
+        fed = torch.tensor(tokens, dtype=torch.int32).cuda()
+        for j in range(fed.shape[1] - 1):
+            steps.append(model(fed[:, j:j + 1], cache=cache,
+                               decode=True)[:, 0])
+    return torch.stack(steps, 1).float()
+
+
+def published(trie, prompt) -> bool:
+    """Whether every full block of ``prompt`` is in the prefix trie (read
+    without a lookup, which would count as a hit or a miss)."""
+    node, bs = trie._root, trie.block_size
+    for i in range(0, len(prompt) - len(prompt) % bs, bs):
+        node = node.children.get(tuple(prompt[i:i + bs]))
+        if node is None:
+            return False
+    return True
+
+
+def first_divergence(got, want, margins, tol):
+    """None where ``got`` equals ``want``; else (step, the static path's
+    top-2 margin there, whether that margin is below ``tol``)."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return j, margins[j], margins[j] < tol
+    return None
+
+
+def static_references(torch, model, prompts, static_replies, solos):
+    """The static path's logits for phase 9c: top-2 margins of every step
+    of phase 9's group of four and of each prompt of ``solos`` (prompt,
+    reply) alone; and how far the paged path's logits part from the
+    static path's over the same tokens, as the engine runs it (the group
+    prefilled in chunks of 32 under windows of 16 and 256 pages, and each
+    prompt alone in chunks of 8, which K6's decode kernel then takes, as
+    for a prefix hit's short remainder), beside the yardstick of how far
+    the static path parts from itself (each prompt alone against the
+    group: other row counts, so other sums in other orders)."""
+    static = forced_logits(torch, model, prompts, static_replies)
+    variants = {"chunk32_w16": forced_logits(torch, model, prompts,
+                                             static_replies, 16),
+                "chunk32_w256": forced_logits(torch, model, prompts,
+                                              static_replies, 256),
+                "alone_chunk8_w16": torch.cat([
+                    forced_logits(torch, model, [p], [r], 16, chunk=8)
+                    for p, r in zip(prompts, static_replies)]),
+                "static_alone": torch.cat([
+                    forced_logits(torch, model, [p], [r])
+                    for p, r in zip(prompts, static_replies)])}
+    diffs = {}
+    for k, v in variants.items():
+        d = (v - static).abs()
+        diffs[k] = dict(max=d.max().item(), mean=d.mean().item())
+    del variants, d
+
+    def margins(lg):
+        v = lg.topk(2, dim=-1).values
+        return (v[..., 0] - v[..., 1]).tolist()
+
+    out = margins(static)
+    del static
+    for p, r in solos:
+        out.append(margins(forced_logits(torch, model, [p], [r])[0]))
+    return out, diffs
+
+
+def serve_continuous(torch, card, model, static_replies, static_step):
+    """Phase 9c: phase 9's llama_8b int8 served through GenerationServer's
+    defaults: the continuous engine over the paged pool (block 16,
+    prefill_chunk 32, budget 64, prefix cache on), decode chunks replayed
+    from CUDA graphs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from serverless_learn_tpu_torch.inference.generate import generate
+    from serverless_learn_tpu_torch.inference.server import (GenerationServer,
+                                                            request)
+    from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+
+    cfg = model.cfg
+    V = cfg.vocab_size
+    prompts = serve_prompts(torch, V)
+    g = torch.Generator().manual_seed(4)
+    fifth = prompts[0][:SHARED] + torch.randint(0, V, (5,),
+                                                generator=g).tolist()
+    long_p = torch.randint(0, V, (LONG_PROMPT,), generator=g).tolist()
+    # The static path's replies and logits, before the engine starts:
+    # phase 9's group of four, and the fifth and the long prompt alone.
+    with torch.inference_mode():
+        solo = [generate(model, torch.tensor([p]), NEW_TOKENS)[0, len(p):]
+                .tolist() for p in (fifth, long_p)]
+    want = static_replies + solo
+    margins, diffs = static_references(
+        torch, model, prompts, static_replies, list(zip((fifth, long_p),
+                                                        solo)))
+    # The logit tolerance: a greedy token can flip only where the top-2
+    # margin is below twice the largest logit difference measured.
+    tol = 2 * max(d["max"] for d in diffs.values())
+    # The EOS request repeats the phase 9 prompt whose static margins are
+    # widest over steps 0-5, with eos_id its static reply's token at step 5.
+    e = max(range(SERVE_BATCH), key=lambda i: min(margins[i][:6]))
+    eos_id = static_replies[e][5]
+    greedy = [{"prompt": p, "max_new_tokens": NEW_TOKENS}
+              for p in prompts + [fifth, long_p]]
+    sampled = {"prompt": prompts[0], "max_new_tokens": NEW_TOKENS,
+               "temperature": 0.8, "top_k": 40, "seed": 1}
+    eos_req = {"prompt": prompts[e], "max_new_tokens": NEW_TOKENS,
+               "eos_id": eos_id}
+    first = greedy[:SERVE_BATCH] + [sampled]
+    later = greedy[SERVE_BATCH:] + [eos_req]
+    forwards, rows_served = [0], set()
+
+    def count_forward(mod, args):
+        forwards[0] += 1
+        rows_served.add(args[0].numel())
+
+    hook = model.register_forward_pre_hook(count_forward)
+    torch.cuda.reset_peak_memory_stats()
+    server = GenerationServer(model, port=0).start()
+    eng = server.engine
+    replies = [None] * (len(first) + len(later))
+
+    def client(i, req):
+        replies[i] = request(server.addr, req, timeout=600)
+
+    try:
+        t = time.perf_counter()
+        warm_graphs = eng.warm_shapes(
+            [(PROMPT_LEN, NEW_TOKENS), (len(fifth), NEW_TOKENS),
+             (LONG_PROMPT, NEW_TOKENS), (PROMPT_LEN, DECODE_ROUND)])
+        warm_s = time.perf_counter() - t
+        quant_matmul.launches = 0
+        forwards[0] = 0
+        rows_served.clear()
+        cap0, rep0 = eng.graph_captures, eng.graph_replays
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i, r))
+                   for i, r in enumerate(first)]
+        for th in threads:
+            th.start()
+        # The fifth prompt, the long one and the EOS request come once
+        # phase 9's prompts are published in the prefix trie, while the
+        # first five decode.
+        while not all(published(eng._trie, p) for p in prompts):
+            if time.perf_counter() - t0 > 300:
+                fail("phase 9's prompts were never published in the trie")
+            time.sleep(0.002)
+        admitted_at = eng.chunks_run
+        for i, r in enumerate(later):
+            threads.append(threading.Thread(target=client,
+                                            args=(len(first) + i, r)))
+            threads[-1].start()
+        for th in threads:
+            th.join(timeout=900)
+        if any(th.is_alive() for th in threads):
+            fail("a request did not finish")
+        wall = time.perf_counter() - t0
+        launches, n_fwd = quant_matmul.launches, forwards[0]
+        captures = eng.graph_captures - cap0
+        replays = eng.graph_replays - rep0
+        # A capture runs the forward twice: the warm-up, which launches,
+        # and the capture, which launches nothing; replays launch.
+        n_fwd += replays - captures
+        # Replayed steps pass no forward hook: their rows are the buckets'.
+        rows_served |= {nb for nb, _ in eng._chunks}
+        stats = eng.kv_stats()
+        hits = eng._trie.hits
+        main_log = [h for h in eng.harvest_log if h[2] >= t0]
+        # A decode round: phase 9's prompts again (prefix hits), 128 new
+        # tokens each, four chunks of pure decode one after another.
+        t1 = time.perf_counter()
+        round2 = [None] * SERVE_BATCH
+        th2 = [threading.Thread(target=lambda i: round2.__setitem__(
+            i, request(server.addr, {"prompt": prompts[i],
+                                     "max_new_tokens": DECODE_ROUND},
+                       timeout=600)), args=(i,)) for i in range(SERVE_BATCH)]
+        for th in th2:
+            th.start()
+        for th in th2:
+            th.join(timeout=600)
+        round_wall = time.perf_counter() - t1
+        round_log = [h for h in eng.harvest_log if h[2] >= t1]
+        # EOS alone, where the trajectory is known: the EOS prompt served
+        # alone, then again alone with eos_id its own token at step 5.
+        plain = request(server.addr, {"prompt": prompts[e],
+                                      "max_new_tokens": NEW_TOKENS})
+        stop = plain["new_tokens"][5]
+        stopped = request(server.addr, {"prompt": prompts[e],
+                                        "max_new_tokens": NEW_TOKENS,
+                                        "eos_id": stop})
+    finally:
+        server.stop()
+        hook.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pages = eng._pages
+    pool_bytes = sum(p.numel() * p.element_size()
+                     for p in pages.pages_k + pages.pages_v)
+
+    for req, rep in zip(first + later, replies):
+        if "error" in rep:
+            fail(f"server error: {rep['error']}")
+        new = rep["new_tokens"]
+        if (len(new) != NEW_TOKENS or rep["tokens"] != req["prompt"] + new
+                or not all(0 <= t < V for t in new)):
+            fail(f"malformed reply: {str(rep)[:300]}")
+    if any(r is None or len(r.get("new_tokens", ())) != DECODE_ROUND
+           for r in round2):
+        fail(f"malformed decode-round reply: {str(round2)[:300]}")
+    got = [replies[i]["new_tokens"] for i in range(SERVE_BATCH)]
+    got += [replies[len(first) + i]["new_tokens"] for i in (0, 1)]
+    eos_rep = replies[-1]["new_tokens"]
+    diverged = {i: first_divergence(got[i], want[i], margins[i], tol)
+                for i in range(len(got))}
+    faults = [f"greedy reply {i} differs from the static path at step "
+              f"{d[0]}, where its top-2 margin {d[1]:.4g} is not below the "
+              f"logit tolerance {tol:.4g}"
+              for i, d in diverged.items() if d and not d[2]]
+    # The paged path parts from the static one no further than the static
+    # path parts from itself.
+    own = diffs["static_alone"]
+    for name, d in diffs.items():
+        if not (d["mean"] <= PART_LIMIT["mean"] * own["mean"]
+                and d["max"] <= PART_LIMIT["max"] * own["max"]):
+            faults.append(f"the paged path's logits ({name}) part from the "
+                          f"static path's by {d}, the static path's own "
+                          f"yardstick {own}")
+    # The EOS request stops where the static reply first emits eos_id (at
+    # step 5 or before), unless it left the static tokens before that by
+    # the rule above; either way it emits only eos_id after its first.
+    k_s = static_replies[e].index(eos_id)
+    eos_div = first_divergence(eos_rep[:k_s + 1],
+                               static_replies[e][:k_s + 1], margins[e], tol)
+    k = eos_rep.index(eos_id) if eos_id in eos_rep else None
+    if eos_div is not None and not eos_div[2]:
+        faults.append(f"the EOS request left the static reply at step "
+                      f"{eos_div[0]}, margin {eos_div[1]:.4g} >= {tol:.4g}")
+    if (k is not None and eos_rep[k:] != [eos_id] * (NEW_TOKENS - k)) or (
+            eos_div is None and k != k_s):
+        faults.append(f"the request with eos_id {eos_id} did not stop at "
+                      f"step {k_s}")
+    k2 = plain["new_tokens"].index(stop)
+    if stopped.get("new_tokens") != (plain["new_tokens"][:k2 + 1]
+                                     + [stop] * (NEW_TOKENS - k2 - 1)):
+        faults.append(f"served alone with eos_id {stop}, the request did "
+                      f"not stop at step {k2}: {stopped}")
+    if stats["blocks_total"] - stats["blocks_free"] != \
+            stats["prefix_blocks_cached"] or hits < 2:
+        faults.append("pages leaked or the prefix was not reused")
+    per_fwd = 7 * cfg.n_layers + 1
+    if n_fwd <= 0 or launches != per_fwd * n_fwd:
+        faults.append(f"{launches} kernel launches for {n_fwd} forwards; "
+                      f"expected {per_fwd} per forward")
+    if not rows_served <= set(CHECK_ROWS):
+        faults.append(f"the kernel served row counts {sorted(rows_served)}"
+                      f", phase 3 checked only {list(CHECK_ROWS)}")
+    if replays <= 0:
+        faults.append("no decode chunk was replayed from a CUDA graph")
+    graph_check = eng.check_graph_chunk(prompts)
+    if not graph_check["identical"]:
+        faults.append("a decode chunk replayed from its graph differs from "
+                      "the eager chunk")
+
+    # Decode time per token (one decode step, a token for every live row):
+    # the host clock between the harvests of two decode chunks dispatched
+    # one after the other, over chunk_size, in the decode round; and each
+    # decode chunk's device time (CUDA events around its replays) over
+    # chunk_size, in the main run and in the round.
+    C = eng.chunk_size
+    per_tok = [(b[2] - a[2]) * 1e3 / C
+               for a, b in zip(round_log, round_log[1:])
+               if a[0] == b[0] == "pchunk"]
+    device = {name: sorted(h[3] / C for h in log
+                           if h[0] == "pchunk" and h[3] is not None)
+              for name, log in (("main", main_log), ("round", round_log))}
+    by_bucket = {}
+    for h in main_log + round_log:
+        if h[0] == "pchunk" and h[3] is not None:
+            by_bucket.setdefault("nb%d_w%d" % h[4], []).append(h[3] / C)
+    # One decode chunk under the profiler: the graph of the phase's
+    # commonest bucket, its table all sentinel (the scratch page only).
+    chunk = eng._chunks.get((SERVE_BATCH, 16)) or next(
+        iter(eng._chunks.values()))
+    chunk.table.fill_(eng._pool.sentinel)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk.run(graph=True)
+        torch.cuda.synchronize()
+    span, busy, k6, _, kern = device_time(torch, prof, "quant_")
+    emit("serve_continuous_llama_8b_int8", card=card,
+         requests=len(replies), wall_s=wall, warm_graphs=warm_graphs,
+         warm_s=warm_s, chunks_run=eng.chunks_run,
+         prefill_chunks_run=eng.prefill_chunks_run,
+         later_admitted_at_chunk=admitted_at,
+         preemptions=eng.preemptions, kv=stats, trie_hits=hits,
+         pool_gb=pool_bytes / 1e9, max_memory_allocated_gb=peak_gb,
+         forwards=n_fwd, kernel_launches=launches,
+         launches_per_forward=launches / max(n_fwd, 1),
+         rows_served=sorted(rows_served), graph_captures=captures,
+         graph_replays=replays, logit_tolerance=tol,
+         logit_abs_diff=diffs,
+         diverged={str(i): d[:2] for i, d in diverged.items() if d},
+         eos_prompt=e, eos_id=eos_id, eos_static_step=k_s, eos_stop=k,
+         eos_diverged=eos_div and eos_div[:2], eos_alone_stop=k2,
+         replies_head=[(a[:8], b[:8]) for a, b in zip(got, want)],
+         graph_check={k: v for k, v in graph_check.items()
+                      if not k.startswith("tokens")},
+         decode_ms_per_token=(statistics.median(per_tok) if per_tok
+                              else None),
+         decode_ms_per_token_all=per_tok, round_wall_s=round_wall,
+         round_new_tokens_per_s=SERVE_BATCH * DECODE_ROUND / round_wall,
+         device_ms_per_decode_step={
+             name: dict(median=statistics.median(v), min=v[0], max=v[-1],
+                        chunks=len(v)) if v else None
+             for name, v in device.items()},
+         device_ms_per_decode_step_by_bucket={
+             k: dict(median=statistics.median(v), chunks=len(v))
+             for k, v in sorted(by_bucket.items())},
+         static_decode_step_ms=static_step["decode_step_ms"],
+         static_decode_step_ms_q1_q3=(static_step["decode_step_ms_q1"],
+                                      static_step["decode_step_ms_q3"]),
+         profiled_chunk=dict(
+             rows=chunk.rows.tok.shape[0], window=chunk.table.shape[1],
+             steps=C, span_ms=span / 1e3, busy_ms=busy / 1e3,
+             device_idle_share=1 - busy / span, quant_matmul_ms=k6 / 1e3,
+             device_kernels=len(kern)))
+    if faults:
+        fail("phase 9c: " + "; ".join(faults))
+    return launches
 
 
 # ---------------------------------------------------------------- training --
@@ -1524,13 +1928,17 @@ def main() -> int:
     train_tiny_lora_agreement(torch, card)
     flash_launches = train_full_width(torch, card)
     lora_launches = train_lora_8b(torch, card)
-    launches = serve_full_width(torch, card)
+    static_launches, model, static_replies, static_step = serve_full_width(
+        torch, card)
+    launches = serve_continuous(torch, card, model, static_replies,
+                                static_step)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
         "source": "serverless_learn_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "serverless_learn_tpu/ops/pallas/quant_matmul.py:88",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches, "launches_static_engine": static_launches,
+        "max_abs_err": max_err,
         "ms": fwd["ms"], "graph_ms": fwd["graph_ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

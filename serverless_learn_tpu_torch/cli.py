@@ -7,6 +7,8 @@
         --set model_overrides.fused_ce=true --batch-size 8 \\
         --set train.grad_accum=4 --seq-len 4096 --steps 3
     python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8
+    python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8 \\
+        --serve-engine static --kv-monolithic
     python -m serverless_learn_tpu_torch generate --model llama_tiny \\
         --prompt 5,9,11 --max-new-tokens 8
 
@@ -27,10 +29,6 @@ from serverless_learn_tpu_torch.config import (ExperimentConfig, apply_sets,
                                                coerce)
 
 NOT_PORTED = {
-    "continuous": "--serve-engine continuous is not yet ported to PyTorch "
-                  "(ROADMAP.md queue 1 item 1); use --serve-engine static",
-    "paged": "the paged KV cache is not yet ported to PyTorch (ROADMAP.md "
-             "queue 1 item 1); the port serves from the monolithic cache",
     "checkpoint": "checkpoint restore is not yet ported to PyTorch "
                   "(ROADMAP.md queue 1 item 2); weights come from --seed",
     "distributed": "multi-process training (--world-size) is not yet ported "
@@ -43,29 +41,53 @@ NOT_PORTED = {
 }
 
 
-def _overrides(items: Optional[List[str]]) -> dict:
-    out = {}
+def _overrides(items: Optional[List[str]],
+               sections=("model_overrides",)) -> dict:
+    """``--set section.key=value`` items -> {section: {key: value}} for the
+    sections the command takes."""
+    out = {name: {} for name in sections}
     for item in items or []:
         path, eq, val = item.partition("=")
         if not eq:
             raise SystemExit(f"--set expects dotted.key=value, got {item!r}")
         section, _, key = path.partition(".")
-        if section == "kv":
-            raise SystemExit(NOT_PORTED["paged"])
-        if section != "model_overrides" or not key:
+        if section not in out or not key:
             raise SystemExit(f"--set {path}: the port takes only "
-                             "model_overrides.<field>=<value>")
-        out[key] = coerce(val)
+                             + " or ".join(f"{name}.<field>=<value>"
+                                           for name in sections))
+        out[section][key] = coerce(val)
     return out
 
 
-def _model_from_args(args):
+def _model_from_args(args, overrides: dict):
     from serverless_learn_tpu_torch.models.registry import build_model
 
     if args.checkpoint_dir:
         raise SystemExit(NOT_PORTED["checkpoint"])
     return build_model(args.model, device=args.device, quant=args.quant,
-                       seed=args.seed, **_overrides(args.set))
+                       seed=args.seed, **overrides)
+
+
+def _kv_config(args, fields: dict):
+    """The serving KVCacheConfig: ``--set kv.*``, then the dedicated
+    flags, as the reference CLI builds it."""
+    import dataclasses
+
+    from serverless_learn_tpu_torch.config import KVCacheConfig
+
+    try:
+        kv = KVCacheConfig(**fields)
+    except TypeError as e:
+        raise SystemExit(f"--set kv.*: {e}")
+    flags = {"block_size": args.kv_block_size,
+             "num_blocks": args.kv_num_blocks,
+             "prefill_chunk": args.prefill_chunk}
+    if args.kv_monolithic:
+        flags["paged"] = False
+    if args.no_prefix_cache:
+        flags["prefix_cache"] = False
+    return dataclasses.replace(
+        kv, **{k: v for k, v in flags.items() if v is not None})
 
 
 def _parse_mesh(text: str) -> dict:
@@ -145,7 +167,7 @@ def cmd_generate(args) -> int:
 
     from serverless_learn_tpu_torch.inference.generate import generate
 
-    model = _model_from_args(args)
+    model = _model_from_args(args, _overrides(args.set)["model_overrides"])
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     if args.prompt:
@@ -168,17 +190,18 @@ def cmd_serve(args) -> int:
     """Serve generation requests (JSON lines over TCP) from a causal LM."""
     from serverless_learn_tpu_torch.inference.server import GenerationServer
 
-    if args.serve_engine == "continuous":
-        raise SystemExit(NOT_PORTED["continuous"])
-    if args.kv_block_size is not None:
-        raise SystemExit(NOT_PORTED["paged"])
-    model = _model_from_args(args)
+    sets = _overrides(args.set, ("model_overrides", "kv"))
+    kv = _kv_config(args, sets["kv"])
+    model = _model_from_args(args, sets["model_overrides"])
     server = GenerationServer(model, host=args.host, port=args.port,
                               max_batch=args.max_batch,
                               batch_wait_ms=args.batch_wait_ms,
-                              engine=args.serve_engine)
+                              engine=args.serve_engine,
+                              chunk_size=args.chunk_size, kv=kv)
     print(json.dumps({"event": "serving", "addr": server.addr,
-                      "model": args.model}), flush=True)
+                      "model": args.model, "engine": args.serve_engine,
+                      "kv": getattr(server.engine, "kv_stats",
+                                    lambda: None)()}), flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -194,7 +217,8 @@ def _add_model_flags(p: argparse.ArgumentParser):
                         "llama_8b)")
     p.add_argument("--set", action="append", metavar="model_overrides.K=V",
                    help="override a model config field, e.g. --set "
-                        "model_overrides.n_layers=4")
+                        "model_overrides.n_layers=4; serve also takes the "
+                        "KV cache's, e.g. --set kv.block_size=32")
     p.add_argument("--quant", choices=["int8"], default=None,
                    help="weight-only int8 projections (the hand-written "
                         "int8 matmul kernel on the card)")
@@ -271,14 +295,29 @@ def build_parser() -> argparse.ArgumentParser:
                     help="how long the dispatcher waits to co-batch "
                          "requests (latency floor under load)")
     sv.add_argument("--serve-engine", choices=["continuous", "static"],
-                    default="static",
-                    help="static: the group coalescer (the only engine "
-                         "ported so far); continuous raises")
+                    default="continuous",
+                    help="continuous: slot-level scheduler (admit at chunk "
+                         "boundaries, retire at EOS, FIFO); static: the "
+                         "group coalescer")
+    sv.add_argument("--chunk-size", type=int, default=32,
+                    help="decode tokens per chunk between admission "
+                         "boundaries (continuous engine; one CUDA graph "
+                         "replayed this many times)")
     sv.add_argument("--kv-monolithic", action="store_true",
-                    help="accepted for compatibility: the monolithic cache "
-                         "is the only one ported")
+                    help="monolithic per-slot KV rows instead of the paged "
+                         "block pool (the equivalence baseline)")
     sv.add_argument("--kv-block-size", type=int, default=None,
-                    help="paged KV cache: not yet ported, raises")
+                    help="paged KV: tokens per block (config kv.block_size)")
+    sv.add_argument("--kv-num-blocks", type=int, default=None,
+                    help="paged KV: pool blocks per layer; 0 = auto "
+                         "no-overcommit sizing (config kv.num_blocks)")
+    sv.add_argument("--prefill-chunk", type=int, default=None,
+                    help="paged KV: prompt tokens per prefill chunk "
+                         "interleaved between decode boundaries "
+                         "(config kv.prefill_chunk; 0 = whole prompt)")
+    sv.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable shared-prefix block reuse "
+                         "(config kv.prefix_cache)")
     sv.set_defaults(fn=cmd_serve)
     return ap
 

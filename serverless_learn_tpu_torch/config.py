@@ -1,13 +1,14 @@
 """Configuration of the port's training path: its own copy of the parts of
 ``serverless_learn_tpu/config.py`` (``ExperimentConfig`` and the sections
 ``model``, ``model_overrides``, ``mesh``, ``optimizer``, ``train`` and
-``data``) with the same field names and defaults, so the reference's JSON
-configs and ``--set section.key=value`` overrides mean the same here.
+``data``, and the serving engines' ``kv``) with the same field names and
+defaults, so the reference's JSON configs and ``--set section.key=value``
+overrides mean the same here.
 
 What this slice does not run raises instead of being ignored: a mesh of
 more than one device, a non-f32 gradient exchange, every field of
 ``_FIELDS_NOT_PORTED`` set away from its default, and any of the sections
-``control``, ``local_sgd``, ``health``, ``membership``, ``fleet``, ``kv``,
+``control``, ``local_sgd``, ``health``, ``membership``, ``fleet``,
 ``waterfall``, ``checkpoint``, ``numerics`` and ``elastic`` (the port keeps
 no copy of their defaults, so it refuses them when set at all).
 """
@@ -25,7 +26,6 @@ _SECTIONS_NOT_PORTED = {
     "health": "the health engine",
     "membership": "gossip membership",
     "fleet": "the serving fleet",
-    "kv": "the paged KV cache",
     "waterfall": "request waterfalls",
     "checkpoint": "checkpoints",
     "numerics": "numerics telemetry",
@@ -131,6 +131,39 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class KVCacheConfig:
+    """The paged KV cache of the serving engines (``inference/kvcache.py``,
+    read by ``inference/continuous.py`` and ``inference/batching.py``), the
+    reference's fields and defaults.
+
+    ``paged=True`` keeps one block pool per layer (``[num_blocks + 1,
+    block_size, K, D]``, the last page a scratch page), a host-side
+    free-list allocator and per-slot block tables, so a slot holds pages
+    only for the tokens it has produced. On the pool ride shared-prefix
+    reuse (``prefix_cache``, copy-on-write at the first divergent block)
+    and chunked prefill (``prefill_chunk`` tokens a chunk, at most
+    ``prefill_budget`` prompt tokens a scheduler boundary).
+    ``digest_top_k`` and ``digest_hashes`` size the reference's
+    resident-prefix digest for the fleet router; the port accepts them and
+    does not use them (the fleet is not ported)."""
+
+    paged: bool = True            # False = the monolithic KV rows
+    block_size: int = 16          # tokens per KV block (page)
+    # Pool blocks per layer. 0 = auto: max_slots * ceil(max_seq_len /
+    # block_size) plus one sequence's worth for the prefix cache.
+    num_blocks: int = 0
+    prefill_chunk: int = 32       # prompt tokens per prefill chunk (0 = whole)
+    prefill_budget: int = 64      # prompt tokens per scheduler boundary
+    prefix_cache: bool = True     # shared-prefix block reuse (trie)
+    # Blocks the prefix trie may pin after their owners retire (0 = auto:
+    # num_blocks // 4); LRU-evicted under pool pressure.
+    prefix_cache_blocks: int = 0
+    prefix_hit_window: int = 256  # lookups the windowed hit rate spans
+    digest_top_k: int = 8         # fleet digest: accepted, unused
+    digest_hashes: int = 64       # fleet digest: accepted, unused
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: str = "mlp_mnist"
     model_overrides: dict = field(default_factory=dict)
@@ -138,6 +171,7 @@ class ExperimentConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    kv: KVCacheConfig = field(default_factory=KVCacheConfig)
 
     def __post_init__(self):
         t = self.train
@@ -168,8 +202,9 @@ class ExperimentConfig:
             if raw.get(section):
                 raise not_ported(f"config section {section!r} ({what})",
                                  "ROADMAP.md queue 1")
-        unknown = set(raw) - {"model", "model_overrides", "mesh", "optimizer",
-                              "train", "data"} - set(_SECTIONS_NOT_PORTED)
+        unknown = (set(raw) - {"model", "model_overrides", "mesh",
+                               "optimizer", "train", "data", "kv"}
+                   - set(_SECTIONS_NOT_PORTED))
         if unknown:
             raise ValueError(f"unknown config sections {sorted(unknown)}")
 
@@ -183,6 +218,7 @@ class ExperimentConfig:
             optimizer=build(OptimizerConfig, raw.get("optimizer")),
             train=build(TrainConfig, raw.get("train")),
             data=build(DataConfig, raw.get("data")),
+            kv=build(KVCacheConfig, raw.get("kv")),
         )
 
     @classmethod

@@ -11,7 +11,11 @@ port of the static engine in ``serverless_learn_tpu/inference/batching.py``.
 
 Shapes round up to powers of two as in the reference: prompt length (floor
 8), ``max_new_tokens`` (extra tokens are generated, then dropped) and batch
-size (pad rows repeat row 0). Sampled requests also key their group on the
+size (pad rows repeat row 0). With a paged ``kv`` (``KVCacheConfig``), each
+group runs over a fresh paged cache whose dense row-major table
+(``kvcache.sequential_table``) gives every row ``max_seq_len`` of pages of
+its own: the pool abstraction without sharing, token-identical to the
+monolithic cache. Sampled requests also key their group on the
 seed, so a client's seed is never replaced by a batch-mate's; the draws
 still come from one generator for the padded batch, so a sampled reply may
 vary with its batch-mates. Greedy requests are batch-invariant.
@@ -28,7 +32,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from serverless_learn_tpu_torch.inference.generate import generate
+from serverless_learn_tpu_torch.config import KVCacheConfig
+from serverless_learn_tpu_torch.inference.generate import generate, init_cache
 from serverless_learn_tpu_torch.models.transformer import Transformer
 
 
@@ -76,8 +81,11 @@ class BatchingEngine:
     """Owns the model; coalesces submitted requests into batched decodes."""
 
     def __init__(self, model: Transformer, max_batch: int = 8,
-                 batch_wait_ms: float = 3.0):
+                 batch_wait_ms: float = 3.0,
+                 kv: Optional[KVCacheConfig] = None):
         self.model = model
+        self.kv = kv
+        self._paged = bool(kv is not None and kv.paged)
         self.max_batch = max_batch
         self.batch_wait_s = batch_wait_ms / 1e3
         self._q: queue.Queue = queue.Queue()
@@ -167,10 +175,14 @@ class BatchingEngine:
         dev = self.model.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(first.seed)
+        cache = (init_cache(self.model, batch_bucket,
+                            block_size=self.kv.block_size)
+                 if self._paged else None)
         tokens = generate(self.model, torch.from_numpy(prompts), new_bucket,
                           temperature=first.temperature, top_k=first.top_k,
                           eos_id=first.eos_id, generator=gen,
-                          prompt_lengths=torch.from_numpy(lengths))
+                          prompt_lengths=torch.from_numpy(lengths),
+                          cache=cache)
         new = tokens[:, prompt_bucket:].cpu().numpy()
         self.batches_run += 1
         self.requests_batched += n

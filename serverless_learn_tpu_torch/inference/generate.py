@@ -1,5 +1,6 @@
-"""Autoregressive generation over the monolithic KV cache, port of
-``serverless_learn_tpu/inference/generate.py``.
+"""Autoregressive generation over a KV cache, port of
+``serverless_learn_tpu/inference/generate.py``: the monolithic cache by
+default, or a paged one (``inference/kvcache.py``) passed as ``cache``.
 
 One batched prefill over the (right-padded) prompts fills the cache, then
 ``max_new_tokens - 1`` single-token decode steps each sample a token and
@@ -11,10 +12,14 @@ reproduce ``jax.random``'s bits.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
+from serverless_learn_tpu_torch.inference.kvcache import (PagedKVCache,
+                                                          paged_cache,
+                                                          pages_for,
+                                                          sequential_table)
 from serverless_learn_tpu_torch.models.transformer import KVCache, Transformer
 
 
@@ -31,10 +36,21 @@ def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
-def init_cache(model: Transformer, batch_size: int) -> KVCache:
+def init_cache(model: Transformer, batch_size: int, block_size: int = 0,
+               num_blocks: int = 0) -> Union[KVCache, PagedKVCache]:
     """Zeroed ``[B, max_seq_len, K, D]`` keys and values for every layer, in
-    the model's compute dtype, on the model's device."""
+    the model's compute dtype, on the model's device. With ``block_size``
+    > 0, a paged cache instead: pools of ``num_blocks`` pages (default
+    exactly ``B`` full-length rows) seen through the dense row-major table
+    of ``sequential_table``, the static engine's layout."""
     cfg = model.cfg
+    if block_size > 0:
+        max_pages = pages_for(cfg.max_seq_len, block_size)
+        num_blocks = num_blocks or batch_size * max_pages
+        return paged_cache(cfg.n_layers, num_blocks, block_size,
+                           cfg.kv_heads, cfg.head_dim, cfg.dtype,
+                           model.device, sequential_table(
+                               batch_size, max_pages, num_blocks))
     shape = (batch_size, cfg.max_seq_len, cfg.kv_heads, cfg.head_dim)
     dev = model.device
     zeros = lambda: torch.zeros(shape, dtype=cfg.dtype, device=dev)
@@ -49,14 +65,17 @@ def generate(model: Transformer, prompt: torch.Tensor, max_new_tokens: int,
              eos_id: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
              prompt_lengths: Optional[torch.Tensor] = None,
-             cache: Optional[KVCache] = None) -> torch.Tensor:
+             cache: Optional[Union[KVCache, PagedKVCache]] = None
+             ) -> torch.Tensor:
     """Generate ``max_new_tokens`` continuations of ``prompt`` [B, P].
 
     Returns [B, P + max_new_tokens] int32 on the model's device, prompt
     included. With ``eos_id``, a row that emitted it keeps emitting it.
     ``prompt_lengths`` [B]: prompts are right-padded to P and each row
     samples its first token from the logits at its own last real position
-    and decodes from its own length."""
+    and decodes from its own length. ``cache``: a cache to run over (a
+    paged one with its tables set, for example); default a fresh monolithic
+    one."""
     cfg = model.cfg
     dev = model.device
     prompt = prompt.to(device=dev, dtype=torch.int32)

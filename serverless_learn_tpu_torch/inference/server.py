@@ -8,14 +8,18 @@ so the fleet router can front a replica of either package.
                "latency_ms": 12.3}
     errors:   {"error": "..."}
     admin:    {"op": "ping"} -> {"ok": true, "draining": false,
-                                 "requests_served": N}
+                                 "requests_served": N, "kv": {...}}
               {"op": "drain"} -> {"ok": true, "draining": true}
 
-Each connection gets its own thread; generation goes through the static
-``BatchingEngine``, which coalesces concurrent compatible requests into one
-batched prefill + decode. A request line longer than ``MAX_LINE`` bytes gets
-an error reply and the connection is dropped. A ``traceparent`` field, when
-well formed, has its trace id echoed in the reply.
+Each connection gets its own thread; generation goes through one engine:
+by default the continuous one (``inference/continuous.py``: slots admitted
+and retired at chunk boundaries over the paged KV pool, whose pressure the
+ping reports under "kv"), or with ``engine="static"`` the group coalescer
+(``inference/batching.py``), which runs concurrent compatible requests as
+one batched prefill + decode. ``kv`` (``KVCacheConfig``, default paged)
+configures either engine's cache. A request line longer than ``MAX_LINE``
+bytes gets an error reply and the connection is dropped. A ``traceparent``
+field, when well formed, has its trace id echoed in the reply.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import threading
 import time
 from typing import Optional
 
+from serverless_learn_tpu_torch.config import KVCacheConfig
 from serverless_learn_tpu_torch.models.transformer import Transformer
 
 # Longest accepted request line. A 128k-token prompt of 7-digit ids is
@@ -57,20 +62,29 @@ class GenerationServer:
     def __init__(self, model: Transformer, host: str = "127.0.0.1",
                  port: int = 0, conn_timeout_s: float = 60.0,
                  max_batch: int = 8, batch_wait_ms: float = 3.0,
-                 engine: str = "static"):
-        from serverless_learn_tpu_torch.inference.batching import (
-            BatchingEngine)
-
+                 engine: str = "continuous", chunk_size: int = 32,
+                 kv: Optional[KVCacheConfig] = None):
+        # The paged KV cache is the serving default, as in the reference;
+        # KVCacheConfig(paged=False) keeps the monolithic rows.
+        if kv is None:
+            kv = KVCacheConfig()
         if engine == "continuous":
-            raise NotImplementedError(
-                "the continuous engine is not yet ported to PyTorch "
-                "(ROADMAP.md queue 1 item 1); use engine='static'")
-        if engine != "static":
-            raise ValueError(f"unknown engine {engine!r}: expected 'static'")
+            from serverless_learn_tpu_torch.inference.continuous import (
+                ContinuousBatchingEngine)
+
+            self.engine = ContinuousBatchingEngine(
+                model, max_slots=max_batch, chunk_size=chunk_size, kv=kv)
+        elif engine == "static":
+            from serverless_learn_tpu_torch.inference.batching import (
+                BatchingEngine)
+
+            self.engine = BatchingEngine(model, max_batch=max_batch,
+                                         batch_wait_ms=batch_wait_ms, kv=kv)
+        else:
+            raise ValueError(f"unknown engine {engine!r}: expected "
+                             "'continuous' or 'static'")
         self.model = model
         self.conn_timeout_s = conn_timeout_s
-        self.engine = BatchingEngine(model, max_batch=max_batch,
-                                     batch_wait_ms=batch_wait_ms)
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -92,8 +106,14 @@ class GenerationServer:
         card; "drain" starts graceful retirement."""
         op = req.get("op")
         if op == "ping":
-            return {"ok": True, "draining": self.draining,
-                    "requests_served": self.requests_served}
+            rep = {"ok": True, "draining": self.draining,
+                   "requests_served": self.requests_served}
+            # A paged engine reports its pool's pressure and prefix hits.
+            kv_stats = getattr(self.engine, "kv_stats", None)
+            kv = kv_stats() if callable(kv_stats) else None
+            if kv:
+                rep["kv"] = kv
+            return rep
         if op == "drain":
             threading.Thread(target=self.drain, daemon=True).start()
             return {"ok": True, "draining": True}

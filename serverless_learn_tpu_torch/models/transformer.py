@@ -1,7 +1,10 @@
 """The Llama-style causal transformer, port of ``serverless_learn_tpu/models/
 transformer.py``: the training forward (causal self-attention through
 ``ops.attention.dot_product_attention``, flash at long sequences), and for
-serving batched prefill and per-token decode over a monolithic KV cache.
+serving batched prefill, per-token decode and ``extend`` (append T tokens
+at each row's index) over a monolithic KV cache (:class:`KVCache`) or a
+paged one (``inference.kvcache.PagedKVCache``). All three serving modes
+attend through the dense form, as the reference's do.
 
 Parameter names follow the flax module's paths (``layer_0.attn.q_proj.
 kernel``, ``embedder.embedding`` ...), so ``bridge.py`` maps the two trees
@@ -30,13 +33,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from serverless_learn_tpu_torch.config import not_ported
+from serverless_learn_tpu_torch.inference.kvcache import PagedKVCache
 from serverless_learn_tpu_torch.ops.attention import (dot_product_attention,
                                                       xla_attention)
 from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
@@ -235,11 +239,15 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
                 *, mode: Optional[str] = None, kv=None, index=None,
-                mask=None) -> torch.Tensor:
+                mask=None, write=None, table=None) -> torch.Tensor:
         """``mode`` None: causal self-attention over x. "prefill": the same,
-        and the keys/values land at cache positions [0, T). "decode": x is
-        one token per row, written at ``index[b]``; attention reads the
-        whole cache under ``mask`` (keys at positions <= index)."""
+        and the keys/values land at cache positions [0, T). "decode" /
+        "extend": x is T tokens per row (1 for decode), written at cache
+        positions ``index[b] + t``; attention reads the whole cache under
+        ``mask`` (keys at positions <= the query's). "paged": the T tokens
+        land at the pool pages and offsets ``write`` = (page ids, offsets),
+        each [B*T]; attention reads the ``table`` [B, W] window's pages
+        under ``mask``."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, K, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -250,11 +258,19 @@ class Attention(nn.Module):
         q = apply_rope(q.reshape(B, T, H, D), sin, cos)
         k = apply_rope(self.k_proj(x).reshape(B, T, K, D), sin, cos)
         v = v.reshape(B, T, K, D)
-        if mode == "decode":
+        if mode == "paged":
+            pk, pv = kv
+            ids, offs = write
+            pk[ids, offs] = k.reshape(B * T, K, D)
+            pv[ids, offs] = v.reshape(B * T, K, D)
+            S = table.shape[1] * pk.shape[1]
+            out = xla_attention(q, pk[table].reshape(B, S, K, D),
+                                pv[table].reshape(B, S, K, D), mask=mask)
+        elif mode in ("decode", "extend"):
             ck, cv = kv
-            rows = torch.arange(B, device=x.device)
-            ck[rows, index] = k[:, 0]
-            cv[rows, index] = v[:, 0]
+            rows = torch.arange(B, device=x.device)[:, None]
+            ck[rows, index] = k
+            cv[rows, index] = v
             out = xla_attention(q, ck, cv, mask=mask)
         elif mode == "prefill":
             ck, cv = kv
@@ -331,31 +347,70 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embedder.embedding.device
 
-    def forward(self, tokens: torch.Tensor, *, cache: Optional[KVCache] = None,
+    def forward(self, tokens: torch.Tensor, *,
+                cache: Optional[Union[KVCache, PagedKVCache]] = None,
                 prefill: bool = False, decode: bool = False,
+                extend: bool = False,
                 seq_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``prefill=True``: one causal forward over right-padded prompts
         that fills ``cache``; ``seq_lengths`` [B] gives each row's true
         length, which becomes its cache index (default T). ``decode=True``:
         ``tokens`` is [B, 1], the newest token of each row, placed at the
-        row's cache index; the index then advances by one."""
-        if prefill and decode:
-            raise ValueError("prefill and decode are mutually exclusive")
-        if (prefill or decode) and cache is None:
-            raise ValueError("prefill and decode need a KV cache (init_cache)")
+        row's cache index; the index then advances by one. ``extend=True``:
+        ``tokens`` [B, T] land at positions ``index + t`` (RoPE at those
+        absolute positions) and query t of row b sees cached keys
+        [0, index_b + t]; the index advances by T.
+
+        Over a :class:`PagedKVCache` the three modes are one ragged append
+        at each row's index, as in the reference: ``seq_lengths`` [B] (default
+        T) real tokens a row are written through the table window, pad
+        positions and positions past the window go to the scratch page, and
+        attention reads the window's ``W * block_size`` positions."""
+        if prefill + decode + extend > 1:
+            raise ValueError("prefill, decode and extend are mutually "
+                             "exclusive")
+        if (prefill or decode or extend) and cache is None:
+            raise ValueError("prefill, decode and extend need a KV cache "
+                             "(init_cache)")
         cfg = self.cfg
         B, T = tokens.shape
         x = self.embedder(tokens)
         kw = {}
-        if decode:
-            if T != 1:
-                raise ValueError(f"decode feeds one token at a time, got T={T}")
+        if decode and T != 1:
+            raise ValueError(f"decode feeds one token at a time, got T={T}")
+        steps = torch.arange(T, device=x.device, dtype=torch.int32)
+        if isinstance(cache, PagedKVCache):
             index = cache.index
-            positions = index[:, None]
+            positions = index[:, None] + steps  # [B, T]
+            new_len = (torch.full((B,), T, dtype=torch.int32, device=x.device)
+                       if seq_lengths is None
+                       else seq_lengths.to(device=x.device, dtype=torch.int32))
+            table = cache.table.long()
+            ps, W = cache.block_size, table.shape[1]
+            page_idx = (positions // ps).long()
+            ids = table.gather(1, page_idx.clamp(max=W - 1))
+            # Pad positions and positions past the window go to the scratch
+            # page: the pool is shared, so a stray write would land in
+            # another sequence's page.
+            ids = torch.where((steps[None, :] < new_len[:, None])
+                              & (page_idx < W), ids, cache.sentinel)
+            mask = (torch.arange(W * ps, device=x.device)[None, None, :]
+                    <= positions[:, :, None])[:, None]  # [B, 1, T, S]
+            kw = dict(mode="paged", mask=mask, table=table,
+                      write=(ids.reshape(-1),
+                             (positions % ps).reshape(-1).long()))
+        elif decode or extend:
+            index = cache.index
+            positions = index[:, None] + steps
             S = cfg.max_seq_len
-            mask = (torch.arange(S, device=x.device)[None, :]
-                    <= index[:, None])[:, None, None, :]
-            kw = dict(mode="decode", index=index, mask=mask)
+            # The reference writes with dynamic_update_slice, which moves a
+            # span that would run past the cache back inside it; the rows
+            # that reach this are padding or finished ones.
+            start = index.clamp(0, S - T)
+            mask = (torch.arange(S, device=x.device)[None, None, :]
+                    <= positions[:, :, None])[:, None]  # [B, 1, T, S]
+            kw = dict(mode="extend", index=(start[:, None] + steps).long(),
+                      mask=mask)
         else:
             if prefill and T > cfg.max_seq_len:
                 raise ValueError(f"prompt length {T} exceeds max_seq_len "
@@ -366,19 +421,23 @@ class Transformer(nn.Module):
         sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
-            if cache is not None:
+            if isinstance(cache, PagedKVCache):
+                kw["kv"] = (cache.pages_k[i], cache.pages_v[i])
+            elif cache is not None:
                 kw["kv"] = (cache.k[i], cache.v[i])
             if remat:
                 x = checkpoint(block, x, sin, cos, use_reentrant=False)
             else:
                 x = block(x, sin, cos, **kw)
-        if prefill:
+        if isinstance(cache, PagedKVCache):
+            cache.index = cache.index + new_len
+        elif prefill:
             cache.index = (torch.full((B,), T, dtype=torch.int32,
                                       device=x.device)
                            if seq_lengths is None
                            else seq_lengths.to(torch.int32).to(x.device))
-        elif decode:
-            cache.index = cache.index + 1
+        elif decode or extend:
+            cache.index = cache.index + T
         return self.lm_head(self.norm_f(x))
 
 

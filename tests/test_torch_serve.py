@@ -16,6 +16,7 @@ from serverless_learn_tpu.inference.generate import generate as jax_generate
 from serverless_learn_tpu.models.registry import get_model
 from serverless_learn_tpu_torch import cli
 from serverless_learn_tpu_torch.bridge import from_jax_params
+from serverless_learn_tpu_torch.config import KVCacheConfig
 from serverless_learn_tpu_torch.inference.server import (MAX_LINE,
                                                         GenerationServer,
                                                         request)
@@ -32,8 +33,11 @@ def served():
     model = Transformer(cfg, device="cpu")
     model.load_state_dict(from_jax_params(
         jax.tree_util.tree_map(np.asarray, params)))
+    # The static engine over the monolithic cache, the coalescer these
+    # tests hold to the reference; the continuous default has its own file.
     server = GenerationServer(model, port=0, max_batch=4,
-                              batch_wait_ms=300.0).start()
+                              batch_wait_ms=300.0, engine="static",
+                              kv=KVCacheConfig(paged=False)).start()
     yield bundle.module, params, server
     server.stop()
 
@@ -104,9 +108,9 @@ def test_cli_serve_needs_the_card_by_default():
 
 
 @pytest.mark.parametrize("argv, needle", [
-    (["--serve-engine", "continuous"], "queue 1 item 1"),
-    (["--kv-block-size", "16"], "paged KV cache"),
-    (["--set", "kv.paged=true"], "paged KV cache"),
+    (["--set", "fleet.drain_grace_s=1"], "model_overrides.<field>"),
+    (["--set", "kv.digest=1"], "unexpected keyword argument 'digest'"),
+    (["--set", "kv"], "dotted.key=value"),
     (["--checkpoint-dir", "ckpt"], "queue 1 item 2"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, needle):
