@@ -71,15 +71,17 @@ any failing phase exits non-zero:
     fifth prompt sharing prompt 0's first 100 tokens (6 blocks from the
     prefix trie, the 7th copied on write), a 1,500-token prompt prefilled
     in chunks between decode boundaries and a request with an eos_id.
-    Checks the replies (each greedy one equals the static path's or
-    leaves it only where the static top-2 margin is below twice the
-    measured logit gap, and that gap is no wider than the static path's
-    own between batch shapes), the EOS stop, no leaked page, the prefix
-    hits, 225 launches of the int8 matmul a forward (graph replays
-    counted), that phase 3 checked every row count served, that decode
-    chunks replayed from graphs and that a replayed chunk equals the
-    eager one bit for bit; then times a decode round and profiles one
-    replayed chunk;
+    Checks the replies: at every step of every greedy reply the token the
+    engine chose lies within the measured logit tolerance of the static
+    path's largest logit, the static path fed the reply's own tokens, and
+    the paged path's logits part from the static path's no further than
+    the static path's own between batch shapes. Checks the EOS stop, no
+    leaked page, the prefix hits, 225 eager launches of the int8 matmul a
+    forward (its wrapper's count), 225 int8 matmul calls in a traced
+    replayed step of every bucket that replayed, that phase 3 checked
+    every row count served, and that a replayed chunk equals the eager
+    one bit for bit; then times a decode round by the host clock at each
+    harvest and profiles one replayed chunk;
 10. prints one JSON line of kernels, then the card's name and power limit,
     then the result line ``{"ok": true, "device": {...}}``.
 
@@ -639,23 +641,13 @@ def published(trie, prompt) -> bool:
     return True
 
 
-def first_divergence(got, want, margins, tol):
-    """None where ``got`` equals ``want``; else (step, the static path's
-    top-2 margin there, whether that margin is below ``tol``)."""
-    for j, (a, b) in enumerate(zip(got, want)):
-        if a != b:
-            return j, margins[j], margins[j] < tol
-    return None
-
-
-def static_references(torch, model, prompts, static_replies, solos):
+def static_references(torch, model, prompts, static_replies):
     """The static path's logits for phase 9c: top-2 margins of every step
-    of phase 9's group of four and of each prompt of ``solos`` (prompt,
-    reply) alone; and how far the paged path's logits part from the
-    static path's over the same tokens, as the engine runs it (the group
-    prefilled in chunks of 32 under windows of 16 and 256 pages, and each
-    prompt alone in chunks of 8, which K6's decode kernel then takes, as
-    for a prefix hit's short remainder), beside the yardstick of how far
+    of phase 9's group of four; and how far the paged path's logits part
+    from the static path's over the same tokens, as the engine runs it (the
+    group prefilled in chunks of 32 under windows of 16 and 256 pages, and
+    each prompt alone in chunks of 8, which K6's decode kernel then takes,
+    as for a prefix hit's short remainder), beside the yardstick of how far
     the static path parts from itself (each prompt alone against the
     group: other row counts, so other sums in other orders)."""
     static = forced_logits(torch, model, prompts, static_replies)
@@ -674,16 +666,100 @@ def static_references(torch, model, prompts, static_replies, solos):
         d = (v - static).abs()
         diffs[k] = dict(max=d.max().item(), mean=d.mean().item())
     del variants, d
+    v = static.topk(2, dim=-1).values
+    return (v[..., 0] - v[..., 1]).tolist(), diffs
 
-    def margins(lg):
-        v = lg.topk(2, dim=-1).values
-        return (v[..., 0] - v[..., 1]).tolist()
 
-    out = margins(static)
-    del static
-    for p, r in solos:
-        out.append(margins(forced_logits(torch, model, [p], [r])[0]))
-    return out, diffs
+def static_gaps(torch, model, prompt, reply):
+    """At each step of ``reply``: how far below the static path's largest
+    logit lies its logit of the token the reply chose, the static path
+    (``prompt`` alone, over the monolithic cache) fed the reply's own
+    tokens. 0 where the reply took the static path's argmax."""
+    lg = forced_logits(torch, model, [prompt], [reply])[0]
+    chosen = lg.gather(1, torch.tensor(reply, device=lg.device)[:, None])
+    return (lg.max(-1).values - chosen[:, 0]).tolist()
+
+
+def graph_vs_eager_chunk(torch, eng, prompts):
+    """Prefill ``prompts`` (greedy) into fresh pages of ``eng``'s pool,
+    then run one decode chunk of their (nb, W) bucket twice from the same
+    state: replayed from its CUDA graph (on the card; eagerly on the CPU)
+    and eagerly. Returns both runs' tokens and whether the tokens and the
+    rows' pages came out bit-identical. Call only while no request is in
+    flight; the pages go back to the pool."""
+    import numpy as np
+
+    from serverless_learn_tpu_torch.inference.batching import _bucket
+    from serverless_learn_tpu_torch.inference.continuous import (_Rows,
+                                                                 _wbucket)
+    from serverless_learn_tpu_torch.inference.kvcache import pages_for
+
+    C, ps, pool = eng.chunk_size, eng._ps, eng._pool
+    n = len(prompts)
+    nb = _bucket(n, floor=1)
+    got = [pool.alloc(pages_for(len(p) + C, ps)) for p in prompts]
+    W = min(_wbucket(max(len(g) for g in got)), eng._max_pages)
+    tbl = np.full((nb, W), pool.sentinel, np.int32)
+    toks = np.zeros((nb, max(len(p) for p in prompts)), np.int32)
+    lens = np.zeros((nb,), np.int32)
+    for i, (p, g) in enumerate(zip(prompts, got)):
+        tbl[i, :len(g)] = g
+        toks[i, :len(p)] = p
+        lens[i] = len(p)
+    try:
+        with eng._lock, torch.no_grad(), eng._on_stream():
+            pages = eng._pages
+            kv = pages.pages_k + pages.pages_v
+            lens_t, tbl_t = eng._to_dev(lens), eng._to_dev(tbl)
+            cache = pages.with_tables(tbl_t, torch.zeros_like(lens_t))
+            logits = eng.model(eng._to_dev(toks), cache=cache, extend=True,
+                               seq_lengths=lens_t)
+            chunk = eng._chunk(nb, W)
+            s = chunk.rows
+            s.tok.copy_(torch.argmax(logits[
+                torch.arange(nb, device=eng.device),
+                (lens_t.long() - 1).clamp(min=0)], dim=-1))
+            s.pos.fill_(1)
+            s.done.copy_(lens_t == 0)
+            s.temp.zero_()
+            s.topk.zero_()
+            s.eos.fill_(-1)
+            s.seed.zero_()
+            s.ci.copy_(cache.index)
+            chunk.table.copy_(tbl_t)
+            ids = eng._to_dev(np.asarray(sum(got, []), np.int64))
+            start = ([getattr(s, nm).clone() for nm in _Rows.NAMES],
+                     [p[ids].clone() for p in kv])
+            runs = []
+            for graph in (eng._cuda, False):
+                for nm, v in zip(_Rows.NAMES, start[0]):
+                    getattr(s, nm).copy_(v)
+                for p, v in zip(kv, start[1]):
+                    p[ids] = v
+                chunk.run(graph=graph)
+                runs.append((chunk.out.clone(), [p[ids].clone() for p in kv]))
+            if eng._cuda:
+                torch.cuda.current_stream(eng.device).synchronize()
+    finally:
+        for g in got:
+            pool.decref(g)
+    (t_graph, p_graph), (t_eager, p_eager) = runs
+    # Pad rows read the scratch page, which both runs write: compare the
+    # real rows.
+    t_graph, t_eager = t_graph[:n], t_eager[:n]
+    same = torch.equal(t_graph, t_eager) and all(
+        torch.equal(a, b) for a, b in zip(p_graph, p_eager))
+    return {"nb": nb, "W": W, "graph": eng._cuda,
+            "tokens_graph": t_graph.tolist(),
+            "tokens_eager": t_eager.tolist(), "identical": same}
+
+
+def k6_calls(kern) -> int:
+    """Calls of the int8 matmul among a profile's kernels: each call runs
+    one ``quant_decode`` or ``quant_prefill`` (and a split call one
+    ``quant_reduce`` after it)."""
+    return sum(1 for e in kern
+               if "quant_decode" in e.name or "quant_prefill" in e.name)
 
 
 def serve_continuous(torch, card, model, static_replies, static_step):
@@ -711,12 +787,11 @@ def serve_continuous(torch, card, model, static_replies, static_step):
         solo = [generate(model, torch.tensor([p]), NEW_TOKENS)[0, len(p):]
                 .tolist() for p in (fifth, long_p)]
     want = static_replies + solo
-    margins, diffs = static_references(
-        torch, model, prompts, static_replies, list(zip((fifth, long_p),
-                                                        solo)))
-    # The logit tolerance: a greedy token can flip only where the top-2
-    # margin is below twice the largest logit difference measured.
-    tol = 2 * max(d["max"] for d in diffs.values())
+    margins, diffs = static_references(torch, model, prompts, static_replies)
+    # The logit tolerance: the largest logit difference measured between
+    # the paths. A reply's token must lie within it of the static path's
+    # largest logit at every step.
+    tol = max(d["max"] for d in diffs.values())
     # The EOS request repeats the phase 9 prompt whose static margins are
     # widest over steps 0-5, with eos_id its static reply's token at step 5.
     e = max(range(SERVE_BATCH), key=lambda i: min(margins[i][:6]))
@@ -739,6 +814,15 @@ def serve_continuous(torch, card, model, static_replies, static_step):
     torch.cuda.reset_peak_memory_stats()
     server = GenerationServer(model, port=0).start()
     eng = server.engine
+    # The host clock at the end of each harvest, with its dispatch's kind.
+    harvests = []
+    harvest = eng._harvest
+
+    def timed_harvest(fut):
+        harvest(fut)
+        harvests.append((fut[0], time.perf_counter()))
+
+    eng._harvest = timed_harvest
     replies = [None] * (len(first) + len(later))
 
     def client(i, req):
@@ -753,7 +837,8 @@ def serve_continuous(torch, card, model, static_replies, static_step):
         quant_matmul.launches = 0
         forwards[0] = 0
         rows_served.clear()
-        cap0, rep0 = eng.graph_captures, eng.graph_replays
+        cap0 = eng.graph_captures
+        rep0 = {key: c.replays for key, c in eng._chunks.items()}
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i, r))
                    for i, r in enumerate(first)]
@@ -776,17 +861,17 @@ def serve_continuous(torch, card, model, static_replies, static_step):
         if any(th.is_alive() for th in threads):
             fail("a request did not finish")
         wall = time.perf_counter() - t0
-        launches, n_fwd = quant_matmul.launches, forwards[0]
+        # Eager launches, counted by the kernel's wrapper: prefill chunks,
+        # and the warm-up and the capture of any bucket captured here.
+        launches, n_eager = quant_matmul.launches, forwards[0]
         captures = eng.graph_captures - cap0
-        replays = eng.graph_replays - rep0
-        # A capture runs the forward twice: the warm-up, which launches,
-        # and the capture, which launches nothing; replays launch.
-        n_fwd += replays - captures
+        replays = {key: c.replays - rep0.get(key, 0)
+                   for key, c in eng._chunks.items()}
+        replays = {key: n for key, n in replays.items() if n}
         # Replayed steps pass no forward hook: their rows are the buckets'.
-        rows_served |= {nb for nb, _ in eng._chunks}
+        rows_served |= {nb for nb, _ in replays}
         stats = eng.kv_stats()
         hits = eng._trie.hits
-        main_log = [h for h in eng.harvest_log if h[2] >= t0]
         # A decode round: phase 9's prompts again (prefix hits), 128 new
         # tokens each, four chunks of pure decode one after another.
         t1 = time.perf_counter()
@@ -800,7 +885,7 @@ def serve_continuous(torch, card, model, static_replies, static_step):
         for th in th2:
             th.join(timeout=600)
         round_wall = time.perf_counter() - t1
-        round_log = [h for h in eng.harvest_log if h[2] >= t1]
+        round_log = [h for h in harvests if h[1] >= t1]
         # EOS alone, where the trajectory is known: the EOS prompt served
         # alone, then again alone with eos_id its own token at step 5.
         plain = request(server.addr, {"prompt": prompts[e],
@@ -830,12 +915,29 @@ def serve_continuous(torch, card, model, static_replies, static_step):
     got = [replies[i]["new_tokens"] for i in range(SERVE_BATCH)]
     got += [replies[len(first) + i]["new_tokens"] for i in (0, 1)]
     eos_rep = replies[-1]["new_tokens"]
-    diverged = {i: first_divergence(got[i], want[i], margins[i], tol)
-                for i in range(len(got))}
-    faults = [f"greedy reply {i} differs from the static path at step "
-              f"{d[0]}, where its top-2 margin {d[1]:.4g} is not below the "
-              f"logit tolerance {tol:.4g}"
-              for i, d in diverged.items() if d and not d[2]]
+    # Where each greedy reply first leaves the static path's reply (the
+    # static top-2 margin there), for the record; the check is the next.
+    diverged = {}
+    for i, (a, b) in enumerate(zip(got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            diverged[str(i)] = (j, margins[i][j] if i < SERVE_BATCH
+                                else None)
+    # Every step of every greedy reply (and of the EOS request's up to its
+    # stop): the token the engine chose lies within the logit tolerance of
+    # the static path's largest logit, the static path fed the reply's own
+    # tokens. A page, table, compaction or copy-on-write fault after the
+    # first steps picks tokens far below it.
+    k = eos_rep.index(eos_id) if eos_id in eos_rep else None
+    checked = [(p["prompt"], r) for p, r in zip(greedy, got)]
+    checked.append((eos_req["prompt"],
+                    eos_rep if k is None else eos_rep[:k + 1]))
+    gaps = [static_gaps(torch, model, p, r) for p, r in checked]
+    faults = [f"greedy reply {i} took at step {j} a token {gap:.4g} below "
+              f"the static path's largest logit, beyond the logit "
+              f"tolerance {tol:.4g}"
+              for i, gs in enumerate(gaps) for j, gap in enumerate(gs)
+              if gap > tol]
     # The paged path parts from the static one no further than the static
     # path parts from itself.
     own = diffs["static_alone"]
@@ -845,20 +947,12 @@ def serve_continuous(torch, card, model, static_replies, static_step):
             faults.append(f"the paged path's logits ({name}) part from the "
                           f"static path's by {d}, the static path's own "
                           f"yardstick {own}")
-    # The EOS request stops where the static reply first emits eos_id (at
-    # step 5 or before), unless it left the static tokens before that by
-    # the rule above; either way it emits only eos_id after its first.
+    # The EOS request emits only eos_id after its first (its tokens up to
+    # there are checked above).
     k_s = static_replies[e].index(eos_id)
-    eos_div = first_divergence(eos_rep[:k_s + 1],
-                               static_replies[e][:k_s + 1], margins[e], tol)
-    k = eos_rep.index(eos_id) if eos_id in eos_rep else None
-    if eos_div is not None and not eos_div[2]:
-        faults.append(f"the EOS request left the static reply at step "
-                      f"{eos_div[0]}, margin {eos_div[1]:.4g} >= {tol:.4g}")
-    if (k is not None and eos_rep[k:] != [eos_id] * (NEW_TOKENS - k)) or (
-            eos_div is None and k != k_s):
+    if k is not None and eos_rep[k:] != [eos_id] * (NEW_TOKENS - k):
         faults.append(f"the request with eos_id {eos_id} did not stop at "
-                      f"step {k_s}")
+                      f"its first eos_id: {eos_rep}")
     k2 = plain["new_tokens"].index(stop)
     if stopped.get("new_tokens") != (plain["new_tokens"][:k2 + 1]
                                      + [stop] * (NEW_TOKENS - k2 - 1)):
@@ -868,37 +962,54 @@ def serve_continuous(torch, card, model, static_replies, static_step):
             stats["prefix_blocks_cached"] or hits < 2:
         faults.append("pages leaked or the prefix was not reused")
     per_fwd = 7 * cfg.n_layers + 1
-    if n_fwd <= 0 or launches != per_fwd * n_fwd:
-        faults.append(f"{launches} kernel launches for {n_fwd} forwards; "
-                      f"expected {per_fwd} per forward")
+    if n_eager <= 0 or launches != per_fwd * n_eager:
+        faults.append(f"{launches} kernel launches for {n_eager} eager "
+                      f"forwards; expected {per_fwd} per forward")
     if not rows_served <= set(CHECK_ROWS):
         faults.append(f"the kernel served row counts {sorted(rows_served)}"
                       f", phase 3 checked only {list(CHECK_ROWS)}")
-    if replays <= 0:
+    if not replays:
         faults.append("no decode chunk was replayed from a CUDA graph")
-    graph_check = eng.check_graph_chunk(prompts)
+    graph_check = graph_vs_eager_chunk(torch, eng, prompts)
     if not graph_check["identical"]:
         faults.append("a decode chunk replayed from its graph differs from "
                       "the eager chunk")
 
+    # What the replays launched, from the card's trace: one replayed step
+    # of each bucket that replayed in the main run, its table all sentinel
+    # (the scratch page only), must hold one int8 matmul call for each
+    # projection; the main run's replayed calls are its replays times
+    # those. Each step's trace also gives its device time.
+    traced = {}
+    for key in sorted(replays):
+        chunk = eng._chunks[key]
+        chunk.table.fill_(eng._pool.sentinel)
+        chunk.step.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            chunk.graph.replay()
+            torch.cuda.synchronize()
+        span, _, _, _, kern = device_time(torch, prof, "quant_")
+        traced["nb%d_w%d" % key] = dict(
+            replays=replays[key], k6_calls_per_step=k6_calls(kern),
+            device_kernels_per_step=len(kern), device_ms_per_step=span / 1e3)
+        if k6_calls(kern) != per_fwd:
+            faults.append(f"a replayed step of bucket {key} ran "
+                          f"{k6_calls(kern)} int8 matmul calls, not "
+                          f"{per_fwd}")
+    replayed = sum(t["replays"] * t["k6_calls_per_step"]
+                   for t in traced.values())
+
     # Decode time per token (one decode step, a token for every live row):
     # the host clock between the harvests of two decode chunks dispatched
-    # one after the other, over chunk_size, in the decode round; and each
-    # decode chunk's device time (CUDA events around its replays) over
-    # chunk_size, in the main run and in the round.
+    # one after the other, over chunk_size, in the decode round.
     C = eng.chunk_size
-    per_tok = [(b[2] - a[2]) * 1e3 / C
+    per_tok = [(b[1] - a[1]) * 1e3 / C
                for a, b in zip(round_log, round_log[1:])
                if a[0] == b[0] == "pchunk"]
-    device = {name: sorted(h[3] / C for h in log
-                           if h[0] == "pchunk" and h[3] is not None)
-              for name, log in (("main", main_log), ("round", round_log))}
-    by_bucket = {}
-    for h in main_log + round_log:
-        if h[0] == "pchunk" and h[3] is not None:
-            by_bucket.setdefault("nb%d_w%d" % h[4], []).append(h[3] / C)
     # One decode chunk under the profiler: the graph of the phase's
-    # commonest bucket, its table all sentinel (the scratch page only).
+    # commonest bucket, its table all sentinel.
     chunk = eng._chunks.get((SERVE_BATCH, 16)) or next(
         iter(eng._chunks.values()))
     chunk.table.fill_(eng._pool.sentinel)
@@ -914,39 +1025,36 @@ def serve_continuous(torch, card, model, static_replies, static_step):
          later_admitted_at_chunk=admitted_at,
          preemptions=eng.preemptions, kv=stats, trie_hits=hits,
          pool_gb=pool_bytes / 1e9, max_memory_allocated_gb=peak_gb,
-         forwards=n_fwd, kernel_launches=launches,
-         launches_per_forward=launches / max(n_fwd, 1),
-         rows_served=sorted(rows_served), graph_captures=captures,
-         graph_replays=replays, logit_tolerance=tol,
+         eager_forwards=n_eager, kernel_launches_eager=launches,
+         graph_captures=captures, graph_replays=sum(replays.values()),
+         kernel_launches_replayed_traced=replayed, replayed_buckets=traced,
+         forwards=n_eager - captures + sum(replays.values()),
+         rows_served=sorted(rows_served), logit_tolerance=tol,
          logit_abs_diff=diffs,
-         diverged={str(i): d[:2] for i, d in diverged.items() if d},
+         steps_checked=sum(len(gs) for gs in gaps),
+         worst_gap_to_static_max=[max(gs) for gs in gaps],
+         steps_off_static_argmax=[sum(gap > 0 for gap in gs) for gs in gaps],
+         diverged_from_static_reply=diverged,
          eos_prompt=e, eos_id=eos_id, eos_static_step=k_s, eos_stop=k,
-         eos_diverged=eos_div and eos_div[:2], eos_alone_stop=k2,
-         replies_head=[(a[:8], b[:8]) for a, b in zip(got, want)],
-         graph_check={k: v for k, v in graph_check.items()
-                      if not k.startswith("tokens")},
+         eos_alone_stop=k2,
+         graph_check={name: v for name, v in graph_check.items()
+                      if not name.startswith("tokens")},
          decode_ms_per_token=(statistics.median(per_tok) if per_tok
                               else None),
          decode_ms_per_token_all=per_tok, round_wall_s=round_wall,
          round_new_tokens_per_s=SERVE_BATCH * DECODE_ROUND / round_wall,
-         device_ms_per_decode_step={
-             name: dict(median=statistics.median(v), min=v[0], max=v[-1],
-                        chunks=len(v)) if v else None
-             for name, v in device.items()},
-         device_ms_per_decode_step_by_bucket={
-             k: dict(median=statistics.median(v), chunks=len(v))
-             for k, v in sorted(by_bucket.items())},
          static_decode_step_ms=static_step["decode_step_ms"],
          static_decode_step_ms_q1_q3=(static_step["decode_step_ms_q1"],
                                       static_step["decode_step_ms_q3"]),
          profiled_chunk=dict(
              rows=chunk.rows.tok.shape[0], window=chunk.table.shape[1],
              steps=C, span_ms=span / 1e3, busy_ms=busy / 1e3,
+             device_ms_per_step=span / C / 1e3,
              device_idle_share=1 - busy / span, quant_matmul_ms=k6 / 1e3,
-             device_kernels=len(kern)))
+             k6_calls=k6_calls(kern), device_kernels=len(kern)))
     if faults:
         fail("phase 9c: " + "; ".join(faults))
-    return launches
+    return launches, replayed
 
 
 # ---------------------------------------------------------------- training --
@@ -1930,14 +2038,15 @@ def main() -> int:
     lora_launches = train_lora_8b(torch, card)
     static_launches, model, static_replies, static_step = serve_full_width(
         torch, card)
-    launches = serve_continuous(torch, card, model, static_replies,
-                                static_step)
+    launches, replayed = serve_continuous(torch, card, model, static_replies,
+                                          static_step)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
         "source": "serverless_learn_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "serverless_learn_tpu/ops/pallas/quant_matmul.py:88",
-        "launches": launches, "launches_static_engine": static_launches,
+        "launches": launches, "launches_graph_replayed": replayed,
+        "launches_static_engine": static_launches,
         "max_abs_err": max_err,
         "ms": fwd["ms"], "graph_ms": fwd["graph_ms"],
         "plain_ms": fwd["plain_ms"],

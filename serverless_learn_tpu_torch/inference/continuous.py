@@ -70,7 +70,6 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -86,7 +85,6 @@ from serverless_learn_tpu_torch.inference.kvcache import (BlockPool,
                                                           PrefixTrie,
                                                           pages_for)
 from serverless_learn_tpu_torch.models.transformer import Transformer
-from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
 
 
 def _wbucket(n: int) -> int:
@@ -218,7 +216,7 @@ class _DecodeChunk:
                                device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.k6_per_step = 0  # int8 matmul launches in one captured step
+        self.replays = 0
 
     def step_fn(self):
         eng, s = self.engine, self.rows
@@ -234,9 +232,7 @@ class _DecodeChunk:
         for _ in range(self.engine.chunk_size):
             if graph:
                 self.graph.replay()
-                # A replay launches the captured kernels without passing
-                # through their wrappers, so the launches are counted here.
-                quant_matmul.launches += self.k6_per_step
+                self.replays += 1
                 self.engine.graph_replays += 1
             else:
                 self.step_fn()
@@ -341,12 +337,6 @@ class ContinuousBatchingEngine:
         self.preemptions = 0
         self.graph_captures = 0
         self.graph_replays = 0
-        # (kind, live rows, host clock when its tokens were ready, device
-        # ms of a decode chunk's steps on the card else None, a decode
-        # chunk's (nb, W) bucket else None) of the last harvested
-        # dispatches, oldest first: chip_smoke.py reads the decode time
-        # per token from it.
-        self.harvest_log: deque = deque(maxlen=4096)
         self._admit_counter = 0
         # warm() raises this so a known batch size admits as ONE bucket;
         # 1 in normal service.
@@ -435,7 +425,6 @@ class ContinuousBatchingEngine:
         with torch.cuda.stream(cap):
             chunk.step.zero_()
             chunk.step_fn()  # warm-up: cuBLAS and the workspace set up
-            before = quant_matmul.launches
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=self._graph_pool,
                                 capture_error_mode="thread_local")
@@ -448,9 +437,6 @@ class ContinuousBatchingEngine:
                     pass
                 raise
             graph.capture_end()
-            # Capturing launches nothing: the launches count at replay.
-            chunk.k6_per_step = quant_matmul.launches - before
-            quant_matmul.launches = before
         main.wait_stream(cap)
         chunk.graph = graph
         self.graph_captures += 1
@@ -574,8 +560,7 @@ class ContinuousBatchingEngine:
                        topk=topk[:n], eos=eos[:n], seed=seed[:n])
         host, ev = self._to_host(tok0)
         # The admit's first tokens harvest like a 1-token chunk, in order.
-        return ("admit", host, ev, [(ids[i], batch[i]) for i in range(n)],
-                (None, None))
+        return ("admit", host, ev, [(ids[i], batch[i]) for i in range(n)])
 
     def _mono_chunk(self) -> torch.Tensor:
         """``chunk_size`` decode steps of all ``max_slots`` rows, eagerly;
@@ -803,7 +788,7 @@ class ContinuousBatchingEngine:
             snapshot.append((sid, r, bool(fin[i]), r.gen))
         self.prefill_chunks_run += len(batch)
         host, ev = self._to_host(tok0)
-        return ("prefill", host, ev, snapshot, (None, None))
+        return ("prefill", host, ev, snapshot)
 
     def _decode_step_paged(self, staged: List[_Request]) -> Optional[tuple]:
         live = [sid for sid, r in enumerate(self._slots)
@@ -847,14 +832,7 @@ class ContinuousBatchingEngine:
         for name in _Rows.NAMES:
             getattr(chunk.rows, name).copy_(getattr(self._rows, name)[ids])
         chunk.table.copy_(self._to_dev(tbl_rows))
-        timing = None
-        if self._cuda:
-            timing = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            timing[0].record()
         chunk.run(graph=self._cuda)
-        if timing is not None:
-            timing[1].record()
         self._set_rows(ids, **{name: getattr(chunk.rows, name)
                                for name in ("tok", "pos", "done", "ci")})
         self.chunks_run += 1
@@ -866,17 +844,14 @@ class ContinuousBatchingEngine:
             r.chunks_dispatched += 1
             snapshot.append((sid, r, r.gen))
         host, ev = self._to_host(chunk.out)
-        return ("pchunk", host, ev, snapshot, (timing, (nb, W)))
+        return ("pchunk", host, ev, snapshot)
 
     # -- harvest -----------------------------------------------------------
 
     def _harvest(self, fut) -> None:
-        kind, host, ev, snapshot, (timing, bucket) = fut
+        kind, host, ev, snapshot = fut
         if ev is not None:
             ev.synchronize()
-        ms = timing and timing[0].elapsed_time(timing[1])
-        self.harvest_log.append((kind, len(snapshot), time.perf_counter(),
-                                 ms, bucket))
         arr = host.numpy()
         if kind == "admit":
             arr = arr[:, None]  # [nb] -> [nb, 1], rows indexed by snapshot
@@ -975,7 +950,7 @@ class ContinuousBatchingEngine:
                 host, ev = self._to_host(toks)
                 futures.append(("chunk", host, ev,
                                 [(i, r) for i, r in enumerate(self._slots)
-                                 if r is not None], (None, None)))
+                                 if r is not None]))
         # Keep <= pipeline_depth dispatches in flight; drain fully when
         # nothing is active (nobody else will harvest).
         while futures and (len(futures) > self.pipeline_depth
@@ -987,7 +962,7 @@ class ContinuousBatchingEngine:
         """Fail every in-flight and staged request and rebuild the device
         state: a poisoned state must not wedge the dispatcher silently."""
         err = {"error": f"{type(ex).__name__}: {ex}"}
-        for _, _, _, snapshot, _ in futures:
+        for _, _, _, snapshot in futures:
             for entry in snapshot:
                 r = entry[1]
                 if not r.finished:
@@ -1070,74 +1045,6 @@ class ContinuousBatchingEngine:
                         self._chunk(nb, W)
                         made += 1
         return made
-
-    def check_graph_chunk(self, prompts: List[List[int]]) -> dict:
-        """Prefill ``prompts`` (greedy) into fresh pages of the pool, then
-        run one decode chunk of their (nb, W) bucket twice from the same
-        state: replayed from its graph (on the card; eagerly on the CPU)
-        and eagerly. Returns both runs' tokens and whether the tokens and
-        the rows' pages came out bit-identical. Call only while no request
-        is in flight; the pages go back to the pool."""
-        C, ps = self.chunk_size, self._ps
-        n = len(prompts)
-        nb = _bucket(n, floor=1)
-        got = [self._pool.alloc(pages_for(len(p) + C, ps)) for p in prompts]
-        W = min(_wbucket(max(len(g) for g in got)), self._max_pages)
-        tbl = np.full((nb, W), self._pool.sentinel, np.int32)
-        toks = np.zeros((nb, max(len(p) for p in prompts)), np.int32)
-        lens = np.zeros((nb,), np.int32)
-        for i, (p, g) in enumerate(zip(prompts, got)):
-            tbl[i, :len(g)] = g
-            toks[i, :len(p)] = p
-            lens[i] = len(p)
-        try:
-            with self._lock, torch.no_grad(), self._on_stream():
-                pages = self._pages
-                lens_t, tbl_t = self._to_dev(lens), self._to_dev(tbl)
-                cache = pages.with_tables(tbl_t, torch.zeros_like(lens_t))
-                logits = self.model(self._to_dev(toks), cache=cache,
-                                    extend=True, seq_lengths=lens_t)
-                chunk = self._chunk(nb, W)
-                s = chunk.rows
-                s.tok.copy_(torch.argmax(logits[
-                    torch.arange(nb, device=self.device),
-                    (lens_t.long() - 1).clamp(min=0)], dim=-1))
-                s.pos.fill_(1)
-                s.done.copy_(lens_t == 0)
-                s.temp.zero_()
-                s.topk.zero_()
-                s.eos.fill_(-1)
-                s.seed.zero_()
-                s.ci.copy_(cache.index)
-                chunk.table.copy_(tbl_t)
-                ids = self._to_dev(np.asarray(sum(got, []), np.int64))
-                start = ([getattr(s, nm).clone() for nm in _Rows.NAMES],
-                         [p[ids].clone()
-                          for p in pages.pages_k + pages.pages_v])
-                runs = []
-                for graph in (self._cuda, False):
-                    for nm, v in zip(_Rows.NAMES, start[0]):
-                        getattr(s, nm).copy_(v)
-                    for p, v in zip(pages.pages_k + pages.pages_v, start[1]):
-                        p[ids] = v
-                    chunk.run(graph=graph)
-                    runs.append((chunk.out.clone(),
-                                 [p[ids].clone()
-                                  for p in pages.pages_k + pages.pages_v]))
-                if self._cuda:
-                    torch.cuda.current_stream(self.device).synchronize()
-        finally:
-            for g in got:
-                self._pool.decref(g)
-        (t_graph, p_graph), (t_eager, p_eager) = runs
-        # Pad rows read the scratch page, which both runs write: compare
-        # the real rows.
-        t_graph, t_eager = t_graph[:n], t_eager[:n]
-        same = torch.equal(t_graph, t_eager) and all(
-            torch.equal(a, b) for a, b in zip(p_graph, p_eager))
-        return {"nb": nb, "W": W, "graph": self._cuda,
-                "tokens_graph": t_graph.tolist(),
-                "tokens_eager": t_eager.tolist(), "identical": same}
 
     def warm(self, prompt_len: int, max_new: int, batch_sizes=(1,),
              temperature: float = 0.0, top_k: int = 0):

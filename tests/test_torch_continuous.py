@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import graph_vs_eager_chunk
 from serverless_learn_tpu_torch import cli
 from serverless_learn_tpu_torch.config import ExperimentConfig, KVCacheConfig
 from serverless_learn_tpu_torch.inference.batching import BatchingEngine
@@ -353,7 +354,7 @@ def test_graph_chunk_check_runs_on_cpu(ref):
     model, solo = ref
     eng = _engine(model)
     try:
-        rep = eng.check_graph_chunk([[5, 9, 11], [7, 3, 2, 8, 1]])
+        rep = graph_vs_eager_chunk(torch, eng, [[5, 9, 11], [7, 3, 2, 8, 1]])
         assert rep["identical"] and not rep["graph"]
         assert rep["tokens_eager"][0] == solo([5, 9, 11], 5)[1:]
         st = eng.kv_stats()
@@ -416,6 +417,16 @@ def test_cli_serve_takes_the_engine_and_kv_flags(monkeypatch, capsys, argv,
         assert eng.prefill_chunk == 8
 
 
+@pytest.mark.parametrize("argv, needle", [
+    (["--set", "kv.digest=1"], "unexpected keyword argument 'digest'"),
+    (["--set", "kv"], "dotted.key=value"),
+])
+def test_cli_refuses_invalid_kv_settings(argv, needle):
+    with pytest.raises(SystemExit, match=needle):
+        cli.main(["serve", "--model", "llama_tiny", "--device", "cpu",
+                  "--port", "0", *argv])
+
+
 def test_kv_config_section_loads():
     cfg = ExperimentConfig.from_dict({
         "model": "llama_tiny",
@@ -441,7 +452,8 @@ def test_graph_replayed_chunk_equals_eager_chunk_on_card():
                         max_seq_len=MAX_SEQ)
     eng = _engine(model)
     try:
-        rep = eng.check_graph_chunk([[5, 9, 11], [7, 3, 2, 8, 1], [4]])
+        rep = graph_vs_eager_chunk(torch, eng,
+                                   [[5, 9, 11], [7, 3, 2, 8, 1], [4]])
         assert rep["graph"] and rep["identical"], rep
         r = eng.submit(*_greedy([5, 9, 11], 9))
         assert len(r["new_tokens"]) == 9
