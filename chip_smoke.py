@@ -15,8 +15,9 @@ any failing phase exits non-zero:
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, on both sides of its decode/prefill
    threshold and at every row count phase 9 serves (decode batches and
-   prefills), plus a ragged contraction that is not a multiple of the
-   split; runs every case twice and fails unless the two repeat bit for
+   prefills), at llama_1b's five projection shapes at every row count
+   phase 10 serves, plus a ragged contraction that is not a multiple of
+   the split; runs every case twice and fails unless the two repeat bit for
    bit (the split-K partials are added in a fixed order, no atomics);
 4. times the kernel at the decode shapes (8 rows) and at a 512-row
    prefill beside its bound, its plain version, the convert-then-matmul
@@ -82,8 +83,22 @@ any failing phase exits non-zero:
     every row count served, and that a replayed chunk equals the eager
     one bit for bit; then times a decode round by the host clock at each
     harvest and profiles one replayed chunk;
-10. prints one JSON line of kernels, then the card's name and power limit,
-    then the result line ``{"ok": true, "device": {...}}``.
+10. the user path through checkpoints in the JAX package's format, at
+    llama_1b's full width, through the CLI's entry points in this process:
+    ``train`` (B=2, T=4096, 3 adamw steps, K1-K3) saves 17.98 GB blobs at
+    step 2 (uploaded while step 3 trains) and step 3; the newest restores
+    into a fresh trainer in place and equals the live state bit for bit
+    (with the save's, upload's, CRC's and restores' seconds and GB/s);
+    ``eval`` from it launches K1 and equals the live model's eval; then
+    ``generate --quant int8`` greedy and with ``--draft-layers 4 --spec-k
+    4``, and the model as its own draft, each speculative reply held to
+    greedy decode and timed; then ``serve`` (the continuous engine)
+    answers two requests, held to greedy decode. K6 must launch 113 times
+    a target forward (29 a 4-layer draft forward) and only at row counts
+    phase 3 checked at llama_1b's five shapes;
+11. prints one JSON line of kernels (with each kernel's launches on phase
+    10's path), then the card's name and power limit, then the result
+    line ``{"ok": true, "device": {...}}``.
 
 Every time and memory figure is printed beside the card's name and power
 limit. Exits non-zero without printing the result line where there is no
@@ -216,6 +231,9 @@ def check_kernel(torch, qm, card):
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {}  # (row tile, dtype) -> (max abs err, max rel err, cases)
     cases = [(I, O, torch.bfloat16, CHECK_ROWS) for (I, O) in LLAMA8B_SHAPES]
+    # llama_1b's shapes, at every row count phase 10 serves.
+    cases += [(I, O, torch.bfloat16, CHECK_ROWS_1B)
+              for (I, O) in LLAMA1B_SHAPES]
     # A ragged last split; ragged I and O (no 16-byte weight loads); and the
     # f32 instantiations that llama_tiny (phase 5) runs.
     cases.append((*RAGGED_I, torch.bfloat16, (1, 8, 9, 16, 17, PREFILL_ROWS)))
@@ -237,7 +255,8 @@ def check_kernel(torch, qm, card):
     for row in per_tile:
         emit("check_row_tile", card=card, **row)
     emit("check", card=card, cases=sum(r["cases"] for r in per_tile),
-         rows=list(CHECK_ROWS), repeat_bit_identical=True,
+         rows=list(CHECK_ROWS), rows_llama_1b=list(CHECK_ROWS_1B),
+         repeat_bit_identical=True,
          max_abs_err=max(r["max_abs_err"] for r in per_tile),
          max_rel_err=max(r["max_rel_err"] for r in per_tile),
          tolerance="|err| <= 2^-7*|ref| + 1e-3*max|ref| (bf16 rounding of "
@@ -1940,6 +1959,498 @@ def train_lora_8b(torch, card):
     return launches
 
 
+# ------------------------------------------------------------- checkpoints --
+
+# llama_1b projections: (I, O) -> (sites, launches per forward); 16 layers,
+# 7 projections each and lm_head: 113 a forward.
+LLAMA1B_SHAPES = {
+    (2048, 2048): ("q_proj, o_proj", 32),
+    (2048, 512): ("k_proj, v_proj", 32),
+    (2048, 8192): ("gate_proj, up_proj", 32),
+    (8192, 2048): ("down_proj", 16),
+    (2048, 128256): ("lm_head", 1),
+}
+GEN_NEW, DRAFT_LAYERS, SPEC_K = 32, 4, 4
+GEN_PROMPT_LEN = 8  # generate's --prompt-len default
+# Phase 10e's two requests: one prefill chunk of 16 and one of 32 tokens.
+SERVE_1B_PROMPTS = (16, 32)
+# Rows K6 is checked at for llama_1b: phase 10 serves generate's prefill (1
+# x 8) and decode (1), the verify pass (1 x (K + 1) = 5), and the
+# continuous engine's decode buckets and prefill chunks, as phase 9c's
+# (CHECK_ROWS).
+CHECK_ROWS_1B = tuple(sorted(set(CHECK_ROWS) | {GEN_PROMPT_LEN, SPEC_K + 1}))
+# The config of phase 10's train and eval (eval restores the whole state,
+# whose optimizer layout is the config's: adamw with clip).
+CKPT_TRAIN = ["--model", "llama_1b", "--batch-size", str(TRAIN_B),
+              "--seq-len", str(TRAIN_T), "--set",
+              "optimizer.grad_clip_norm=1.0"]
+CKPT_FREE_BYTES = 40e9  # two 18 GB blobs on disk while GC catches up
+
+
+def checkpoint_dir():
+    """A fresh directory for phase 10's checkpoints: under the temporary
+    directory where its disk holds two blobs, else beside this script."""
+    import os
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(),
+                 os.path.dirname(os.path.abspath(__file__))):
+        if shutil.disk_usage(base).free >= CKPT_FREE_BYTES:
+            return tempfile.mkdtemp(prefix="slt-phase10-", dir=base)
+    fail(f"no disk with {CKPT_FREE_BYTES / 1e9:.0f} GB free for phase 10")
+
+
+class Patched:
+    """Within the block, ``obj.name`` is ``wrap(obj.name)``: phase 10 keeps
+    what the CLI builds (the state, the checkpointer, the model, the
+    server) by wrapping the names the CLI looks up when it runs."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in self.triples]
+        for obj, name, wrap in self.triples:
+            setattr(obj, name, wrap(getattr(obj, name)))
+
+    def __exit__(self, *exc):
+        for obj, name, real in self.saved:
+            setattr(obj, name, real)
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process; its last stdout line as JSON."""
+    import contextlib
+    import io
+
+    from serverless_learn_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"{argv[0]} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def gbps(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds else None
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit-for-bit equality (a float's bits, not its value: -0.0 and NaN
+    compare as what they are)."""
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8, 8: torch.int64}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(ints[a.element_size()]), b.view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def verify_logits(torch, model, prompt, tokens, K):
+    """[N, V] f32: the logits that chose each of ``tokens`` after
+    ``prompt``, on the verify pass's path: the prompt prefilled, then the
+    tokens fed K+1 at a time by ``extend``, as speculative_generate's
+    target takes them."""
+    from serverless_learn_tpu_torch.inference.generate import init_cache
+
+    with torch.inference_mode():
+        cache = init_cache(model, 1)
+        p = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        steps = [model(p, cache=cache, prefill=True)[:, -1]]
+        fed = torch.tensor([tokens], dtype=torch.int32, device="cuda")
+        for s in range(0, len(tokens) - 1, K + 1):
+            steps.append(model(fed[:, s:s + K + 1], cache=cache,
+                               extend=True)[0])
+    return torch.cat(steps, 0)[:len(tokens)].float()
+
+
+def hold_to_greedy(torch, model, prompt, reply, others):
+    """A reply's tokens held to plain greedy decode: the greedy path
+    (prefill, then one decode step a token) fed the reply's own tokens;
+    at every step the reply's token must lie within ``tol`` of that
+    step's largest logit, ``tol`` the largest logit difference measured
+    between the greedy path and each of ``others`` (the logits of the
+    paths that made the reply, [N, V] each) over the same tokens. Returns
+    (equal to greedy, worst gap, tol)."""
+    greedy = forced_logits(torch, model, [prompt], [reply])[0]
+    tol = max((greedy - o).abs().max().item() for o in others)
+    chosen = greedy.gather(1, torch.tensor(reply, device="cuda")[:, None])
+    gaps = greedy.max(-1).values - chosen[:, 0]
+    return bool((gaps == 0).all()), gaps.max().item(), tol
+
+
+def checkpoint_path(torch, card):
+    """Phase 10: the user path from training to serving through checkpoints
+    in the JAX package's format, through the CLI's entry points in this
+    process, at llama_1b's full width.
+
+    a. ``train`` 3 steps (B=2, T=4096, adamw + clip) saving every 2 steps
+       (step 2 uploads while step 3 trains) and at the end, keep 1;
+    b. the newest checkpoint restored into a fresh trainer, in place, and
+       held to the live final state bit for bit; ``restore_params_host``;
+    c. ``eval`` from the checkpoint, held to the live model's eval on the
+       same batches (bit for bit: same kernels, same order);
+    d. ``generate --quant int8`` greedy, then ``--draft-layers 4 --spec-k
+       4``, and speculative_generate with the model as its own draft; each
+       speculative reply held to greedy decode, all three timed;
+    e. ``serve`` (the continuous engine) answers two requests, each reply
+       held to greedy decode as in phase 9c.
+
+    The directory goes at the end. Returns the phase's kernel launches."""
+    import os
+    import shutil
+
+    from serverless_learn_tpu_torch import cli
+    from serverless_learn_tpu_torch.inference import server as server_mod
+    from serverless_learn_tpu_torch.inference import speculative
+    from serverless_learn_tpu_torch.inference.generate import generate
+    from serverless_learn_tpu_torch.inference.server import request
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+    from serverless_learn_tpu_torch.training import checkpoint as ckpt_mod
+    from serverless_learn_tpu_torch.training import loop
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+    from serverless_learn_tpu_torch.utils.serialization import (
+        leaves_with_paths)
+
+    t_phase = time.perf_counter()
+    root = checkpoint_dir()
+    kept, committed = {}, []
+    try:
+        # -- a. train, saving asynchronously ------------------------------
+        def keep_run(real):
+            def run(cfg, trainer=None, **kw):
+                state, meter = real(cfg, trainer=trainer, **kw)
+                kept.update(cfg=cfg, trainer=trainer, state=state)
+                return state, meter
+            return run
+
+        def keep_ckpt(real):
+            class Kept(real):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    kept["ckpt"] = self
+
+                def _put_blob(self, step, blob):
+                    super()._put_blob(step, blob)
+                    committed.append(step)
+            return Kept
+
+        flash = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+        for k in flash:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with Patched((loop, "run_training", keep_run),
+                     (ckpt_mod, "Checkpointer", keep_ckpt)):
+            done = run_cli(["train", *CKPT_TRAIN, "--steps", "3",
+                            "--checkpoint-every", "2", "--set",
+                            "checkpoint.keep=1", "--checkpoint-dir", root])
+        train_s = time.perf_counter() - t0
+        train_launches = {k.__name__: k.launches for k in flash}
+        trainer, state, cfg = kept["trainer"], kept["state"], kept["cfg"]
+        n_params = sum(p.numel() for p in state.model.parameters())
+        listing = sorted(os.listdir(os.path.join(root, "ckpt")))
+        blob = os.path.join(root, "ckpt", "step-0000000003")
+        timings = dict(kept["ckpt"].timings)
+        emit("checkpoint_train", card=card, model="llama_1b",
+             params=n_params, steps=done["final_step"],
+             losses=done["losses"], train_command_s=train_s,
+             committed_steps=committed, files=listing,
+             blob_bytes=os.path.getsize(blob),
+             state_bytes=12 * n_params, launches=train_launches,
+             save_sync_s=timings["save_sync_s"],
+             save_sync_gb_per_s=gbps(timings["save_bytes"],
+                                     timings["save_sync_s"]),
+             upload_s=timings["upload_s"],
+             upload_gb_per_s=gbps(timings["save_bytes"],
+                                  timings["upload_s"]),
+             crc_s=timings["crc_s"],
+             crc_gb_per_s=gbps(timings["save_bytes"], timings["crc_s"]))
+        if done["final_step"] != 3 or committed != [2, 3]:
+            fail(f"train: final step {done['final_step']}, committed "
+                 f"{committed} (expected 3 and [2, 3])")
+        if listing != ["LATEST", "step-0000000003",
+                       "step-0000000003.manifest"]:
+            fail(f"keep=1 should leave step 3 alone: {listing}")
+        if os.path.getsize(blob) < 12 * n_params:
+            fail(f"blob of {os.path.getsize(blob)} B holds less than the "
+                 f"state's {12 * n_params} B")
+        if any(n != 3 * 16 for n in train_launches.values()):
+            fail(f"train launched {train_launches}, expected 48 each")
+
+        # -- b. restore in place, bit for bit -----------------------------
+        fresh = build_trainer(cfg, "cuda")
+        rstate = fresh.init(seed=1)
+        ck = ckpt_mod.Checkpointer(ckpt_mod.LocalStore(root))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = fresh.state_tree(rstate)
+        ck.restore(tree)
+        fresh.load_tree(rstate, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore = dict(ck.timings)
+        live = list(leaves_with_paths(trainer.state_tree(state)))
+        back = list(leaves_with_paths(fresh.state_tree(rstate)))
+        differ = [p for (p, a), (q, b) in zip(live, back)
+                  if p != q or not same_bits(torch, a, b)]
+        if (differ or len(live) != len(back) or rstate.step != state.step
+                or rstate.opt_state["count"] != state.opt_state["count"]):
+            fail(f"restored state differs from the live one: {differ[:5]}, "
+                 f"step {rstate.step} vs {state.step}")
+        del tree, back, rstate, fresh
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = ck.restore_params_host()
+        params_s = time.perf_counter() - t0
+        params_bytes = sum(t.numel() * t.element_size()
+                           for _, t in leaves_with_paths(params))
+        del params
+        emit("checkpoint_restore", card=card, leaves=len(live),
+             bit_identical=True, restore_s=restore_s,
+             restore_gb_per_s=gbps(restore["restore_bytes"], restore_s),
+             restore_bytes=restore["restore_bytes"],
+             restore_crc_s=restore["restore_crc_s"],
+             restore_params_host_s=params_s,
+             params_bytes=params_bytes,
+             params_gb_per_s=gbps(params_bytes, params_s),
+             note="restore_params_host reads and checks the whole blob")
+        del live
+
+        # -- c. eval from the checkpoint ----------------------------------
+        evals = {}
+
+        def keep_eval(real):
+            def run(*a, **k):
+                out = real(*a, **k)
+                evals.update(out)
+                return out
+            return run
+
+        fa.flash_fwd.launches = 0
+        t0 = time.perf_counter()
+        with Patched((loop, "run_eval", keep_eval)):
+            rep = run_cli(["eval", *CKPT_TRAIN, "--checkpoint-dir", root,
+                           "--eval-steps", "2"])
+        eval_s = time.perf_counter() - t0
+        eval_k1 = fa.flash_fwd.launches
+        mine = loop.run_eval(cfg, trainer, state, num_batches=2)
+        emit("checkpoint_eval", card=card, checkpoint_step=
+             rep["checkpoint_step"], eval=evals, live_eval=mine,
+             eval_command_s=eval_s, flash_fwd_launches=eval_k1)
+        if rep["checkpoint_step"] != 3 or eval_k1 != 2 * 16:
+            fail(f"eval: step {rep['checkpoint_step']}, K1 launched "
+                 f"{eval_k1} times (expected 32)")
+        if evals != mine:
+            fail(f"eval from the checkpoint {evals} != the live model's "
+                 f"{mine}")
+        del trainer, state, kept["trainer"], kept["state"]
+        torch.cuda.empty_cache()
+
+        # -- d. generate, speculative --------------------------------------
+        per_fwd = 7 * 16 + 1
+        per_draft = 7 * DRAFT_LAYERS + 1
+        models, counts, rows = [], {"target": 0, "draft": 0}, set()
+
+        def counter(name):
+            def hook(mod, args):
+                counts[name] += 1
+                rows.add(args[0].numel())
+            return hook
+
+        def keep_model(real):
+            def build(args, overrides):
+                model, step = real(args, overrides)
+                model.register_forward_pre_hook(counter("target"))
+                models.append(model)
+                return model, step
+            return build
+
+        def keep_draft(real):
+            def build(model, n):
+                draft = real(model, n)
+                draft.register_forward_pre_hook(counter("draft"))
+                return draft
+            return build
+
+        gen = ["generate", "--model", "llama_1b", "--checkpoint-dir", root,
+               "--quant", "int8", "--max-new-tokens", str(GEN_NEW)]
+        k6 = {}
+        replies = {}
+        with Patched((cli, "_model_from_args", keep_model),
+                     (speculative, "prefix_draft", keep_draft)):
+            for name, extra in (("greedy", []),
+                                ("prefix_draft", ["--draft-layers",
+                                                  str(DRAFT_LAYERS),
+                                                  "--spec-k", str(SPEC_K)])):
+                quant_matmul.launches = 0
+                counts.update(target=0, draft=0)
+                t0 = time.perf_counter()
+                replies[name] = run_cli(gen + extra)
+                k6[name] = dict(launches=quant_matmul.launches, **counts,
+                                command_s=time.perf_counter() - t0)
+                want = per_fwd * counts["target"] + per_draft * counts["draft"]
+                if counts["target"] == 0 or quant_matmul.launches != want:
+                    fail(f"generate {name}: {quant_matmul.launches} K6 "
+                         f"launches for {counts}, expected {want}")
+        gen_rows = sorted(rows)
+        model = models[-1]
+        prompt = replies["greedy"]["prompt"][0]
+        plain = replies["greedy"]["tokens"][0][len(prompt):]
+        spec = replies["prefix_draft"]["tokens"][0][len(prompt):]
+        if replies["greedy"]["checkpoint_step"] != 3 or len(plain) != GEN_NEW:
+            fail(f"generate: {str(replies['greedy'])[:300]}")
+        p = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        self_out, self_stats = speculative.speculative_generate(
+            model, model, p, GEN_NEW, K=SPEC_K)
+        self_spec = self_out[0, len(prompt):].tolist()
+        held = {}
+        for name, reply in (("prefix_draft", spec), ("self_draft",
+                                                     self_spec)):
+            ver = verify_logits(torch, model, prompt, reply, SPEC_K)
+            _, worst, tol = hold_to_greedy(torch, model, prompt, reply,
+                                           [ver])
+            held[name] = dict(equal_to_greedy=reply == plain,
+                              worst_gap=worst, tolerance=tol)
+            if worst > tol:
+                fail(f"{name}: a token lies {worst:.4f} below greedy's "
+                     f"largest logit, beyond the measured {tol:.4f}")
+        draft = speculative.prefix_draft(model, DRAFT_LAYERS)
+        timed = {
+            "greedy": lambda: generate(model, p, GEN_NEW),
+            "prefix_draft": lambda: speculative.speculative_generate(
+                model, draft, p, GEN_NEW, K=SPEC_K),
+            "self_draft": lambda: speculative.speculative_generate(
+                model, model, p, GEN_NEW, K=SPEC_K),
+        }
+        speeds = {}
+        for name, fn in timed.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            speeds[name] = dict(
+                s=dt, new_tokens_per_s=GEN_NEW / dt,
+                acceptance=None if name == "greedy" else out[1][
+                    "acceptance"],
+                rounds=None if name == "greedy" else out[1]["rounds"])
+        fwd_bytes = sum(I * O * n + O * 4 * n
+                        for (I, O), (_, n) in LLAMA1B_SHAPES.items())
+        emit("checkpoint_generate", card=card, prompt_len=len(prompt),
+             new_tokens=GEN_NEW, draft_layers=DRAFT_LAYERS, spec_k=SPEC_K,
+             k6=k6, rows_served=gen_rows,
+             acceptance_prefix_draft=replies["prefix_draft"][
+                 "speculative"]["acceptance"],
+             acceptance_self_draft=self_stats["acceptance"],
+             held_to_greedy=held, speeds=speeds,
+             int8_forward_bytes=fwd_bytes,
+             bound_ms_per_forward=fwd_bytes / HBM_BYTES_PER_S * 1e3,
+             loop="host loop, one sync a round")
+        if self_stats["acceptance"] < 0.8:
+            fail(f"self-draft accepted {self_stats['acceptance']:.3f}")
+        del model, draft, models[:], p, self_out
+        torch.cuda.empty_cache()
+
+        # -- e. serve -------------------------------------------------------
+        servers = []
+
+        def keep_server(real):
+            class Kept(real):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    servers.append(self)
+            return Kept
+
+        quant_matmul.launches = 0
+        counts.update(target=0, draft=0)
+        rows.clear()
+        g = torch.Generator().manual_seed(10)
+        prompts = [torch.randint(0, 128256, (n,), generator=g).tolist()
+                   for n in SERVE_1B_PROMPTS]
+        argv = ["serve", "--model", "llama_1b", "--checkpoint-dir", root,
+                "--quant", "int8", "--port", "0"]
+        with Patched((cli, "_model_from_args", keep_model),
+                     (server_mod, "GenerationServer", keep_server)):
+            th = threading.Thread(target=cli.main, args=(argv,), daemon=True)
+            th.start()
+            t0 = time.perf_counter()
+            while not servers and th.is_alive() and (
+                    time.perf_counter() - t0 < 600):
+                time.sleep(0.1)
+            if not servers:
+                fail("serve did not come up")
+            served = [None, None]
+
+            def client(i):
+                served[i] = request(servers[0].addr, {
+                    "prompt": prompts[i], "max_new_tokens": GEN_NEW},
+                    timeout=600)
+
+            try:
+                clients = [threading.Thread(target=client, args=(i,))
+                           for i in range(2)]
+                t1 = time.perf_counter()
+                for c in clients:
+                    c.start()
+                for c in clients:
+                    c.join(timeout=600)
+                serve_s = time.perf_counter() - t1
+            finally:
+                servers[0].stop()
+                th.join(timeout=120)
+        serve_launches, serve_fwd = quant_matmul.launches, counts["target"]
+        model = models[-1]
+        faults, holds = [], []
+        for rep in served:
+            if rep is None or "error" in rep or len(rep["new_tokens"]) != \
+                    GEN_NEW:
+                fail(f"serve reply: {str(rep)[:300]}")
+        news = [rep["new_tokens"] for rep in served]
+        # The engine's paths: the two prompts paged together (prefill
+        # chunks of 32, a window of 16 pages) and each alone.
+        together = forced_logits(torch, model, prompts, news, 16)
+        for i, (prompt, new) in enumerate(zip(prompts, news)):
+            alone = forced_logits(torch, model, [prompt], [new], 16)[0]
+            equal, worst, tol = hold_to_greedy(torch, model, prompt, new,
+                                               [alone, together[i]])
+            holds.append(dict(equal_to_greedy=equal, worst_gap=worst,
+                              tolerance=tol))
+            if worst > tol:
+                faults.append(f"a served token lies {worst:.4f} below "
+                              f"greedy's largest logit (tol {tol:.4f})")
+        if serve_fwd == 0 or serve_launches != per_fwd * serve_fwd:
+            faults.append(f"{serve_launches} eager K6 launches for "
+                          f"{serve_fwd} forwards")
+        all_rows = set(gen_rows) | rows
+        if not all_rows <= set(CHECK_ROWS_1B):
+            faults.append(f"K6 served rows {sorted(all_rows)}, phase 3 "
+                          f"checked {list(CHECK_ROWS_1B)} at llama_1b")
+        emit("checkpoint_serve", card=card, engine="continuous",
+             requests=len(served), serve_s=serve_s,
+             new_tokens_per_s=2 * GEN_NEW / serve_s,
+             eager_k6_launches=serve_launches, eager_forwards=serve_fwd,
+             rows_served=sorted(rows), held_to_greedy=holds,
+             checkpoint_step=3)
+        if faults:
+            fail("phase 10: " + "; ".join(faults))
+        del model, models[:]
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("checkpoint_phase", card=card, seconds=time.perf_counter() - t_phase)
+    return {"flash_fwd": train_launches["flash_fwd"] + eval_k1,
+            "flash_dq": train_launches["flash_dq"],
+            "flash_dkv": train_launches["flash_dkv"],
+            "quant_matmul": sum(v["launches"] for v in k6.values())
+            + serve_launches}
+
+
 # The tensor-core kernels of each source, as parts of their mangled names
 # in ptxas's report: every function that holds one may not spill, and each
 # must appear.
@@ -2040,6 +2551,10 @@ def main() -> int:
         torch, card)
     launches, replayed = serve_continuous(torch, card, model, static_replies,
                                           static_step)
+    del model, static_replies
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase10 = checkpoint_path(torch, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -2047,6 +2562,7 @@ def main() -> int:
         "replaces": "serverless_learn_tpu/ops/pallas/quant_matmul.py:88",
         "launches": launches, "launches_graph_replayed": replayed,
         "launches_static_engine": static_launches,
+        "launches_checkpoint_path": phase10["quant_matmul"],
         "max_abs_err": max_err,
         "ms": fwd["ms"], "graph_ms": fwd["graph_ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2064,6 +2580,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "serverless_learn_tpu_torch/csrc/flash_attention.cu",
             "replaces": where, "launches": flash_launches[name],
+            "launches_checkpoint_path": phase10[name],
             "max_abs_err": flash_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -2079,6 +2596,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "serverless_learn_tpu_torch/csrc/cross_entropy.cu",
             "replaces": where, "launches": lora_launches[name],
+            "launches_checkpoint_path": 0,
             "max_abs_err": ce_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

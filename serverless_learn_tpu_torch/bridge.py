@@ -14,17 +14,22 @@ Projection leaves are flattened to the port's ``[I, O]`` layout:
   D]`` (``q_lora``) or ``[r, K, D]`` (``v_lora``) becomes ``[r, H*D]`` /
   ``[r, K*D]``;
 * the f32 embedding table and the norm scales pass through.
+
+The same reshapes map optimizer moments, which have their parameter's
+shape: :func:`to_flax` and :func:`from_flax` do it on tensors, as views,
+for checkpoints (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Tuple, TypeVar
 
 import numpy as np
 import torch
 
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
 
+T = TypeVar("T")
 # Projection -> number of leading kernel dims it contracts.
 _N_CONTRACT = {"q_proj": 1, "k_proj": 1, "v_proj": 1, "o_proj": 2,
                "gate_proj": 1, "up_proj": 1, "down_proj": 1, "lm_head": 1}
@@ -39,20 +44,27 @@ def _flatten(tree: dict, prefix: str = ""):
             yield name, v
 
 
+def port_shape(name: str, shape) -> Tuple[int, ...]:
+    """The port's shape of the flax leaf at ``name`` of shape ``shape``."""
+    parts = name.split(".")
+    site, leaf_name = (parts[-2], parts[-1]) if len(parts) > 1 else ("", "")
+    shape = tuple(shape)
+    if site in _N_CONTRACT and leaf_name in ("kernel", "kernel_q"):
+        nc = _N_CONTRACT[site]
+        return (int(np.prod(shape[:nc])), int(np.prod(shape[nc:])))
+    if site in _N_CONTRACT and leaf_name == "scale":
+        return (int(np.prod(shape)),)
+    if site == "lora_b" and leaf_name == "kernel":
+        return (shape[0], int(np.prod(shape[1:])))
+    return shape
+
+
 def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     """A flax params tree of numpy arrays -> the port's state dict."""
     out = {}
     for name, leaf in _flatten(tree):
         a = np.asarray(leaf)
-        parts = name.split(".")
-        site, leaf_name = (parts[-2], parts[-1]) if len(parts) > 1 else ("", "")
-        if site in _N_CONTRACT and leaf_name in ("kernel", "kernel_q"):
-            nc = _N_CONTRACT[site]
-            a = a.reshape(int(np.prod(a.shape[:nc])), -1)
-        elif site in _N_CONTRACT and leaf_name == "scale":
-            a = a.reshape(-1)
-        elif site == "lora_b" and leaf_name == "kernel":
-            a = a.reshape(a.shape[0], -1)
+        a = a.reshape(port_shape(name, a.shape))
         out[name] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
     return out
 
@@ -72,18 +84,50 @@ def _jax_shape(parts, shape, cfg: TransformerConfig):
     return tuple(shape)
 
 
-def to_jax_params(state_dict: Dict[str, torch.Tensor],
-                  cfg: TransformerConfig) -> dict:
-    """The port's state dict -> a flax params tree of numpy arrays (the
-    inverse of :func:`from_jax_params`)."""
+def nest(named: Mapping[str, T]) -> dict:
+    """Dotted names -> a nested dict with its keys sorted at every level,
+    the order of a flax tree that went through ``jax.tree_util`` (and so
+    of the JAX package's checkpoints)."""
     tree: dict = {}
-    for name, t in state_dict.items():
+    for name, leaf in named.items():
         parts = name.split(".")
-        a = t.detach().cpu()
-        a = (a.to(torch.float32) if a.dtype == torch.bfloat16 else a).numpy()
-        a = a.reshape(_jax_shape(parts, a.shape, cfg))
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = a
-    return tree
+        node[parts[-1]] = leaf
+
+    def order(node):
+        return ({k: order(node[k]) for k in sorted(node)}
+                if isinstance(node, dict) else node)
+
+    return order(tree)
+
+
+def to_flax(named: Mapping[str, torch.Tensor], cfg: TransformerConfig
+            ) -> dict:
+    """The port's named tensors (parameters, or optimizer moments keyed by
+    their parameter's name) -> the flax tree of the same tensors seen in
+    flax's shapes: views, so nothing is copied and writing into a leaf
+    writes into the port's tensor."""
+    return nest({n: t.reshape(_jax_shape(n.split("."), t.shape, cfg))
+                 for n, t in named.items()})
+
+
+def from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A flax tree of tensors -> the port's named tensors (views in the
+    port's shapes); the inverse of :func:`to_flax`."""
+    return {name: t.reshape(port_shape(name, t.shape))
+            for name, t in _flatten(tree)}
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor],
+                  cfg: TransformerConfig) -> dict:
+    """The port's state dict -> a flax params tree of numpy arrays, bf16
+    read as f32 (the inverse of :func:`from_jax_params`)."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return host(to_flax(state_dict, cfg))

@@ -1,7 +1,15 @@
-"""Command line of the PyTorch port: ``train``, ``serve`` and ``generate``.
+"""Command line of the PyTorch port: ``train``, ``eval``, ``serve`` and
+``generate``.
 
     python -m serverless_learn_tpu_torch train --model llama_1b \\
         --batch-size 2 --seq-len 4096 --steps 5
+    python -m serverless_learn_tpu_torch train --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --steps 100 --checkpoint-every 50 \\
+        --checkpoint-dir ckpts
+    python -m serverless_learn_tpu_torch eval --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --checkpoint-dir ckpts --eval-steps 4
+    python -m serverless_learn_tpu_torch generate --model llama_1b \\
+        --checkpoint-dir ckpts --quant int8 --draft-layers 4 --spec-k 4
     python -m serverless_learn_tpu_torch train --model llama_8b \\
         --set model_overrides.lora_rank=16 --set model_overrides.remat=true \\
         --set model_overrides.fused_ce=true --batch-size 8 \\
@@ -13,9 +21,12 @@
         --prompt 5,9,11 --max-new-tokens 8
 
 The flags are those of the reference CLI (``serverless_learn_tpu/cli.py``)
-for these paths. Weights are random, made from a seed; checkpoints are not
-ported yet. Every command runs on the card; ``--device cpu`` is for tests
-only.
+for these paths. Checkpoints are the JAX package's (``training/
+checkpoint.py``): ``train --checkpoint-dir`` writes them, ``eval`` restores
+the whole state, ``generate`` and ``serve`` the params alone. Without
+``--checkpoint-dir`` the weights are random, made from ``--seed``; with it,
+a store that holds no checkpoint is an error, never random weights. Every
+command runs on the card; ``--device cpu`` is for tests only.
 """
 
 from __future__ import annotations
@@ -26,11 +37,11 @@ import sys
 from typing import List, Optional
 
 from serverless_learn_tpu_torch.config import (ExperimentConfig, apply_sets,
-                                               coerce)
+                                               coerce, not_ported)
+
+_SERVE_SECTIONS = ("model_overrides", "kv")
 
 NOT_PORTED = {
-    "checkpoint": "checkpoint restore is not yet ported to PyTorch "
-                  "(ROADMAP.md queue 1 item 2); weights come from --seed",
     "distributed": "multi-process training (--world-size) is not yet ported "
                    "to PyTorch (ROADMAP.md queue 1 item 3, data parallel)",
     "shard_server": "streaming data from the shard server is not yet ported "
@@ -59,13 +70,95 @@ def _overrides(items: Optional[List[str]],
     return out
 
 
-def _model_from_args(args, overrides: dict):
-    from serverless_learn_tpu_torch.models.registry import build_model
+def _make_checkpointer(args, cfg=None):
+    """The store's Checkpointer, or None without ``--checkpoint-dir``;
+    ``checkpoint.keep`` / ``checkpoint.verify`` from ``cfg`` when given."""
+    from serverless_learn_tpu_torch.training.checkpoint import (
+        Checkpointer, LocalStore, ShardServerStore)
 
-    if args.checkpoint_dir:
-        raise SystemExit(NOT_PORTED["checkpoint"])
-    return build_model(args.model, device=args.device, quant=args.quant,
-                       seed=args.seed, **overrides)
+    if args.checkpoint_store:
+        try:
+            ShardServerStore(args.checkpoint_store)
+        except NotImplementedError as e:
+            raise SystemExit(str(e))
+    if not args.checkpoint_dir:
+        return None
+    store = LocalStore(args.checkpoint_dir)
+    if cfg is None:
+        return Checkpointer(store, name=args.checkpoint_name)
+    return Checkpointer(store, name=args.checkpoint_name,
+                        keep=cfg.checkpoint.keep,
+                        verify=cfg.checkpoint.verify)
+
+
+def _load_inference_params(args, cfg):
+    """(params, step) for a forward-only command: the newest checkpoint's
+    params alone, restored on the host without a template (the optimizer
+    moments never reach the card), checked against the serving model
+    ``cfg`` by path and shape, as the port's named tensors."""
+    from serverless_learn_tpu_torch.bridge import from_flax, to_flax
+    from serverless_learn_tpu_torch.models.transformer import Transformer
+    from serverless_learn_tpu_torch.utils.serialization import (
+        leaves_with_paths)
+
+    ckpt = _make_checkpointer(args)
+    try:
+        step = ckpt.latest_step()
+        if step is None:
+            raise SystemExit("no checkpoint found in the configured store")
+        host = ckpt.restore_params_host(step=step)
+    finally:
+        ckpt.close()
+    if "pipe_blocks" in host or "pipe_blocks" in host.get("pipeline", {}):
+        raise SystemExit(str(not_ported(
+            "serving a pipeline-trained checkpoint (unstacking pipe_blocks)",
+            "ROADMAP.md queue 1 item 5")))
+    abstract = Transformer(cfg, device="meta")
+    want = {p: tuple(t.shape) for p, t in leaves_with_paths(to_flax(
+        dict(abstract.named_parameters()), cfg))}
+    got = {p: tuple(t.shape) for p, t in leaves_with_paths(host)}
+    problems = (
+        [f"missing from checkpoint: {k}" for k in sorted(want.keys() - got)]
+        + [f"not in serving model: {k}" for k in sorted(got.keys() - want)]
+        + [f"{k}: checkpoint {got[k]} vs serving {want[k]}"
+           for k in sorted(got.keys() & want) if got[k] != want[k]])
+    if problems:
+        raise SystemExit(
+            f"checkpoint params do not fit the serving config ({args.model}"
+            f", --set {args.set or []}): "
+            + "; ".join(problems[:5])
+            + (f" (+{len(problems) - 5} more)" if len(problems) > 5 else ""))
+    return from_flax(host), step
+
+
+def _model_from_args(args, overrides: dict):
+    """(model, checkpoint step): the checkpoint's params restored in their
+    trained dtype, then with ``--quant int8`` quantized one projection at a
+    time on the card; without ``--checkpoint-dir``, random weights from
+    ``--seed``."""
+    import torch
+
+    from serverless_learn_tpu_torch.inference.quantize import (
+        quantize_params_int8)
+    from serverless_learn_tpu_torch.models.registry import (build_model,
+                                                            get_model_config,
+                                                            resolve_device)
+    from serverless_learn_tpu_torch.models.transformer import Transformer
+
+    if not (args.checkpoint_dir or args.checkpoint_store):
+        return build_model(args.model, device=args.device, quant=args.quant,
+                           seed=args.seed, **overrides), None
+    dev = resolve_device(args.device)
+    cfg = get_model_config(args.model, **overrides)
+    params, step = _load_inference_params(args, cfg)
+    if args.quant:
+        cfg = get_model_config(args.model, quant=args.quant, **overrides)
+        params = {k: v for name, t in params.items() for k, v in
+                  quantize_params_int8({name: t.to(dev)}).items()}
+    model = Transformer(cfg, device=dev).eval()
+    with torch.no_grad():
+        model.load_state_dict(params)
+    return model, step
 
 
 def _kv_config(args, fields: dict):
@@ -114,7 +207,8 @@ def _train_config(args):
              ("train", "num_steps"): args.steps,
              ("optimizer", "learning_rate"): args.lr,
              ("optimizer", "name"): args.optimizer,
-             ("data", "seq_len"): args.seq_len}
+             ("data", "seq_len"): args.seq_len,
+             ("train", "checkpoint_every"): args.checkpoint_every}
     if args.mesh:
         flags[("mesh",)] = {**raw.get("mesh", {}), **_parse_mesh(args.mesh)}
     for path, val in flags.items():
@@ -127,29 +221,51 @@ def _train_config(args):
     return ExperimentConfig.from_dict(raw)
 
 
-def cmd_train(args) -> int:
-    """Train a model on the card; ends with the reference's ``done`` line
-    on stdout."""
-    from serverless_learn_tpu_torch.training.loop import run_training
-    from serverless_learn_tpu_torch.utils.metrics import log_json
-
-    if args.checkpoint_dir:
-        raise SystemExit(NOT_PORTED["checkpoint"])
+def _refuse_unported(args):
     if args.world_size:
         raise SystemExit(NOT_PORTED["distributed"])
     if args.shard_server:
         raise SystemExit(NOT_PORTED["shard_server"])
     if args.metrics_port is not None or args.health:
         raise SystemExit(NOT_PORTED["telemetry"])
+
+
+def cmd_train(args) -> int:
+    """Train a model on the card; with ``--checkpoint-dir`` save every
+    ``train.checkpoint_every`` steps and at the end. Ends with the
+    reference's ``done`` line on stdout."""
     from serverless_learn_tpu_torch.ops import cross_entropy as ce
     from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.training.loop import run_training
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+    from serverless_learn_tpu_torch.utils.metrics import log_json
 
+    _refuse_unported(args)
     cfg = _train_config(args)
     kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ce.cross_entropy_fwd,
                ce.cross_entropy_bwd)
     before = [k.launches for k in kernels]
-    state, meter = run_training(cfg, verbose=args.verbose,
-                                device=args.device)
+    ckpt = None
+    try:
+        ckpt = _make_checkpointer(args, cfg)
+        trainer = callback = None
+        if ckpt is not None:
+            trainer = build_trainer(cfg, args.device)
+            every = cfg.train.checkpoint_every
+
+            def callback(step, state, stats):
+                if every and step % every == 0:
+                    ckpt.save(trainer.state_tree(state))
+
+        state, meter = run_training(cfg, trainer=trainer,
+                                    step_callback=callback,
+                                    verbose=args.verbose, device=args.device)
+        if ckpt is not None:
+            ckpt.save(trainer.state_tree(state))
+            ckpt.wait()
+    finally:
+        if ckpt is not None:
+            ckpt.close()  # drain the upload in flight
     summary = meter.steady_state()
     losses = [s.metrics["loss"] for s in meter.history]
     log_json({"event": "done", "final_step": state.step,
@@ -161,13 +277,53 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    """Forward-only metrics of a model: with ``--checkpoint-dir`` the
+    newest checkpoint's whole state restored into the trainer's (a store
+    without one exits), else a fresh init. Prints ``checkpoint_step`` and
+    the mean ``eval_*`` metrics as one JSON line."""
+    from serverless_learn_tpu_torch.training.loop import run_eval
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    _refuse_unported(args)
+    cfg = _train_config(args)
+    trainer = build_trainer(cfg, args.device)
+    ckpt = _make_checkpointer(args, cfg)
+    state, step = trainer.init(), None
+    if ckpt is not None:
+        try:
+            if ckpt.latest_step() is None:
+                # Metrics of a random init would look plausible and mean
+                # nothing where the user pointed at a store.
+                raise SystemExit(
+                    "no checkpoint found in the configured store; drop "
+                    "--checkpoint-dir to eval a fresh init")
+            trainer.load_tree(state, ckpt.restore(trainer.state_tree(state)))
+            step = state.step
+        finally:
+            ckpt.close()
+    metrics = run_eval(cfg, trainer, state,
+                       num_batches=args.eval_steps or cfg.train.eval_steps)
+    print(json.dumps({"checkpoint_step": step,
+                      **{k: round(float(v), 6) for k, v in metrics.items()}}))
+    return 0
+
+
 def cmd_generate(args) -> int:
-    """Sample tokens from a causal LM."""
+    """Sample tokens from a causal LM; ``--draft-layers N`` decodes
+    speculatively (greedy) with the model's own first N layers as the
+    draft and adds the ``speculative`` stats."""
     import torch
 
     from serverless_learn_tpu_torch.inference.generate import generate
+    from serverless_learn_tpu_torch.inference.speculative import (
+        prefix_draft, speculative_generate)
 
-    model = _model_from_args(args, _overrides(args.set)["model_overrides"])
+    if args.draft_layers and args.temperature != 0.0:
+        raise SystemExit("--draft-layers is greedy-only (temperature must "
+                         "be 0)")
+    model, step = _model_from_args(
+        args, _overrides(args.set)["model_overrides"])
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     if args.prompt:
@@ -177,12 +333,24 @@ def cmd_generate(args) -> int:
         prompt = torch.randint(0, model.cfg.vocab_size, (1, args.prompt_len),
                                generator=gen, device=model.device,
                                dtype=torch.int32)
-    out = generate(model, prompt, max_new_tokens=args.max_new_tokens,
-                   temperature=args.temperature, top_k=args.top_k,
-                   eos_id=args.eos_id, generator=gen)
-    print(json.dumps({"checkpoint_step": None,
-                      "prompt": prompt.tolist(),
-                      "tokens": out.cpu().tolist()}))
+    stats = None
+    if args.draft_layers:
+        try:
+            out, stats = speculative_generate(
+                model, prefix_draft(model, args.draft_layers), prompt,
+                max_new_tokens=args.max_new_tokens, K=args.spec_k,
+                eos_id=args.eos_id)
+        except ValueError as e:  # --draft-layers, --spec-k or the window
+            raise SystemExit(str(e))
+    else:
+        out = generate(model, prompt, max_new_tokens=args.max_new_tokens,
+                       temperature=args.temperature, top_k=args.top_k,
+                       eos_id=args.eos_id, generator=gen)
+    rep = {"checkpoint_step": step, "prompt": prompt.tolist(),
+           "tokens": out.cpu().tolist()}
+    if stats is not None:
+        rep["speculative"] = stats
+    print(json.dumps(rep))
     return 0
 
 
@@ -190,16 +358,17 @@ def cmd_serve(args) -> int:
     """Serve generation requests (JSON lines over TCP) from a causal LM."""
     from serverless_learn_tpu_torch.inference.server import GenerationServer
 
-    sets = _overrides(args.set, ("model_overrides", "kv"))
+    sets = _overrides(args.set, _SERVE_SECTIONS)
     kv = _kv_config(args, sets["kv"])
-    model = _model_from_args(args, sets["model_overrides"])
+    model, step = _model_from_args(args, sets["model_overrides"])
     server = GenerationServer(model, host=args.host, port=args.port,
                               max_batch=args.max_batch,
                               batch_wait_ms=args.batch_wait_ms,
                               engine=args.serve_engine,
                               chunk_size=args.chunk_size, kv=kv)
     print(json.dumps({"event": "serving", "addr": server.addr,
-                      "model": args.model, "engine": args.serve_engine,
+                      "model": args.model, "checkpoint_step": step,
+                      "engine": args.serve_engine,
                       "kv": getattr(server.engine, "kv_stats",
                                     lambda: None)()}), flush=True)
     try:
@@ -227,8 +396,17 @@ def _add_model_flags(p: argparse.ArgumentParser):
                         "the random prompt and the sampling)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default), or cpu for tests only")
+    _add_checkpoint_flags(p)
+
+
+def _add_checkpoint_flags(p: argparse.ArgumentParser):
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not yet ported: raises")
+                   help="a local checkpoint store (the JAX package's "
+                        "format)")
+    p.add_argument("--checkpoint-name", default="ckpt",
+                   help="checkpoint namespace inside the store")
+    p.add_argument("--checkpoint-store", metavar="ADDR", default=None,
+                   help="the shard-server store: not yet ported, raises")
 
 
 def _add_train_flags(p: argparse.ArgumentParser):
@@ -250,8 +428,11 @@ def _add_train_flags(p: argparse.ArgumentParser):
                    help="log every train.log_every steps to stderr")
     p.add_argument("--device", default="cuda",
                    help="cuda (default), or cpu for tests only")
-    for flag in ("--checkpoint-dir", "--shard-server"):
-        p.add_argument(flag, default=None, help="not yet ported: raises")
+    _add_checkpoint_flags(p)
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="save every N steps (config train.checkpoint_every)")
+    p.add_argument("--shard-server", default=None,
+                   help="not yet ported: raises")
     p.add_argument("--world-size", type=int, default=None,
                    help="not yet ported: raises")
     p.add_argument("--metrics-port", type=int, default=None,
@@ -263,13 +444,20 @@ def _add_train_flags(p: argparse.ArgumentParser):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="serverless_learn_tpu_torch",
-        description="PyTorch/CUDA port of serverless-learn-tpu: training "
-                    "and serving")
+        description="PyTorch/CUDA port of serverless-learn-tpu: training, "
+                    "eval and serving")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train", help="train a model on the card")
     _add_train_flags(t)
     t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="forward-only eval (optionally from "
+                                    "a checkpoint)")
+    _add_train_flags(e)
+    e.add_argument("--eval-steps", type=int, default=None,
+                   help="eval batches (default: train.eval_steps)")
+    e.set_defaults(fn=cmd_eval)
 
     g = sub.add_parser("generate", help="sample tokens from a causal LM")
     _add_model_flags(g)
@@ -280,6 +468,12 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--temperature", type=float, default=0.0)
     g.add_argument("--top-k", type=int, default=0)
     g.add_argument("--eos-id", type=int, default=None)
+    g.add_argument("--draft-layers", type=int, default=0,
+                   help="speculative decoding: draft with the model's own "
+                        "first N layers, verify K drafts in one pass "
+                        "(greedy-exact)")
+    g.add_argument("--spec-k", type=int, default=4,
+                   help="drafted tokens per verify pass (--draft-layers)")
     g.set_defaults(fn=cmd_generate)
 
     sv = sub.add_parser("serve",

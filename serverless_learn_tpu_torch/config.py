@@ -1,7 +1,8 @@
 """Configuration of the port's training path: its own copy of the parts of
 ``serverless_learn_tpu/config.py`` (``ExperimentConfig`` and the sections
 ``model``, ``model_overrides``, ``mesh``, ``optimizer``, ``train`` and
-``data``, and the serving engines' ``kv``) with the same field names and
+``data``, ``checkpoint``, and the serving engines' ``kv``) with the same
+field names and
 defaults, so the reference's JSON configs and ``--set section.key=value``
 overrides mean the same here.
 
@@ -9,8 +10,8 @@ What this slice does not run raises instead of being ignored: a mesh of
 more than one device, a non-f32 gradient exchange, every field of
 ``_FIELDS_NOT_PORTED`` set away from its default, and any of the sections
 ``control``, ``local_sgd``, ``health``, ``membership``, ``fleet``,
-``waterfall``, ``checkpoint``, ``numerics`` and ``elastic`` (the port keeps
-no copy of their defaults, so it refuses them when set at all).
+``waterfall``, ``numerics`` and ``elastic`` (the port keeps no copy of
+their defaults, so it refuses them when set at all).
 """
 
 from __future__ import annotations
@@ -27,20 +28,20 @@ _SECTIONS_NOT_PORTED = {
     "membership": "gossip membership",
     "fleet": "the serving fleet",
     "waterfall": "request waterfalls",
-    "checkpoint": "checkpoints",
     "numerics": "numerics telemetry",
     "elastic": "elastic training",
 }
 ROADMAP_TRAINING = "ROADMAP.md queue 1 item 3"
 _DATA_ITEM = "ROADMAP.md queue 1 item 5"
+_EMERGENCY = ("the emergency save on the flight recorder's death path",
+              "ROADMAP.md queue 1 item 3e")
+_REPLICAS = ("peer checkpoint replication (training/replicate.py)",
+             _DATA_ITEM)
 # (section, field) -> (what it runs, ROADMAP item): kept so the reference's
 # configs load, raising when set away from the default.
 _FIELDS_NOT_PORTED = {
-    ("train", "checkpoint_every"): ("periodic checkpoints",
-                                    "ROADMAP.md queue 1 item 2"),
     ("train", "zero_stage"): ("ZeRO", "ROADMAP.md queue 1 item 3d"),
     ("train", "eval_every"): ("in-loop eval", "ROADMAP.md queue 1 item 3e"),
-    ("train", "eval_steps"): ("in-loop eval", "ROADMAP.md queue 1 item 3e"),
     ("train", "donate_state"): ("a step that keeps its input state alive "
                                 "(the port updates the state in place)",
                                 ROADMAP_TRAINING),
@@ -53,6 +54,13 @@ _FIELDS_NOT_PORTED = {
     ("data", "mask_rate"): ("the shard server's host transforms", _DATA_ITEM),
     ("data", "learnable"): ("mlp_mnist's learnable synthetic task",
                             _DATA_ITEM),
+    ("checkpoint", "emergency_save"): _EMERGENCY,
+    ("checkpoint", "emergency_min_interval_s"): _EMERGENCY,
+    ("checkpoint", "cache_dir"): _REPLICAS,
+    ("checkpoint", "peers"): _REPLICAS,
+    ("checkpoint", "replica_fanout"): _REPLICAS,
+    ("checkpoint", "serve_cache"): _REPLICAS,
+    ("checkpoint", "serve_cache_port"): _REPLICAS,
 }
 
 
@@ -113,7 +121,7 @@ class TrainConfig:
     # batch_size / grad_accum samples before the one optimizer update.
     grad_accum: int = 1
     eval_every: int = 0  # 0 => no in-loop eval
-    eval_steps: int = 10
+    eval_steps: int = 10  # batches of the `eval` command
     zero_stage: int = 0
     grad_reduce_dtype: str = "float32"  # only f32 (no cross-device exchange)
 
@@ -128,6 +136,26 @@ class DataConfig:
     learnable: bool = False
     augment: bool = False
     mask_rate: float = 0.15
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    """Checkpoint knobs (``training/checkpoint.py``), the reference's
+    fields and defaults. ``verify`` gates the size/CRC checks of a
+    restore; ``keep`` is how many committed steps GC keeps. The emergency
+    save is not armed in the port (``emergency_save`` keeps its default and
+    does nothing yet); it and the peer-replication fields raise when set
+    away from their defaults (``_FIELDS_NOT_PORTED``)."""
+
+    verify: bool = True
+    keep: int = 3                       # retained steps (Checkpointer GC)
+    emergency_save: bool = True
+    emergency_min_interval_s: float = 30.0
+    cache_dir: str = ""
+    peers: str = ""
+    replica_fanout: int = 2
+    serve_cache: bool = False
+    serve_cache_port: int = 0
 
 
 @dataclass(frozen=True)
@@ -172,6 +200,7 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     kv: KVCacheConfig = field(default_factory=KVCacheConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
 
     def __post_init__(self):
         t = self.train
@@ -182,7 +211,8 @@ class ExperimentConfig:
         if t.grad_reduce_dtype not in ("float32", "f32"):
             raise not_ported("train.grad_reduce_dtype other than f32 (the "
                              "cross-device gradient exchange)")
-        defaults = {"train": TrainConfig(), "data": DataConfig()}
+        defaults = {"train": TrainConfig(), "data": DataConfig(),
+                    "checkpoint": CheckpointConfig()}
         for (section, name), (what, where) in _FIELDS_NOT_PORTED.items():
             value = getattr(getattr(self, section), name)
             if value != getattr(defaults[section], name):
@@ -192,6 +222,9 @@ class ExperimentConfig:
             raise ValueError(f"prefetch must be >= 0, got {self.data.prefetch}")
         if t.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {t.grad_accum}")
+        if t.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got "
+                             f"{t.checkpoint_every}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
@@ -203,7 +236,8 @@ class ExperimentConfig:
                 raise not_ported(f"config section {section!r} ({what})",
                                  "ROADMAP.md queue 1")
         unknown = (set(raw) - {"model", "model_overrides", "mesh",
-                               "optimizer", "train", "data", "kv"}
+                               "optimizer", "train", "data", "kv",
+                               "checkpoint"}
                    - set(_SECTIONS_NOT_PORTED))
         if unknown:
             raise ValueError(f"unknown config sections {sorted(unknown)}")
@@ -219,6 +253,7 @@ class ExperimentConfig:
             train=build(TrainConfig, raw.get("train")),
             data=build(DataConfig, raw.get("data")),
             kv=build(KVCacheConfig, raw.get("kv")),
+            checkpoint=build(CheckpointConfig, raw.get("checkpoint")),
         )
 
     @classmethod

@@ -1,6 +1,7 @@
 """The training loop, the port of ``serverless_learn_tpu/training/loop.py``:
 a trainer, a synthetic batch source placed on the device ahead of the
-step, and the throughput meter. The reference's metrics registry, goodput
+step, the throughput meter, and the forward-only eval of the ``eval``
+command over a held-out synthetic stream. The reference's metrics registry, goodput
 ledger, flight recorder and tracing spans wait for the telemetry item of
 ROADMAP.md.
 """
@@ -8,6 +9,8 @@ ROADMAP.md.
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import numpy as np
 
 from serverless_learn_tpu_torch.config import ExperimentConfig
 from serverless_learn_tpu_torch.data.datasets import SyntheticSource, prefetch
@@ -27,6 +30,44 @@ def make_source(config: ExperimentConfig, trainer: Trainer,
     return SyntheticSource(trainer.bundle.make_batch, config.data,
                            config.train.batch_size,
                            seed=seed + 100_003 * start_step)
+
+
+def eval_uses_train_data(config: ExperimentConfig) -> bool:
+    """True when eval batches would come from the training split (a shard
+    server without ``data.eval_dataset``); the port streams no shard
+    server yet (``data.shard_server_addr`` raises), so always False here."""
+    return bool(config.data.shard_server_addr) and not config.data.eval_dataset
+
+
+def make_eval_source(config: ExperimentConfig, trainer: Trainer):
+    """The held-out source of eval passes: the training source re-seeded
+    at ``train.seed + 995_801``, as the reference's, so both packages eval
+    on the same batches."""
+    return make_source(config, trainer, seed=config.train.seed + 995_801)
+
+
+def run_eval(config: ExperimentConfig, trainer: Trainer, state,
+             source=None, num_batches: Optional[int] = None) -> dict:
+    """Forward-only metrics over ``num_batches`` (default
+    ``train.eval_steps``) eval batches, each averaged over the batches as
+    ``eval_<name>``; ``eval_perplexity`` is the exp of the mean loss, not a
+    mean of exps. The state is not touched."""
+    num_batches = num_batches or config.train.eval_steps
+    eval_on_train = source is None and eval_uses_train_data(config)
+    if source is None:
+        source = make_eval_source(config, trainer)
+    sums: dict = {}
+    it = iter(source)
+    for _ in range(num_batches):
+        metrics = trainer.eval_step(state, trainer.place(next(it)))
+        for k, v in metrics.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+    out = {f"eval_{k}": v / max(num_batches, 1) for k, v in sums.items()}
+    if "eval_perplexity" in out:
+        out["eval_perplexity"] = float(np.exp(out["eval_loss"]))
+    if eval_on_train:
+        out["eval_on_train_data"] = 1.0
+    return out
 
 
 def step_flops(config: ExperimentConfig, trainer: Trainer, state) -> float:

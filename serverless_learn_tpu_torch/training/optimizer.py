@@ -19,6 +19,10 @@ What is kept from optax, step for step:
 
 adafactor, lion and rmsprop are not ported and raise. Updates are in place:
 the reference's optax chain returns new trees.
+
+:meth:`Optimizer.state_tree` describes, as data, the nesting that flax's
+``to_state_dict`` gives the optax state of the same chain, so checkpoints
+carry the state in the JAX package's layout (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 
 from serverless_learn_tpu_torch.config import OptimizerConfig, not_ported
+from serverless_learn_tpu_torch.utils.serialization import (
+    Seq, Struct, leaves_with_paths)
 
 Schedule = Union[float, Callable[[int], float]]
 EPS = 1e-8  # optax's adam eps (eps_root 0)
@@ -119,8 +125,8 @@ class Optimizer:
         self.schedule = make_schedule(cfg)
 
     def init(self, params: List[torch.Tensor]) -> Dict:
-        zeros = lambda: [torch.zeros_like(p, dtype=torch.float32)
-                         for p in params]
+        # In the parameter's dtype, as optax's (mu_dtype None).
+        zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
         if self.cfg.name == "sgd":
             return {"count": 0, "trace": zeros()}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
@@ -156,6 +162,53 @@ class Optimizer:
             if decay and (p.ndim >= 2 or not cfg.decay_exclude_1d):
                 u.add_(p, alpha=decay)
             p.add_(u, alpha=-lr)
+
+
+    def state_tree(self, state: Dict,
+                   nest: Callable[[List[torch.Tensor]], dict]) -> Seq:
+        """``state`` in the form ``to_state_dict`` gives the reference's
+        optax state of this chain (read off ``to_state_dict(trainer.init()
+        .opt_state)`` for each chain): an optax chain is a tuple,
+        ``clip_by_global_norm``'s state and a constant learning rate's are
+        ``EmptyState`` ({}), adam's is ``ScaleByAdamState(count, mu, nu)``,
+        sgd's momentum ``TraceState(trace)``, a schedule's
+        ``ScaleByScheduleState(count)``, and adamw's decay under the 1-D
+        mask ``MaskedState(inner_state=EmptyState)``:
+
+            clip?  ({}, core)  else  (core,)
+            adamw  (adam, {} | {inner_state: {}}, sched)
+            adam   (adam, sched)
+            sgd    ({trace}, sched)
+
+        ``nest`` maps a list of per-parameter tensors to their flax tree.
+        The counts are fresh 0-d int32 tensors (:meth:`load_count` reads
+        them back); the moments are the state's own tensors."""
+        cfg = self.cfg
+        count = lambda: torch.tensor(state["count"], dtype=torch.int32)  # noqa: E731
+        sched = Struct(count=count()) if callable(self.schedule) else {}
+        if cfg.name == "sgd":
+            core = Seq(Struct(trace=nest(state["trace"])), sched)
+        else:
+            adam = Struct(count=count(), mu=nest(state["mu"]),
+                          nu=nest(state["nu"]))
+            if cfg.name == "adamw":
+                masked = cfg.weight_decay > 0 and cfg.decay_exclude_1d
+                core = Seq(adam, Struct(inner_state={}) if masked else {},
+                           sched)
+            else:
+                core = Seq(adam, sched)
+        return Seq({}, core) if cfg.grad_clip_norm > 0 else Seq(core)
+
+    @staticmethod
+    def load_count(state: Dict, tree: Seq) -> None:
+        """Set ``state["count"]`` from the counts of a restored
+        :meth:`state_tree`; they must agree (one count steps them all)."""
+        counts = {int(v) for p, v in leaves_with_paths(tree)
+                  if p.endswith(".count")}
+        if len(counts) > 1:
+            raise ValueError(f"optimizer counts disagree: {sorted(counts)}")
+        if counts:
+            state["count"] = counts.pop()
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:

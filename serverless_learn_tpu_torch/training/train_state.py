@@ -6,6 +6,11 @@ donates it, so the old state's buffers are reused for the new one. Here
 the step updates this object in place (the model's parameters and the
 optimizer's moments) and returns it: one copy of the state lives on the
 card, which is what donation buys the reference.
+
+:func:`state_tree` gives the state in the form flax's ``to_state_dict``
+gives the reference's ``TrainState`` (``{"step", "params", "opt_state",
+"model_state"}``), over the live tensors: a checkpoint writes it, and a
+restore copies into it leaf by leaf, in place (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +18,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict
 
+import torch
 from torch import nn
+
+from serverless_learn_tpu_torch.bridge import to_flax
+from serverless_learn_tpu_torch.utils.serialization import Struct
 
 
 @dataclass
@@ -21,3 +30,34 @@ class TrainState:
     step: int  # optimizer steps taken
     model: nn.Module  # parameters live here
     opt_state: Dict[str, Any]  # the optimizer's count and moments
+
+
+def state_tree(state: TrainState, optimizer, cfg) -> Struct:
+    """``to_state_dict`` of the reference's ``TrainState`` for this state:
+    ``step`` a 0-d int32 tensor, ``params`` the flax tree of the model's
+    parameters and ``opt_state`` the optax layout of ``optimizer``'s state
+    (``Optimizer.state_tree``), both views of the live tensors in flax's
+    shapes (``bridge.to_flax``), and ``model_state`` {} (the port's models
+    keep no non-trainable collections). ``cfg`` is the model's
+    ``TransformerConfig``."""
+    named = dict(state.model.named_parameters())
+    trainable = [n for n, p in named.items() if p.requires_grad]
+
+    def nest(tensors):
+        return to_flax(dict(zip(trainable, tensors)), cfg)
+
+    return Struct(step=torch.tensor(state.step, dtype=torch.int32),
+                  params=to_flax({n: p.detach() for n, p in named.items()},
+                                 cfg),
+                  opt_state=optimizer.state_tree(state.opt_state, nest),
+                  model_state={})
+
+
+def load_tree(state: TrainState, tree: Struct, optimizer) -> TrainState:
+    """After a restore wrote into :func:`state_tree`'s tensors, take its
+    step and optimizer count (which a constant-rate sgd does not keep: its
+    count is the step)."""
+    state.step = int(tree["step"])
+    state.opt_state["count"] = state.step
+    optimizer.load_count(state.opt_state, tree["opt_state"])
+    return state

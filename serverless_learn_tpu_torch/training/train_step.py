@@ -33,7 +33,9 @@ from serverless_learn_tpu_torch.models.transformer import (Transformer,
 from serverless_learn_tpu_torch.training.optimizer import (
     Optimizer, global_norm, lr_at, make_optimizer)
 from serverless_learn_tpu_torch.training.partition import set_trainable
-from serverless_learn_tpu_torch.training.train_state import TrainState
+from serverless_learn_tpu_torch.training.train_state import (TrainState,
+                                                             load_tree,
+                                                             state_tree)
 
 
 def trainable_params(model: torch.nn.Module) -> List[torch.Tensor]:
@@ -124,6 +126,17 @@ class Trainer:
             for p in params:
                 p.grad.div_(w_sum)
         return loss_sum / w_sum, {k: v / w_sum for k, v in m_sum.items()}
+
+    def state_tree(self, state: TrainState):
+        """``state`` in the reference's ``to_state_dict`` form, over its
+        live tensors (``train_state.state_tree``): what a checkpoint saves
+        and a restore writes into."""
+        return state_tree(state, self.optimizer, self.bundle.cfg)
+
+    def load_tree(self, state: TrainState, tree) -> TrainState:
+        """Take the step and the optimizer count of a restored
+        :meth:`state_tree` (its tensors were written in place)."""
+        return load_tree(state, tree, self.optimizer)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, Any]:

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor flax nor
-anything of the JAX package, so it runs where JAX is not installed."""
+anything of the JAX package, nor msgpack (it carries its own codec of
+flax's checkpoint form), so it runs where none of them is installed."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "serverless_learn_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "serverless_learn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack",
+             "serverless_learn_tpu"}
 
 
 def _sources():

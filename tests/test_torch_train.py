@@ -181,13 +181,17 @@ def test_unported_options_raise():
 # A value away from the default for every field the port keeps but does not
 # run.
 UNPORTED_VALUES = {
-    ("train", "checkpoint_every"): 200, ("train", "zero_stage"): 1,
-    ("train", "eval_every"): 5, ("train", "eval_steps"): 3,
+    ("train", "zero_stage"): 1, ("train", "eval_every"): 5,
     ("train", "donate_state"): False,
     ("data", "shard_server_addr"): "shards:50053",
     ("data", "dataset"): "sft_corpus", ("data", "eval_dataset"): "held_out",
     ("data", "augment"): True, ("data", "mask_rate"): 0.3,
     ("data", "learnable"): True,
+    ("checkpoint", "emergency_save"): False,
+    ("checkpoint", "emergency_min_interval_s"): 60.0,
+    ("checkpoint", "cache_dir"): "ckpt-cache", ("checkpoint", "peers"): "a:1",
+    ("checkpoint", "replica_fanout"): 3, ("checkpoint", "serve_cache"): True,
+    ("checkpoint", "serve_cache_port"): 50070,
 }
 
 
@@ -244,6 +248,6 @@ def test_train_cli_on_cpu():
     bad = subprocess.run(
         [sys.executable, "-m", "serverless_learn_tpu_torch", "train",
          "--model", "llama_tiny", "--steps", "1", "--device", "cpu",
-         "--checkpoint-dir", "/nonexistent"],
+         "--checkpoint-store", "localhost:50053"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0 and "not yet ported" in bad.stderr
