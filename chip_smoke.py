@@ -781,6 +781,39 @@ def k6_calls(kern) -> int:
                if "quant_decode" in e.name or "quant_prefill" in e.name)
 
 
+def trace_replays(torch, eng, replays, per_fwd):
+    """What a continuous engine's graph replays launched, from the card's
+    trace: one replayed step of each bucket in ``replays`` ({(nb, W):
+    replays}), its table all sentinel (the scratch page only), must hold
+    one int8 matmul call for each projection, ``per_fwd``; a run's
+    replayed calls are its replays times those. Each step's trace also
+    gives its device time. Returns ({bucket: record}, replayed calls,
+    faults)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    traced, faults = {}, []
+    for key in sorted(replays):
+        chunk = eng._chunks[key]
+        chunk.table.fill_(eng._pool.sentinel)
+        chunk.step.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            chunk.graph.replay()
+            torch.cuda.synchronize()
+        span, _, _, _, kern = device_time(torch, prof, "quant_")
+        traced["nb%d_w%d" % key] = dict(
+            replays=replays[key], k6_calls_per_step=k6_calls(kern),
+            device_kernels_per_step=len(kern), device_ms_per_step=span / 1e3)
+        if k6_calls(kern) != per_fwd:
+            faults.append(f"a replayed step of bucket {key} ran "
+                          f"{k6_calls(kern)} int8 matmul calls, not "
+                          f"{per_fwd}")
+    replayed = sum(t["replays"] * t["k6_calls_per_step"]
+                   for t in traced.values())
+    return traced, replayed, faults
+
+
 def serve_continuous(torch, card, model, static_replies, static_step):
     """Phase 9c: phase 9's llama_8b int8 served through GenerationServer's
     defaults: the continuous engine over the paged pool (block 16,
@@ -994,31 +1027,8 @@ def serve_continuous(torch, card, model, static_replies, static_step):
         faults.append("a decode chunk replayed from its graph differs from "
                       "the eager chunk")
 
-    # What the replays launched, from the card's trace: one replayed step
-    # of each bucket that replayed in the main run, its table all sentinel
-    # (the scratch page only), must hold one int8 matmul call for each
-    # projection; the main run's replayed calls are its replays times
-    # those. Each step's trace also gives its device time.
-    traced = {}
-    for key in sorted(replays):
-        chunk = eng._chunks[key]
-        chunk.table.fill_(eng._pool.sentinel)
-        chunk.step.zero_()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            chunk.graph.replay()
-            torch.cuda.synchronize()
-        span, _, _, _, kern = device_time(torch, prof, "quant_")
-        traced["nb%d_w%d" % key] = dict(
-            replays=replays[key], k6_calls_per_step=k6_calls(kern),
-            device_kernels_per_step=len(kern), device_ms_per_step=span / 1e3)
-        if k6_calls(kern) != per_fwd:
-            faults.append(f"a replayed step of bucket {key} ran "
-                          f"{k6_calls(kern)} int8 matmul calls, not "
-                          f"{per_fwd}")
-    replayed = sum(t["replays"] * t["k6_calls_per_step"]
-                   for t in traced.values())
+    traced, replayed, bad = trace_replays(torch, eng, replays, per_fwd)
+    faults += bad
 
     # Decode time per token (one decode step, a token for every live row):
     # the host clock between the harvests of two decode chunks dispatched
@@ -1985,6 +1995,7 @@ CKPT_TRAIN = ["--model", "llama_1b", "--batch-size", str(TRAIN_B),
               "--seq-len", str(TRAIN_T), "--set",
               "optimizer.grad_clip_norm=1.0"]
 CKPT_FREE_BYTES = 40e9  # two 18 GB blobs on disk while GC catches up
+CRC_SAMPLE = 2 << 30  # bytes of the blob whose CRC phase 10b times twice
 
 
 def checkpoint_dir():
@@ -2100,15 +2111,24 @@ def checkpoint_path(torch, card):
     e. ``serve`` (the continuous engine) answers two requests, each reply
        held to greedy decode as in phase 9c.
 
-    The directory goes at the end. Returns the phase's kernel launches."""
+    Every kernel's launch count is zeroed before each CLI command and read
+    after it; the launches that check or time a result against the CLI's
+    (the live model's eval, the self-draft, the timed generations) fall
+    outside those windows. A graph replay passes no wrapper: the serve
+    engine's replays are counted from one traced step of each bucket.
+
+    The directory goes at the end. Returns the phase's kernel launches:
+    the wrappers' counts ({name: n}) and the traced replays of K6."""
     import os
     import shutil
+    import zlib
 
     from serverless_learn_tpu_torch import cli
     from serverless_learn_tpu_torch.inference import server as server_mod
     from serverless_learn_tpu_torch.inference import speculative
     from serverless_learn_tpu_torch.inference.generate import generate
     from serverless_learn_tpu_torch.inference.server import request
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
     from serverless_learn_tpu_torch.ops import flash_attention as fa
     from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
     from serverless_learn_tpu_torch.training import checkpoint as ckpt_mod
@@ -2120,6 +2140,27 @@ def checkpoint_path(torch, card):
     t_phase = time.perf_counter()
     root = checkpoint_dir()
     kept, committed = {}, []
+    wrappers = {k.__name__: k for k in (
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ce.cross_entropy_fwd,
+        ce.cross_entropy_bwd, quant_matmul)}
+    total = dict.fromkeys(wrappers, 0)
+
+    def zero():
+        for k in wrappers.values():
+            k.launches = 0
+
+    def read():
+        """The launches since ``zero``, added to the phase's total."""
+        n = {name: k.launches for name, k in wrappers.items()}
+        for name, v in n.items():
+            total[name] += v
+        return n
+
+    def expect(what, n, **want):
+        """Fails unless ``n`` has ``want``'s counts, and 0 elsewhere."""
+        want = {name: want.get(name, 0) for name in n}
+        if n != want:
+            fail(f"{what} launched {n}, expected {want}")
     try:
         # -- a. train, saving asynchronously ------------------------------
         def keep_run(real):
@@ -2140,9 +2181,7 @@ def checkpoint_path(torch, card):
                     committed.append(step)
             return Kept
 
-        flash = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
-        for k in flash:
-            k.launches = 0
+        zero()
         t0 = time.perf_counter()
         with Patched((loop, "run_training", keep_run),
                      (ckpt_mod, "Checkpointer", keep_ckpt)):
@@ -2150,7 +2189,7 @@ def checkpoint_path(torch, card):
                             "--checkpoint-every", "2", "--set",
                             "checkpoint.keep=1", "--checkpoint-dir", root])
         train_s = time.perf_counter() - t0
-        train_launches = {k.__name__: k.launches for k in flash}
+        train_launches = read()
         trainer, state, cfg = kept["trainer"], kept["state"], kept["cfg"]
         n_params = sum(p.numel() for p in state.model.parameters())
         listing = sorted(os.listdir(os.path.join(root, "ckpt")))
@@ -2179,8 +2218,9 @@ def checkpoint_path(torch, card):
         if os.path.getsize(blob) < 12 * n_params:
             fail(f"blob of {os.path.getsize(blob)} B holds less than the "
                  f"state's {12 * n_params} B")
-        if any(n != 3 * 16 for n in train_launches.values()):
-            fail(f"train launched {train_launches}, expected 48 each")
+        # 3 steps x 16 layers; fused_ce is off for llama_1b, so no CE.
+        expect("train", train_launches, flash_fwd=48, flash_dq=48,
+               flash_dkv=48)
 
         # -- b. restore in place, bit for bit -----------------------------
         fresh = build_trainer(cfg, "cuda")
@@ -2210,6 +2250,20 @@ def checkpoint_path(torch, card):
         params_bytes = sum(t.numel() * t.element_size()
                            for _, t in leaves_with_paths(params))
         del params
+        # The blob's first CRC_SAMPLE bytes summed by one zlib.crc32 call
+        # and by the checkpointer's CRC (parts on threads, combined): what
+        # the threads save the restore's CRC.
+        with open(blob, "rb") as f:
+            sample = f.read(CRC_SAMPLE)
+        t0 = time.perf_counter()
+        serial = zlib.crc32(sample) & 0xFFFFFFFF
+        serial_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts = ckpt_mod._crc(sample)
+        parts_s = time.perf_counter() - t0
+        if serial != parts:
+            fail(f"CRC in parts {parts:#010x} != zlib's {serial:#010x}")
+        del sample
         emit("checkpoint_restore", card=card, leaves=len(live),
              bit_identical=True, restore_s=restore_s,
              restore_gb_per_s=gbps(restore["restore_bytes"], restore_s),
@@ -2218,6 +2272,9 @@ def checkpoint_path(torch, card):
              restore_params_host_s=params_s,
              params_bytes=params_bytes,
              params_gb_per_s=gbps(params_bytes, params_s),
+             crc_sample_bytes=CRC_SAMPLE,
+             crc_serial_gb_per_s=gbps(CRC_SAMPLE, serial_s),
+             crc_parts_gb_per_s=gbps(CRC_SAMPLE, parts_s),
              note="restore_params_host reads and checks the whole blob")
         del live
 
@@ -2231,20 +2288,21 @@ def checkpoint_path(torch, card):
                 return out
             return run
 
-        fa.flash_fwd.launches = 0
+        zero()
         t0 = time.perf_counter()
         with Patched((loop, "run_eval", keep_eval)):
             rep = run_cli(["eval", *CKPT_TRAIN, "--checkpoint-dir", root,
                            "--eval-steps", "2"])
         eval_s = time.perf_counter() - t0
-        eval_k1 = fa.flash_fwd.launches
+        eval_launches = read()
+        eval_k1 = eval_launches["flash_fwd"]
         mine = loop.run_eval(cfg, trainer, state, num_batches=2)
         emit("checkpoint_eval", card=card, checkpoint_step=
              rep["checkpoint_step"], eval=evals, live_eval=mine,
-             eval_command_s=eval_s, flash_fwd_launches=eval_k1)
-        if rep["checkpoint_step"] != 3 or eval_k1 != 2 * 16:
-            fail(f"eval: step {rep['checkpoint_step']}, K1 launched "
-                 f"{eval_k1} times (expected 32)")
+             eval_command_s=eval_s, launches=eval_launches)
+        if rep["checkpoint_step"] != 3:
+            fail(f"eval: step {rep['checkpoint_step']}, expected 3")
+        expect("eval", eval_launches, flash_fwd=2 * 16)
         if evals != mine:
             fail(f"eval from the checkpoint {evals} != the live model's "
                  f"{mine}")
@@ -2287,16 +2345,17 @@ def checkpoint_path(torch, card):
                                 ("prefix_draft", ["--draft-layers",
                                                   str(DRAFT_LAYERS),
                                                   "--spec-k", str(SPEC_K)])):
-                quant_matmul.launches = 0
+                zero()
                 counts.update(target=0, draft=0)
                 t0 = time.perf_counter()
                 replies[name] = run_cli(gen + extra)
-                k6[name] = dict(launches=quant_matmul.launches, **counts,
+                n = read()
+                k6[name] = dict(launches=n["quant_matmul"], **counts,
                                 command_s=time.perf_counter() - t0)
                 want = per_fwd * counts["target"] + per_draft * counts["draft"]
-                if counts["target"] == 0 or quant_matmul.launches != want:
-                    fail(f"generate {name}: {quant_matmul.launches} K6 "
-                         f"launches for {counts}, expected {want}")
+                if counts["target"] == 0:
+                    fail(f"generate {name}: no forward of the target")
+                expect(f"generate {name} ({counts})", n, quant_matmul=want)
         gen_rows = sorted(rows)
         model = models[-1]
         prompt = replies["greedy"]["prompt"][0]
@@ -2352,8 +2411,9 @@ def checkpoint_path(torch, card):
              int8_forward_bytes=fwd_bytes,
              bound_ms_per_forward=fwd_bytes / HBM_BYTES_PER_S * 1e3,
              loop="host loop, one sync a round")
-        if self_stats["acceptance"] < 0.8:
-            fail(f"self-draft accepted {self_stats['acceptance']:.3f}")
+        if self_stats["acceptance"] != 1.0:
+            fail(f"self-draft accepted {self_stats['acceptance']:.3f}, "
+                 f"not all")
         del model, draft, models[:], p, self_out
         torch.cuda.empty_cache()
 
@@ -2367,7 +2427,7 @@ def checkpoint_path(torch, card):
                     servers.append(self)
             return Kept
 
-        quant_matmul.launches = 0
+        zero()
         counts.update(target=0, draft=0)
         rows.clear()
         g = torch.Generator().manual_seed(10)
@@ -2404,7 +2464,13 @@ def checkpoint_path(torch, card):
             finally:
                 servers[0].stop()
                 th.join(timeout=120)
-        serve_launches, serve_fwd = quant_matmul.launches, counts["target"]
+        serve_n, serve_fwd = read(), counts["target"]
+        serve_launches = serve_n["quant_matmul"]
+        eng = servers[0].engine
+        replays = {key: c.replays for key, c in eng._chunks.items()
+                   if c.replays}
+        # Replayed steps pass no forward hook: their rows are the buckets'.
+        rows |= {nb for nb, _ in replays}
         model = models[-1]
         faults, holds = [], []
         for rep in served:
@@ -2424,9 +2490,14 @@ def checkpoint_path(torch, card):
             if worst > tol:
                 faults.append(f"a served token lies {worst:.4f} below "
                               f"greedy's largest logit (tol {tol:.4f})")
-        if serve_fwd == 0 or serve_launches != per_fwd * serve_fwd:
-            faults.append(f"{serve_launches} eager K6 launches for "
-                          f"{serve_fwd} forwards")
+        if serve_fwd == 0 or serve_n != dict(
+                dict.fromkeys(serve_n, 0), quant_matmul=per_fwd * serve_fwd):
+            faults.append(f"{serve_n} eager launches for {serve_fwd} "
+                          f"forwards, expected {per_fwd} K6 a forward")
+        if not replays:
+            faults.append("serve replayed no decode chunk from a CUDA graph")
+        traced, replayed, bad = trace_replays(torch, eng, replays, per_fwd)
+        faults += bad
         all_rows = set(gen_rows) | rows
         if not all_rows <= set(CHECK_ROWS_1B):
             faults.append(f"K6 served rows {sorted(all_rows)}, phase 3 "
@@ -2435,20 +2506,18 @@ def checkpoint_path(torch, card):
              requests=len(served), serve_s=serve_s,
              new_tokens_per_s=2 * GEN_NEW / serve_s,
              eager_k6_launches=serve_launches, eager_forwards=serve_fwd,
+             graph_replays=sum(replays.values()),
+             k6_launches_replayed_traced=replayed, replayed_buckets=traced,
              rows_served=sorted(rows), held_to_greedy=holds,
              checkpoint_step=3)
         if faults:
             fail("phase 10: " + "; ".join(faults))
-        del model, models[:]
+        del model, models[:], eng, servers[:]
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("checkpoint_phase", card=card, seconds=time.perf_counter() - t_phase)
-    return {"flash_fwd": train_launches["flash_fwd"] + eval_k1,
-            "flash_dq": train_launches["flash_dq"],
-            "flash_dkv": train_launches["flash_dkv"],
-            "quant_matmul": sum(v["launches"] for v in k6.values())
-            + serve_launches}
+    return total, replayed
 
 
 # The tensor-core kernels of each source, as parts of their mangled names
@@ -2554,7 +2623,7 @@ def main() -> int:
     del model, static_replies
     gc.collect()
     torch.cuda.empty_cache()
-    phase10 = checkpoint_path(torch, card)
+    phase10, phase10_replayed = checkpoint_path(torch, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -2563,6 +2632,7 @@ def main() -> int:
         "launches": launches, "launches_graph_replayed": replayed,
         "launches_static_engine": static_launches,
         "launches_checkpoint_path": phase10["quant_matmul"],
+        "launches_graph_replayed_checkpoint_path": phase10_replayed,
         "max_abs_err": max_err,
         "ms": fwd["ms"], "graph_ms": fwd["graph_ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2596,7 +2666,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "serverless_learn_tpu_torch/csrc/cross_entropy.cu",
             "replaces": where, "launches": lora_launches[name],
-            "launches_checkpoint_path": 0,
+            "launches_checkpoint_path": phase10[name],
             "max_abs_err": ce_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -443,17 +443,10 @@ class Checkpointer:
                        if s not in quarantined), reverse=True)
 
     def latest_step(self) -> Optional[int]:
-        """The newest restorable step. ``LATEST`` is advisory: when it is
-        missing, unreadable, stale or points at a quarantined step, the
-        listing wins, and it never hides a newer committed step."""
+        """The newest restorable step, from the listing. ``LATEST`` is
+        written for the JAX package's readers and never read here: a
+        missing, stale or quarantined pointer cannot hide a step."""
         cands = self.candidate_steps()
-        try:
-            step = int(json.loads(bytes(self.store.get(f"{self.name}/LATEST")))
-                       ["step"])
-        except (OSError, ValueError, KeyError, TypeError):
-            step = None
-        if step is not None and step in cands:
-            return max(step, cands[0])
         return cands[0] if cands else None
 
     def restore(self, template, step: Optional[int] = None):
