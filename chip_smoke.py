@@ -17,12 +17,20 @@ any failing phase exits non-zero:
    threshold and at every row count phase 9 serves (decode batches and
    prefills), at llama_1b's five projection shapes at every row count
    phase 10 serves, plus a ragged contraction that is not a multiple of
-   the split; runs every case twice and fails unless the two repeat bit for
-   bit (the split-K partials are added in a fixed order, no atomics);
+   the split, and at phase 11's 4,096 rows (QLoRA's training forward;
+   lm_head there also with an f32 output of 2.1 GB, past 2^31 bytes); runs
+   every case twice and fails unless the two repeat bit for bit (the
+   split-K partials are added in a fixed order, no atomics); holds the
+   gradient of ``QuantMatmul`` (K6 forward, the converted weight's product
+   for dx) against the plain version's at 4,096 rows at every llama_8b
+   shape, each element within its bf16 rounding noise in quadrature, and
+   shows that a dx 5 % off fails that limit;
 4. times the kernel at the decode shapes (8 rows) and at a 512-row
    prefill beside its bound, its plain version, the convert-then-matmul
    form and ``torch._weight_int8pack_mm``: eagerly, as the model calls it
    (host time included), and replayed from a CUDA graph (device time);
+   and at 4,096 rows (one QLoRA forward) eagerly beside its bound, the
+   plain version and the convert-then-matmul form;
 5. runs llama_tiny int8 on the card (kernel) and on the CPU (plain) from the
    same weights and compares logits and greedy tokens;
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
@@ -96,9 +104,27 @@ any failing phase exits non-zero:
     answers two requests, held to greedy decode. K6 must launch 113 times
     a target forward (29 a 4-layer draft forward) and only at row counts
     phase 3 checked at llama_1b's five shapes;
-11. prints one JSON line of kernels (with each kernel's launches on phase
-    10's path), then the card's name and power limit, then the result
-    line ``{"ok": true, "device": {...}}``.
+11. QLoRA, the JAX package's single-card 8B fine-tuning rung: full-depth
+    llama_8b with an int8 frozen base filled on the card in place, bf16
+    rank-16 adapters on q/v, remat, batch 4 x 1024, adamw at 2e-4 (11a: 2
+    warm-up and 5 timed steps through ``run_training``; the loss finite,
+    449 K6 launches a step, dense attention and no flash or CE kernel, the
+    base unchanged, a bf16 optimizer state of the adapters alone; step
+    time, tokens/s, MFU with the base counted, peak memory); 11b: one
+    batch's adapter gradients through K6 against the plain version on the
+    card, within twice the distance of the plain version summed in two
+    halves, every one non-zero and repeating bit for bit (a gross-fault
+    check: through 32 random layers that distance is tens of percent);
+    then layer 0 alone at full width, its input and adapter gradients
+    held the same way, where the limit is tight enough that a dx 5 % off
+    must fail it; 11c: two steps each of adafactor,
+    lion and rmsprop from the same state; 11d: the state saved with the
+    checkpointer and restored in place into a fresh trainer, bit for bit;
+    11e: one step profiled (K6, the dx products, the rest of cuBLAS, dense
+    attention, other kernels, idle share);
+12. prints one JSON line of kernels (with each kernel's launches on phase
+    10's path, and K6's on phase 11's), then the card's name and power
+    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Every time and memory figure is printed beside the card's name and power
 limit. Exits non-zero without printing the result line where there is no
@@ -111,6 +137,12 @@ forward and decode steps of llama_8b int8 with their profiles) on the
 ``serverless_learn_tpu_torch`` next to this file, and prints no result
 line: copied into a checkout of another commit, it times that commit's
 kernel with the same yardsticks.
+
+    python3 chip_smoke.py --train-only
+
+runs only phase 8b and phase 10's ``train`` command (5 steps, no
+checkpoint) the same way: llama_1b's training step with f32 parameters
+and adamw, for an A/B of the step between commits.
 """
 
 from __future__ import annotations
@@ -149,6 +181,10 @@ CHECK_ROWS = (1, 2, 3, 4, 8, 9, 16, 17, 8 * 37) + tuple(
     # and the prefills of its solo static references (SHARED + 5 and
     # LONG_PROMPT rows)
     32, 64, 105, 1500)
+# Phase 11's QLoRA step: every projection at batch 4 x 1024 rows.
+QLORA_BATCH, QLORA_SEQ = 4, 1024
+QLORA_ROWS = QLORA_BATCH * QLORA_SEQ
+CHECK_ROWS += (QLORA_ROWS,)
 DECODE_ROWS = 8
 PREFILL_ROWS = SERVE_BATCH * PROMPT_LEN  # 512: phase 9's largest prefill
 DECODE_STEPS = 40  # phase 9b's timed decode steps
@@ -238,6 +274,9 @@ def check_kernel(torch, qm, card):
     # f32 instantiations that llama_tiny (phase 5) runs.
     cases.append((*RAGGED_I, torch.bfloat16, (1, 8, 9, 16, 17, PREFILL_ROWS)))
     cases.append((100, 77, torch.float32, (1, 2, 3, 8, 9, 17, 37)))
+    # lm_head at QLoRA's rows with an f32 output: 2.1 GB, past 2^31 bytes,
+    # so every row-times-column offset must be 64-bit.
+    cases.append((4096, 128256, torch.float32, (QLORA_ROWS,)))
     cases.append((100, 77, torch.bfloat16, (3, 16, 37)))
     cases.append((256, 384, torch.float32, (1, 2, 4, 32)))
     for I, O, dt, rows in cases:
@@ -297,15 +336,83 @@ def check_case(torch, qm, g, R, wq, scale, dt, worst):
                   max(r, err.max().item() / ref.max().item()), n + 1)
 
 
+def dx_limit(torch, dy, wq, scale, dx_ref):
+    """Per element, how far ``QuantMatmul``'s dx may lie from the plain
+    version's: 6 * 2^-8 * sqrt(sum_o t_o^2) + 2^-7 |dx_ref|, t_o = dy scale
+    wq the terms. The Function rounds each term's scale and g = dy * scale
+    to bf16, two independent errors within +-2^-8 of the term, so their sum
+    is near-normal with sigma = 0.82 * 2^-8 * sqrt(sum t^2): 6 * 2^-8 is
+    7.3 sigma, passed by a 59 M-element output but once in ~10^5 runs.
+    Each side then rounds its output to bf16 (2^-8 of |dx| each)."""
+    t2 = (dy.float() * scale).square() @ wq.to(torch.bfloat16).float(
+        ).square().t()
+    return 6 * 2 ** -8 * t2.sqrt() + 2 ** -7 * dx_ref.abs()
+
+
+def check_dx(torch, qm, card):
+    """Phase 3, the gradient: ``QuantMatmul`` (K6 forward, the converted
+    weight's product for dx) against the plain version's autograd gradient
+    at QLoRA's rows, at each llama_8b projection shape, within
+    :func:`dx_limit`; fails too unless a dx 5 % off would fail it. Returns
+    the worst error over its limit."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst, off_least = 0.0, math.inf
+    for I, O in LLAMA8B_SHAPES:
+        wq = torch.randint(-127, 128, (I, O), generator=g, device="cuda",
+                           dtype=torch.int8)
+        scale = (torch.rand(O, generator=g, device="cuda") + 0.5) * 4e-4
+        x = torch.randn(QLORA_BATCH, QLORA_SEQ, I, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        dy = torch.randn(QLORA_BATCH, QLORA_SEQ, O, generator=g,
+                         device="cuda").to(torch.bfloat16)
+        xk = x.clone().requires_grad_()
+        before = qm.quant_matmul.launches
+        qm.QuantMatmul.apply(xk, wq, scale).backward(dy)
+        if qm.quant_matmul.launches != before + 1:
+            fail("QuantMatmul's forward did not launch K6 once")
+        xr = x.clone().requires_grad_()
+        qm.quant_matmul_reference(xr, wq, scale).backward(dy)
+        ref = xr.grad.float()
+        limit = dx_limit(torch, dy, wq, scale, ref)
+        got = xk.grad.float()
+        ratio = ((got - ref).abs() / limit.clamp_min(1e-30)).max().item()
+        # The limit's power: a dx 5 % too large must fail it.
+        off = ((1.05 * got - ref).abs() / limit.clamp_min(1e-30)
+               ).max().item()
+        if not math.isfinite(ratio) or ratio > 1:
+            fail(f"QuantMatmul's dx disagrees with the plain gradient at "
+                 f"I={I} O={O}: worst error / limit {ratio:.3g}")
+        if not off > 1:
+            fail(f"the dx limit at I={I} O={O} passes a dx 5 % off "
+                 f"(worst error / limit {off:.3g})")
+        worst, off_least = max(worst, ratio), min(off_least, off)
+        del wq, x, dy, xk, xr, ref, limit, got
+    torch.cuda.empty_cache()
+    emit("check_dx", card=card, rows=QLORA_ROWS,
+         shapes=[list(k) for k in LLAMA8B_SHAPES],
+         worst_err_over_limit=worst,
+         dx_5pct_off_least_worst_over_limit=off_least,
+         tolerance="|dx - plain dx| <= 6 * 2^-8 * sqrt((dy scale)^2 @ "
+                   "(wq^2)^T) + 2^-7 |plain dx|: the scale and g = dy "
+                   "scale rounded to bf16 (in quadrature over the "
+                   "contraction, 7.3 sigma), both outputs rounded to bf16")
+    return worst
+
+
 def time_kernel(torch, qm, card, R=DECODE_ROWS):
     """Phase 4: the llama_8b projections at R rows (a decode forward at 8,
-    a prefill at 512); weights cycled over copies worth >= 256 MB so each
-    launch reads them from device memory, not L2. The kernel runs eagerly,
-    as the model calls it (``ms``: where a launch's device time is shorter
-    than the wrapper's host time, the host's), and replayed from a CUDA
-    graph (``graph_ms``: device time alone); the plain version and the two
-    library forms, slower by far, run eagerly."""
+    a prefill at 512, QLoRA's training forward at 4,096); weights cycled
+    over copies worth >= 256 MB so each launch reads them from device
+    memory, not L2. The kernel runs eagerly, as the model calls it (``ms``:
+    where a launch's device time is shorter than the wrapper's host time,
+    the host's), and replayed from a CUDA graph (``graph_ms``: device time
+    alone); the plain version and the two library forms, slower by far,
+    run eagerly. At QLoRA's rows a launch takes milliseconds, so the host's
+    time does not show: no graph, fewer runs, and of the library forms only
+    convert-then-matmul (``torch._weight_int8pack_mm`` would take minutes
+    there)."""
     g = torch.Generator(device="cuda").manual_seed(1)
+    qlora = R == QLORA_ROWS
     rows = []
     for (I, O), (sites, per_fwd) in LLAMA8B_SHAPES.items():
         n = max(2, math.ceil(256e6 / (I * O)))
@@ -313,26 +420,31 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
         wqs = [torch.randint(-127, 128, (I, O), generator=g, device="cuda",
                              dtype=torch.int8) for _ in range(n)]
         scale = torch.rand(O, generator=g, device="cuda") * 4e-4
-        iters = max(20, 2 * n)
+        iters = 2 * n if qlora else max(20, 2 * n)
+        reps = 3 if qlora else 5
         ms = time_ms(torch, lambda i: qm.quant_matmul(x, wqs[i % n], scale),
-                     iters, reps=5)
-        graph_ms = time_ms(torch, lambda i: qm.quant_matmul(
+                     iters, reps=reps)
+        graph_ms = None if qlora else time_ms(torch, lambda i: qm.quant_matmul(
             x, wqs[i % n], scale), iters, graph=True, reps=5)
         plain = time_ms(torch, lambda i: qm.quant_matmul_reference(
-            x, wqs[i % n], scale), 10, warmup=1)
+            x, wqs[i % n], scale), 2 if qlora else 10, warmup=1)
+        # At QLoRA's rows the median of 3 runs, as K6's: one run of it
+        # once read 15x its usual time at gate/up.
         conv = time_ms(torch, lambda i: (x @ wqs[i % n].to(torch.bfloat16))
-                       * scale, 10, warmup=1)
-        lib = None
-        try:
-            wts = [w.t().contiguous() for w in wqs]
-            s16 = scale.to(torch.bfloat16)
-            lib = time_ms(torch, lambda i: torch._weight_int8pack_mm(
-                x, wts[i % n], s16), iters)
-            del wts
-        except (RuntimeError, NotImplementedError, AttributeError) as e:
-            lib_error = f"{type(e).__name__}: {str(e)[:120]}"
+                       * scale, iters if qlora else 10, warmup=1,
+                       reps=reps if qlora else 1)
+        lib, lib_error = None, None
+        if qlora:
+            lib_error = "not timed at QLoRA's rows"
         else:
-            lib_error = None
+            try:
+                wts = [w.t().contiguous() for w in wqs]
+                s16 = scale.to(torch.bfloat16)
+                lib = time_ms(torch, lambda i: torch._weight_int8pack_mm(
+                    x, wts[i % n], s16), iters)
+                del wts
+            except (RuntimeError, NotImplementedError, AttributeError) as e:
+                lib_error = f"{type(e).__name__}: {str(e)[:120]}"
         b, by = bound(R, I, O)
         rows.append(dict(I=I, O=O, R=R, sites=sites, per_forward=per_fwd,
                          ms=ms, graph_ms=graph_ms,
@@ -342,18 +454,19 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
         emit("time", card=card, **rows[-1])
         del wqs
         torch.cuda.empty_cache()
-    total = lambda key: sum(r[key] * r["per_forward"] for r in rows)
-    lib_total = (None if any(r["library_ms"] is None for r in rows)
-                 else total("library_ms"))
+    total = lambda key: (  # noqa: E731
+        None if any(r[key] is None for r in rows)
+        else sum(r[key] * r["per_forward"] for r in rows))
     fwd = dict(ms=total("ms"), graph_ms=total("graph_ms"),
                plain_ms=total("plain_ms"),
-               bound_ms=total("bound_ms"), library_ms=lib_total,
+               bound_ms=total("bound_ms"), library_ms=total("library_ms"),
                convert_matmul_ms=total("convert_matmul_ms"),
                bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                          else "operations"))
-    emit("time_per_decode_forward" if R == DECODE_ROWS
-         else "time_per_prefill_forward", card=card, rows=R,
-         launches=sum(r["per_forward"] for r in rows), **fwd,
+    emit("time_per_qlora_forward" if qlora else "time_per_decode_forward"
+         if R == DECODE_ROWS else "time_per_prefill_forward", card=card,
+         rows=R, launches=sum(r["per_forward"] for r in rows), **fwd,
+         fraction_of_bound=fwd["bound_ms"] / fwd["ms"],
          library_call="torch._weight_int8pack_mm (bf16 scales, one call)",
          convert_matmul="x @ wq.to(bf16) then * scale: three calls, the "
                         "reference package's default form")
@@ -495,11 +608,20 @@ def serve_full_width(torch, card):
         static
 
 
+# record_function ranges that phase 11e opens; the profiler puts each on
+# the device's timeline too, as an annotation over the kernels it holds.
+ANNOTATIONS = ("dense_attention", "quant_matmul_dx")
+
+
 def device_time(torch, prof, match):
     """A profile's device kernels: (span us, busy us, us of the kernels whose
-    name holds ``match``, us by kernel name, the kernel events)."""
+    name holds ``match``, us by kernel name, the kernel events). The device
+    annotations of record_function ranges are not kernels and are left
+    out."""
     kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in ANNOTATIONS]
     if not kern:
         fail("the profiler recorded no device events")
     span = (max(e.time_range.end for e in kern)
@@ -1998,18 +2120,19 @@ CKPT_FREE_BYTES = 40e9  # two 18 GB blobs on disk while GC catches up
 CRC_SAMPLE = 2 << 30  # bytes of the blob whose CRC phase 10b times twice
 
 
-def checkpoint_dir():
-    """A fresh directory for phase 10's checkpoints: under the temporary
-    directory where its disk holds two blobs, else beside this script."""
+def checkpoint_dir(free_bytes=CKPT_FREE_BYTES, prefix="slt-phase10-"):
+    """A fresh directory for a phase's checkpoints: under the temporary
+    directory where its disk has ``free_bytes`` free (phase 10: two
+    blobs), else beside this script."""
     import os
     import shutil
     import tempfile
 
     for base in (tempfile.gettempdir(),
                  os.path.dirname(os.path.abspath(__file__))):
-        if shutil.disk_usage(base).free >= CKPT_FREE_BYTES:
-            return tempfile.mkdtemp(prefix="slt-phase10-", dir=base)
-    fail(f"no disk with {CKPT_FREE_BYTES / 1e9:.0f} GB free for phase 10")
+        if shutil.disk_usage(base).free >= free_bytes:
+            return tempfile.mkdtemp(prefix=prefix, dir=base)
+    fail(f"no disk with {free_bytes / 1e9:.0f} GB free for {prefix}")
 
 
 class Patched:
@@ -2520,6 +2643,517 @@ def checkpoint_path(torch, card):
     return total, replayed
 
 
+# ------------------------------------------------------------------ QLoRA --
+
+# The JAX package's single-card 8B fine-tuning rung (benchmarks/ladder.py
+# row_llama8b_real) as a user types it: full-depth llama_8b, an int8 frozen
+# base, bf16 LoRA of rank 16 on q/v, remat, batch 4 x 1024, adamw at 2e-4;
+# 2 warm-up steps and 5 timed ones.
+QLORA_8B_ARGS = [
+    "train", "--model", "llama_8b",
+    "--set", "model_overrides.quant=int8",
+    "--set", "model_overrides.lora_rank=16",
+    "--set", f"model_overrides.max_seq_len={QLORA_SEQ}",
+    "--set", "model_overrides.param_dtype=bfloat16",
+    "--set", "train.remat=true",
+    "--batch-size", str(QLORA_BATCH), "--seq-len", str(QLORA_SEQ),
+    "--lr", "2e-4", "--steps", "7"]
+QLORA_WARMUP = 2
+# K6 a step: 32 blocks x 7 projections, each run again by remat in the
+# backward, and lm_head once.
+QLORA_K6_PER_STEP = 2 * 32 * 7 + 1
+QLORA_BASE_COPIES = ("layer_0.attn.q_proj.kernel_q",
+                     "layer_31.mlp.down_proj.kernel_q", "lm_head.scale")
+
+
+def kernels_under(torch, prof, match):
+    """us of the device kernels that CPU events whose name holds ``match``
+    (autograd nodes, record_function ranges) launched, themselves or through
+    the ops under them, by kernel name; None where no such event was
+    recorded."""
+    roots = [e for e in prof.events() if match in e.name
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if not roots:
+        return None
+    seen, out, stack = set(), {}, list(roots)
+    while stack:
+        e = stack.pop()
+        if e.id in seen:
+            continue
+        seen.add(e.id)
+        for k in e.kernels:
+            if k.name not in ANNOTATIONS:
+                out[k.name] = out.get(k.name, 0.0) + k.duration
+        stack.extend(e.cpu_children)
+    return out
+
+
+def is_cublas(name: str) -> bool:
+    # cuBLAS's Hopper kernels are named nvjet_* or *gemm*.
+    return "nvjet" in name or "gemm" in name
+
+
+def qlora_profile(torch, prof, card):
+    """Phase 11e: one profiled QLoRA step split into K6, the dx products
+    (QuantMatmul's backward, its "quant_matmul_dx" range: the scale, the
+    weight's conversion and cuBLAS's product), the rest of cuBLAS,
+    dense attention (its forward range, and the backward's Bmm, Softmax
+    and MaskedFill nodes), the other kernels (elementwise work: casts,
+    norms, rope, silu, the loss, the optimizer) and the idle share."""
+    span, busy, k6, by_name, kern = device_time(torch, prof, "quant_")
+    cublas = sum(v for k, v in by_name.items() if is_cublas(k))
+    dx = kernels_under(torch, prof, "quant_matmul_dx") or {}
+    dx_cublas = sum(v for k, v in dx.items() if is_cublas(k))
+    attn = {}
+    for match in ("dense_attention", "BmmBackward", "SoftmaxBackward",
+                  "MaskedFillBackward"):
+        for k, v in (kernels_under(torch, prof, match) or {}).items():
+            attn[k] = attn.get(k, 0.0) + v
+    attn_us = sum(attn.values())
+    attn_cublas = sum(v for k, v in attn.items() if is_cublas(k))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(step_span_ms=span / 1e3, device_busy_ms=busy / 1e3,
+               device_idle_share=1 - busy / span, k6_ms=k6 / 1e3,
+               dx_ms=sum(dx.values()) / 1e3, dx_cublas_ms=dx_cublas / 1e3,
+               dx_kernels_attributed=bool(dx),
+               cublas_ms=cublas / 1e3,
+               cublas_other_ms=(cublas - dx_cublas - attn_cublas) / 1e3,
+               dense_attention_ms=attn_us / 1e3,
+               dense_attention_cublas_ms=attn_cublas / 1e3,
+               other_kernels_ms=(busy - k6 - cublas - (attn_us - attn_cublas)
+                                 - (sum(dx.values()) - dx_cublas)) / 1e3,
+               device_kernels=len(kern),
+               top_kernels_ms=[(k[:90], v / 1e3) for k, v in top])
+    emit("where_time_goes_llama_8b_qlora_train", card=card,
+         batch=QLORA_BATCH, seq_len=QLORA_SEQ, **out)
+    return out
+
+
+def qlora_8b(torch, card):
+    """Phase 11: the JAX package's QLoRA rung at full depth. 11a: the
+    state filled in place on the card in the int8 layout
+    (``random_quantized_params``), 7 adamw steps through run_training (2
+    warm-up, 5 timed), K6 and the other kernels counted around the run;
+    11b: one batch's adapter gradients through K6 against the plain
+    version on the card, then one block's (``qlora_block_grads``); 11c:
+    two steps each of adafactor, lion and
+    rmsprop over the adapters from the same state; 11d: the state saved
+    with the checkpointer and restored in place into a fresh trainer, bit
+    for bit; 11e: one step under torch.profiler. Returns its K6 counts and
+    the profile's split."""
+    import dataclasses
+    import os
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from serverless_learn_tpu_torch.cli import _train_config, build_parser
+    from serverless_learn_tpu_torch.config import OptimizerConfig
+    from serverless_learn_tpu_torch.inference.quantize import (
+        random_quantized_params)
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.ops import attention
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.ops import quant_matmul as qm
+    from serverless_learn_tpu_torch.training import checkpoint as ckpt_mod
+    from serverless_learn_tpu_torch.training.loop import (make_source,
+                                                          run_training)
+    from serverless_learn_tpu_torch.training.optimizer import make_optimizer
+    from serverless_learn_tpu_torch.training.train_state import TrainState
+    from serverless_learn_tpu_torch.training.train_step import (Trainer,
+                                                                build_trainer)
+    from serverless_learn_tpu_torch.utils.serialization import (
+        leaves_with_paths)
+
+    t_phase = time.perf_counter()
+    cfg = _train_config(build_parser().parse_args(QLORA_8B_ARGS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.init(fill=random_quantized_params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mcfg, model = trainer.bundle.cfg, state.model
+    named = dict(model.named_parameters())
+    frozen = [n for n, p in named.items() if not p.requires_grad]
+    adapters = [n for n, p in named.items() if p.requires_grad]
+    lora = [named[n] for n in adapters]
+    base = [n for n in frozen if n.endswith(".kernel_q")
+            or (n.endswith(".scale") and n.split(".")[-2] in (
+                "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj", "lm_head"))]
+    int8_params = sum(named[n].numel() for n in base
+                      if named[n].dtype == torch.int8)
+    sums_before = checksums(torch, model, frozen)
+    copies = {n: named[n].detach().cpu().clone() for n in QLORA_BASE_COPIES}
+
+    def base_changed():
+        after = checksums(torch, model, frozen)
+        out = [n for n in frozen if after[n] != sums_before[n]]
+        return out + [n for n in QLORA_BASE_COPIES
+                      if not torch.equal(named[n].detach().cpu(), copies[n])]
+
+    # -- 11a ----------------------------------------------------------------
+    counts = {"dense_attention": 0}
+    real_dense = attention.xla_attention
+
+    def counting_dense(*a, **kw):
+        counts["dense_attention"] += 1
+        return real_dense(*a, **kw)
+
+    kernels = (qm.quant_matmul, fa.flash_fwd, fa.flash_dq, fa.flash_dkv,
+               ce.cross_entropy_fwd, ce.cross_entropy_bwd)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    attention.xla_attention = transformer.xla_attention = counting_dense
+    try:
+        state, meter = run_training(cfg, trainer=trainer, state=state)
+    finally:
+        attention.xla_attention = transformer.xla_attention = real_dense
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = cfg.train.num_steps
+    losses = [s.metrics["loss"] for s in meter.history]
+    norms = [s.metrics["grad_norm"] for s in meter.history]
+    summary = meter.steady_state(skip=QLORA_WARMUP)
+    opt = state.opt_state
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for m in ("mu", "nu") for t in opt[m])
+    want = {"quant_matmul": QLORA_K6_PER_STEP * steps}
+    want.update({k.__name__: 0 for k in kernels[1:]})
+    changed = base_changed()
+    emit("train_llama_8b_qlora", card=card, command=QLORA_8B_ARGS,
+         layers=mcfg.n_layers, d_model=mcfg.d_model, vocab=mcfg.vocab_size,
+         lora_rank=mcfg.lora_rank, params=sum(p.numel()
+                                              for p in named.values()),
+         int8_params=int8_params, adapter_tensors=len(adapters),
+         adapter_params=sum(p.numel() for p in lora),
+         batch=cfg.train.batch_size, seq_len=cfg.data.seq_len, steps=steps,
+         init_s=init_s, init_peak_gb=init_peak_gb, losses=losses,
+         grad_norms=norms, step_times_s=[s.step_time_s
+                                         for s in meter.history],
+         timed_steps=steps - QLORA_WARMUP,
+         mean_step_s=summary["step_time_s"],
+         tokens_per_s=summary["tokens_per_sec"], mfu=summary.get("mfu"),
+         model_flops_per_step=meter.flops_per_step,
+         max_memory_allocated_gb=peak_gb, launches=launches,
+         expected_launches=want,
+         k6_launches_per_step=launches["quant_matmul"] / steps,
+         dense_attention_calls=counts["dense_attention"],
+         optimizer_state_tensors={m: len(opt[m]) for m in ("mu", "nu")},
+         optimizer_state_dtype=str(opt["mu"][0].dtype),
+         optimizer_state_bytes=opt_bytes, frozen_changed=changed)
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"QLoRA: non-finite loss or grad norm: {losses}, {norms}")
+    if launches != want:
+        fail(f"QLoRA launched {launches}, expected {want}")
+    if counts["dense_attention"] != 2 * mcfg.n_layers * steps:
+        fail(f"QLoRA: dense attention ran {counts['dense_attention']} "
+             f"times, expected {2 * mcfg.n_layers * steps} (T = "
+             f"{QLORA_SEQ} is under the flash threshold; remat runs twice)")
+    if changed:
+        fail(f"QLoRA: {len(changed)} frozen tensors changed, e.g. "
+             f"{changed[:3]}")
+    if (len(opt["mu"]) != LORA_8B_ADAPTER_TENSORS
+            or sum(t.numel() for t in opt["mu"]) != LORA_8B_ADAPTER_PARAMS
+            or any(t.dtype != torch.bfloat16 for t in opt["mu"] + opt["nu"])):
+        fail(f"QLoRA optimizer state: {len(opt['mu'])} tensors of "
+             f"{sum(t.numel() for t in opt['mu'])} params, expected "
+             f"{LORA_8B_ADAPTER_TENSORS} bf16 adapter tensors of "
+             f"{LORA_8B_ADAPTER_PARAMS}")
+
+    # -- 11b ----------------------------------------------------------------
+    batch = trainer.place(next(iter(make_source(cfg, trainer,
+                                                start_step=state.step))))
+
+    def grads():
+        for p in lora:
+            p.grad = None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = trainer.bundle.loss_fn(model, batch)
+        loss.backward()
+        value = float(loss.detach())
+        torch.cuda.synchronize()
+        out = dict(s=time.perf_counter() - t, loss=value,
+                   grads=[p.grad.detach().float() for p in lora])
+        for p in lora:
+            p.grad = None
+        return out
+
+    def split_reference(x, wq, scale, out_dtype=None):
+        """The plain version with the contraction summed in two halves."""
+        h = wq.shape[0] // 2
+        xf = x.to(torch.bfloat16).float()
+        y = (xf[..., :h] @ wq[:h].to(torch.bfloat16).float()
+             + xf[..., h:] @ wq[h:].to(torch.bfloat16).float())
+        return (y * scale).to(x.dtype)
+
+    def convert_form(x, wq, scale, out_dtype=None):
+        """The reference package's default QLoRA form: convert, bf16
+        product, then the scale in x's dtype."""
+        return (x @ wq.to(x.dtype)) * scale.to(x.dtype)
+
+    qm.quant_matmul.launches = 0
+    k6a, k6b = grads(), grads()
+    k6_launches = qm.quant_matmul.launches
+    alt = {}
+    real_qm = qm.quant_matmul
+    for name, fn in (("plain", qm.quant_matmul_reference),
+                     ("plain_split_sum", split_reference),
+                     ("convert_form", convert_form)):
+        qm.quant_matmul = fn
+        try:
+            alt[name] = grads()
+        finally:
+            qm.quant_matmul = real_qm
+
+    def rel(a, b):
+        return [((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+                for x, y in zip(a["grads"], b["grads"])]
+
+    plain = alt["plain"]
+    k6_rel = rel(k6a, plain)
+    floors = {n: rel(alt[n], plain) for n in ("plain_split_sum",
+                                              "convert_form")}
+    limit = 2 * max(floors["plain_split_sum"])
+    zero = [n for n, g in zip(adapters, k6a["grads"])
+            if not bool(g.abs().max() > 0)]
+    repeat = all(torch.equal(a, b) for a, b in zip(k6a["grads"],
+                                                   k6b["grads"]))
+    emit("qlora_grads_k6_vs_plain", card=card, batch=QLORA_BATCH,
+         seq_len=QLORA_SEQ, k6_loss=k6a["loss"], plain_loss=plain["loss"],
+         loss_rel_diff=abs(k6a["loss"] - plain["loss"]) / abs(plain["loss"]),
+         k6_s=[k6a["s"], k6b["s"]], plain_s=plain["s"],
+         k6_launches=k6_launches,
+         k6_max_grad_rel_diff=max(k6_rel),
+         k6_median_grad_rel_diff=statistics.median(k6_rel),
+         floor_max={n: max(v) for n, v in floors.items()},
+         floor_median={n: statistics.median(v) for n, v in floors.items()},
+         limit=limit, repeat_bit_identical=repeat, zero_grads=zero,
+         worst_tensors=sorted(zip(k6_rel, adapters), reverse=True)[:3],
+         min_adapter_grad_norm=min(g.norm().item() for g in k6a["grads"]),
+         tolerance="each adapter's gradient through K6 within 2x the "
+                   "largest relative distance (over the adapters) of the "
+                   "plain version summed in two halves from the plain "
+                   "version: K6 and the halves both take the plain "
+                   "version's exact products and add them in f32 in "
+                   "another order, so both part from it by bf16 rounding "
+                   "of those sums, grown through 32 layers; measured in "
+                   "this run. The reference's convert-then-bf16-matmul "
+                   "form, which rounds twice, is printed beside it. "
+                   "Through 32 random layers that floor is tens of "
+                   "percent, so this catches only a gross fault (a zero, "
+                   "a non-repeating or a wildly wrong gradient); the "
+                   "accuracy check is one block's (qlora_block_grads)")
+    if k6_launches != 2 * QLORA_K6_PER_STEP:
+        fail(f"11b: K6 launched {k6_launches} times for two gradients, "
+             f"expected {2 * QLORA_K6_PER_STEP}")
+    if zero or not repeat or not max(k6_rel) <= limit:
+        fail(f"11b: K6 gradients {max(k6_rel):.3g} from the plain version "
+             f"(limit {limit:.3g}), zero gradients {zero[:3]}, repeat "
+             f"{repeat}")
+    del k6a, k6b, alt, plain
+    qlora_block_grads(torch, card, model, batch, split_reference)
+
+    # -- 11c ----------------------------------------------------------------
+    snapshot = [p.detach().clone() for p in lora]
+    source = iter(make_source(cfg, trainer, start_step=state.step + 1))
+    two = [trainer.place(next(source)) for _ in range(2)]
+    others = {}
+    for name in ("adafactor", "lion", "rmsprop"):
+        ocfg = OptimizerConfig(name=name, learning_rate=2e-4)
+        tr = Trainer(config=dataclasses.replace(cfg, optimizer=ocfg),
+                     bundle=trainer.bundle, device=trainer.device,
+                     optimizer=make_optimizer(ocfg))
+        st = TrainState(step=0, model=model,
+                        opt_state=tr.init_opt_state(model))
+        run = []
+        for b in two:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = tr.step(st, b)
+            run.append((float(m["loss"]), time.perf_counter() - t))
+        moved = sum(not torch.equal(p, q) for p, q in zip(lora, snapshot))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for v in st.opt_state.values()
+                          if isinstance(v, list) for t in v
+                          if isinstance(t, torch.Tensor))
+        others[name] = dict(losses=[r[0] for r in run],
+                            step_s=[r[1] for r in run],
+                            adapters_moved=moved,
+                            optimizer_state_bytes=state_bytes)
+        with torch.no_grad():
+            for p, q in zip(lora, snapshot):
+                p.copy_(q)
+        del st, tr
+    changed = base_changed()
+    emit("qlora_other_optimizers", card=card, **others,
+         frozen_changed=changed)
+    bad = {n: r for n, r in others.items()
+           if not all(math.isfinite(x) for x in r["losses"])
+           or r["adapters_moved"] == 0}
+    if bad or changed:
+        fail(f"11c: {bad}; frozen tensors changed {changed[:3]}")
+    del snapshot, two
+
+    # -- 11d ----------------------------------------------------------------
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      leaves_with_paths(trainer.state_tree(state)))
+    root = checkpoint_dir(3 * state_bytes, "slt-phase11-")
+    try:
+        ck = ckpt_mod.Checkpointer(ckpt_mod.LocalStore(root), name="qlora")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(trainer.state_tree(state))
+        save_s = time.perf_counter() - t0
+        ck.wait()
+        saved_s = time.perf_counter() - t0
+        timings = dict(ck.timings)
+        blob = os.path.join(root, "qlora", f"step-{state.step:010d}")
+        blob_bytes = os.path.getsize(blob)
+        fresh = build_trainer(cfg, "cuda")
+        fstate = fresh.init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = fresh.state_tree(fstate)
+        ck.restore(tree)
+        fresh.load_tree(fstate, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ck.close()
+        live = list(leaves_with_paths(trainer.state_tree(state)))
+        back = list(leaves_with_paths(fresh.state_tree(fstate)))
+        differ = [p for (p, a), (q, b) in zip(live, back)
+                  if p != q or not same_bits(torch, a, b)]
+        int8_leaves = sum(a.dtype == torch.int8 for _, a in live)
+        emit("qlora_checkpoint", card=card, state_bytes=state_bytes,
+             blob_bytes=blob_bytes, leaves=len(live),
+             int8_leaves=int8_leaves, save_call_s=save_s,
+             save_total_s=saved_s,
+             save_sync_s=timings.get("save_sync_s"),
+             save_sync_gb_per_s=gbps(blob_bytes, timings.get("save_sync_s")),
+             upload_s=timings.get("upload_s"),
+             upload_gb_per_s=gbps(blob_bytes, timings.get("upload_s")),
+             restore_s=restore_s, restore_gb_per_s=gbps(blob_bytes,
+                                                        restore_s),
+             restored_step=fstate.step, bit_identical=not differ)
+        if (differ or len(live) != len(back) or fstate.step != state.step
+                or fstate.opt_state["count"] != state.opt_state["count"]
+                or int8_leaves != 7 * mcfg.n_layers + 1):
+            fail(f"11d: restored QLoRA state differs: {differ[:5]}, step "
+                 f"{fstate.step} vs {state.step}, {int8_leaves} int8 leaves")
+        del fresh, fstate, tree, live, back
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- 11e ----------------------------------------------------------------
+    def ranged(*a, **kw):
+        with record_function("dense_attention"):
+            return real_dense(*a, **kw)
+
+    attention.xla_attention = transformer.xla_attention = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = trainer.step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+    finally:
+        attention.xla_attention = transformer.xla_attention = real_dense
+    split = qlora_profile(torch, prof, card)
+    emit("qlora_phase", card=card, seconds=time.perf_counter() - t_phase)
+    del state, trainer, batch, prof, model, named, lora, copies
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches["quant_matmul"],
+                per_step=QLORA_K6_PER_STEP, profile=split)
+
+
+def qlora_block_grads(torch, card, model, batch, split_reference):
+    """Phase 11b, the accuracy check: layer 0 of the trained QLoRA model at
+    full width (the batch's embeddings in, a seeded cotangent out), where
+    rounding does not grow through 32 layers. Its input gradient's branch
+    part (dx - dy; the residual passes dy unchanged) and its adapters'
+    gradients through K6 against the plain version on the card, within 2x
+    the plain version summed in two halves; fails too unless the same
+    block with ``QuantMatmul``'s dx 5 % too large fails that limit in
+    every tensor."""
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.ops import quant_matmul as qm
+
+    block = model.layers[0]
+    names = [n for n, p in block.named_parameters() if p.requires_grad]
+    lora = [p for p in block.parameters() if p.requires_grad]
+    with torch.no_grad():
+        x0 = model.embedder(batch["tokens"])
+    B, T, _ = x0.shape
+    positions = torch.arange(T, device=x0.device)[None, :].expand(B, T)
+    sin, cos = transformer.rope_angles(positions, model.cfg.head_dim,
+                                       model.cfg.rope_theta)
+    g = torch.Generator(device=x0.device).manual_seed(3)
+    dy = torch.randn(x0.shape, generator=g, device=x0.device).to(x0.dtype)
+
+    def grads():
+        x = x0.detach().clone().requires_grad_()
+        block(x, sin, cos).backward(dy)
+        out = ([x.grad.float() - dy.float()]
+               + [p.grad.detach().float() for p in lora])
+        for p in lora:
+            p.grad = None
+        return out
+
+    class Off(qm.QuantMatmul):
+        """``QuantMatmul`` with a dx 5 % too large."""
+
+        @staticmethod
+        def backward(ctx, dy):
+            dx, _, _ = qm.QuantMatmul.backward(ctx, dy)
+            return dx * 1.05, None, None
+
+    k6a, k6b = grads(), grads()
+    with Patched((transformer, "QuantMatmul", lambda real: Off)):
+        off = grads()
+    alt = {}
+    for name, fn in (("plain", qm.quant_matmul_reference),
+                     ("plain_split_sum", split_reference)):
+        with Patched((qm, "quant_matmul", lambda real: fn)):
+            alt[name] = grads()
+
+    def rel(a, b):
+        return [((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+                for x, y in zip(a, b)]
+
+    plain = alt["plain"]
+    k6_rel, off_rel = rel(k6a, plain), rel(off, plain)
+    floor = rel(alt["plain_split_sum"], plain)
+    limit = 2 * max(floor)
+    repeat = all(torch.equal(a, b) for a, b in zip(k6a, k6b))
+    leaves = ["dx_minus_dy"] + names
+    zero = [n for n, t in zip(leaves, k6a) if not bool(t.abs().max() > 0)]
+    emit("qlora_block_grads_k6_vs_plain", card=card, block="layers.0",
+         rows=B * T, leaves=leaves, k6_rel_diff=k6_rel,
+         floor_rel_diff=floor, limit=limit, dx_5pct_off_rel_diff=off_rel,
+         repeat_bit_identical=repeat, zero_grads=zero,
+         tolerance="each tensor through K6 within 2x the largest relative "
+                   "distance (over the tensors) of the plain version "
+                   "summed in two halves from the plain version, measured "
+                   "in this run; the same block with dx 5 % off must "
+                   "exceed it in every tensor")
+    if zero or not repeat or not max(k6_rel) <= limit:
+        fail(f"11b block: K6 {max(k6_rel):.3g} from the plain version "
+             f"(limit {limit:.3g}), zero {zero}, repeat {repeat}")
+    if not min(off_rel) > limit:
+        fail(f"11b block: the limit {limit:.3g} passes a dx 5 % off "
+             f"({min(off_rel):.3g} in {leaves[off_rel.index(min(off_rel))]})")
+
+
 # The tensor-core kernels of each source, as parts of their mangled names
 # in ptxas's report: every function that holds one may not spill, and each
 # must appear.
@@ -2568,6 +3202,18 @@ def quant_matmul_only(torch, qm, build, card) -> int:
     return 0
 
 
+def train_only(torch, build, card) -> int:
+    """Phase 8b, then phase 10's ``train`` command for 5 steps without a
+    checkpoint directory (its ``done`` line: the steady step time)."""
+    build.load("flash_attention")
+    train_full_width(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done = run_cli(["train", *CKPT_TRAIN, "--steps", "5"])
+    emit("train_command_llama_1b", card=card, **done)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2586,6 +3232,8 @@ def main() -> int:
 
     if "--quant-matmul-only" in sys.argv[1:]:
         return quant_matmul_only(torch, qm, build, card)
+    if "--train-only" in sys.argv[1:]:
+        return train_only(torch, build, card)
 
     t0 = time.perf_counter()
     sources = ["quant_matmul", "flash_attention", "cross_entropy"]
@@ -2605,8 +3253,10 @@ def main() -> int:
              f"ptxas report: {faults}")
 
     max_err = check_kernel(torch, qm, card)
+    check_dx(torch, qm, card)
     fwd = time_kernel(torch, qm, card)
     time_kernel(torch, qm, card, R=PREFILL_ROWS)
+    qlora_fwd = time_kernel(torch, qm, card, R=QLORA_ROWS)
     tiny_agreement(torch, card)
     flash_err = check_flash(torch, card)
     flash_time = time_flash(torch, card)
@@ -2624,6 +3274,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase10, phase10_replayed = checkpoint_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlora = qlora_8b(torch, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -2638,6 +3291,12 @@ def main() -> int:
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
+        "launches_qlora": qlora["launches"],
+        "launches_qlora_per_step": qlora["per_step"],
+        "qlora_ms": qlora_fwd["ms"], "qlora_bound_ms": qlora_fwd["bound_ms"],
+        "qlora_library_ms": qlora_fwd["convert_matmul_ms"],
+        "qlora_plain_ms": qlora_fwd["plain_ms"],
+        "qlora_step_k6_ms": qlora["profile"]["k6_ms"],
     }]
     replaces = {
         "flash_fwd": "serverless_learn_tpu/ops/pallas/flash_attention.py:197",

@@ -60,12 +60,16 @@ def port_shape(name: str, shape) -> Tuple[int, ...]:
 
 
 def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
-    """A flax params tree of numpy arrays -> the port's state dict."""
+    """A flax params tree of numpy arrays -> the port's state dict (bf16
+    leaves, ml_dtypes' as JAX hands them out, stay bf16)."""
     out = {}
     for name, leaf in _flatten(tree):
         a = np.asarray(leaf)
-        a = a.reshape(port_shape(name, a.shape))
-        out[name] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
+        a = np.array(a.reshape(port_shape(name, a.shape)), order="C")  # a writable copy
+        if a.dtype.name == "bfloat16":
+            out[name] = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(a)
     return out
 
 
@@ -82,6 +86,12 @@ def _jax_shape(parts, shape, cfg: TransformerConfig):
     if site == "o_proj" and leaf_name in ("kernel", "kernel_q"):
         return (H, D, d)
     return tuple(shape)
+
+
+def flax_shape(name: str, shape, cfg: TransformerConfig) -> Tuple[int, ...]:
+    """The reference's shape of the port's tensor ``name`` of shape
+    ``shape`` (the inverse of :func:`port_shape`)."""
+    return tuple(_jax_shape(name.split("."), tuple(shape), cfg))
 
 
 def nest(named: Mapping[str, T]) -> dict:

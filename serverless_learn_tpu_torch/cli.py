@@ -14,6 +14,11 @@
         --set model_overrides.lora_rank=16 --set model_overrides.remat=true \\
         --set model_overrides.fused_ce=true --batch-size 8 \\
         --set train.grad_accum=4 --seq-len 4096 --steps 3
+    python -m serverless_learn_tpu_torch train --model llama_8b \\
+        --set model_overrides.quant=int8 --set model_overrides.lora_rank=16 \\
+        --set model_overrides.max_seq_len=1024 \\
+        --set model_overrides.param_dtype=bfloat16 --set train.remat=true \\
+        --batch-size 4 --seq-len 1024 --lr 2e-4 --steps 5
     python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8
     python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8 \\
         --serve-engine static --kv-monolithic
@@ -421,8 +426,8 @@ def _add_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--batch-size", type=int)
     p.add_argument("--steps", type=int)
     p.add_argument("--lr", type=float)
-    p.add_argument("--optimizer", help="adamw | adam | sgd (adafactor, lion "
-                                       "and rmsprop are not ported)")
+    p.add_argument("--optimizer",
+                   help="adamw | adam | sgd | adafactor | lion | rmsprop")
     p.add_argument("--seq-len", type=int)
     p.add_argument("--verbose", action="store_true",
                    help="log every train.log_every steps to stderr")

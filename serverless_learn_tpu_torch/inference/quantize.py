@@ -19,6 +19,7 @@ from typing import Dict, Set
 import torch
 
 from serverless_learn_tpu_torch.models.transformer import (Transformer,
+                                                           _init_lora,
                                                            leaf_generator)
 
 QUANT_DIRS: Set[str] = {
@@ -54,10 +55,15 @@ def random_quantized_params(model: Transformer, seed: int = 0) -> Transformer:
     """Fill a ``quant="int8"`` model in place, on its own device, directly in
     the int8 layout: ``kernel_q`` uniform in [-127, 127], each projection's
     ``scale`` at 2.5 * 0.02 / 127 (the per-channel max-abs of a 0.02-stddev
-    kernel), the embedding table normal(0, 0.02), norm scales one. Never
-    builds the float tree, which for llama_8b would take 32 GB."""
+    kernel), the embedding table normal(0, 0.02), norm scales one, LoRA
+    adapters as ``init_params`` fills them (``lora_b`` zero: a fresh QLoRA
+    model is its base). Never builds the float tree, which for llama_8b
+    would take 32 GB: a trainer fills its own model with it
+    (``Trainer.init(fill=...)``), so one base lives on the card."""
     for name, t in model.state_dict().items():
         g = leaf_generator(seed, name, t.device)
+        if _init_lora(name, t, g):
+            continue
         if t.dtype == torch.int8:
             t.random_(-127, 128, generator=g)
         elif name.endswith(".scale") and _site(name) in QUANT_DIRS:

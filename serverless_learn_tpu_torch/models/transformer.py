@@ -22,10 +22,12 @@ With ``lora_rank > 0`` each attention layer also holds ``q_lora`` and
 ``v_lora`` adapters (:class:`LoRAAdapter`) whose deltas are added to the q
 and v projections before the rotation, as the reference adds them.
 
-A model built with ``trainable=True`` has every float parameter
-``requires_grad`` (the trainer then freezes what the bundle's trainable
-mask leaves out, ``training/partition.py``); serving builds it without and
-runs under ``no_grad``.
+A model built with ``trainable=True`` has every float parameter but the
+int8 base's ``requires_grad`` (the trainer then freezes what the bundle's
+trainable mask leaves out, ``training/partition.py``); serving builds it
+without and runs under ``no_grad``. ``quant="int8"`` trains only with
+``lora_rank > 0`` (QLoRA): the adapters learn over the frozen int8 base,
+whose projections pass the gradient to their inputs.
 """
 
 from __future__ import annotations
@@ -39,11 +41,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from serverless_learn_tpu_torch.config import not_ported
 from serverless_learn_tpu_torch.inference.kvcache import PagedKVCache
 from serverless_learn_tpu_torch.ops.attention import (dot_product_attention,
                                                       xla_attention)
-from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+from serverless_learn_tpu_torch.ops.quant_matmul import QuantMatmul
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -74,7 +75,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    quant: Optional[str] = None  # None | "int8" (weight-only, inference)
+    quant: Optional[str] = None  # None | "int8" (weight-only; QLoRA trains)
     attention_impl: str = "auto"  # "auto" | "xla" | "flash" | "ring"
     remat: bool = False
     lora_rank: int = 0  # > 0: LoRA adapters on the q and v projections
@@ -167,21 +168,26 @@ class DenseGeneral(nn.Module):
 class QuantDenseGeneral(nn.Module):
     """Weight-only int8 projection: int8 kernel, per-output-channel f32
     scale, output in ``dtype``. Weights come from
-    ``inference/quantize.py``."""
+    ``inference/quantize.py``. Both are parameters that never train, as in
+    the reference, where they are ``self.param`` leaves: the params tree,
+    checkpoints and the FLOP count see the base; the gradient reaches x
+    alone (:class:`QuantMatmul`)."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
                  device=None):
         super().__init__()
         self.dtype = dtype
-        self.register_buffer("kernel_q", torch.zeros(
-            in_features, out_features, dtype=torch.int8, device=device))
-        self.register_buffer("scale", torch.ones(
-            out_features, dtype=torch.float32, device=device))
+        self.kernel_q = nn.Parameter(torch.zeros(
+            in_features, out_features, dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(
+            out_features, dtype=torch.float32, device=device),
+            requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The kernel rounds x to bf16 either way, so casting first to the
         # output dtype changes no value.
-        return quant_matmul(x.to(self.dtype), self.kernel_q, self.scale)
+        return QuantMatmul.apply(x.to(self.dtype), self.kernel_q, self.scale)
 
 
 class LoRAAdapter(nn.Module):
@@ -324,12 +330,11 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None,
                  trainable: bool = False):
         super().__init__()
-        if trainable and cfg.quant is not None:
-            if cfg.lora_rank > 0:
-                raise not_ported("QLoRA (LoRA adapters trained over an int8 "
-                                 "frozen base)", "ROADMAP.md queue 1 item 3f")
-            raise ValueError("training with quant set is unsupported, as in "
-                             "the reference")
+        if trainable and cfg.quant is not None and cfg.lora_rank <= 0:
+            # QLoRA (LoRA over the int8 base) trains; the base alone would
+            # need a straight-through estimator, which the reference has not.
+            raise ValueError("training with quant set is unsupported without "
+                             "lora_rank > 0, as in the reference")
         self.cfg = cfg
         self.embedder = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype,
                               cfg.param_dtype, device)
@@ -340,8 +345,10 @@ class Transformer(nn.Module):
             self.layers.append(block)
         self.norm_f = RMSNorm(cfg.d_model, cfg.dtype, cfg.param_dtype, device)
         self.lm_head = _proj(cfg, cfg.d_model, cfg.vocab_size, device)
+        base = {id(p) for m in self.modules()
+                if isinstance(m, QuantDenseGeneral) for p in m.parameters()}
         for p in self.parameters():
-            p.requires_grad_(trainable)
+            p.requires_grad_(trainable and id(p) not in base)
 
     @property
     def device(self) -> torch.device:
@@ -484,13 +491,18 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
     fan_in the contracted dims: ``[I, O]`` here, as flax's DenseGeneral
     flattens them), the embedding table ``variance_scaling(1, "fan_in",
     "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)), norm scales 1,
-    LoRA's ``lora_a`` normal(0.02) and ``lora_b`` zeros. The values differ
-    from flax's, whose generator is JAX's."""
+    LoRA's ``lora_a`` normal(0.02) and ``lora_b`` zeros; an int8 base as
+    flax's initializers give it, ``kernel_q`` zeros and ``scale`` ones
+    (a QLoRA run from scratch trains over that zero base, as the
+    reference's does). The values differ from flax's, whose generator is
+    JAX's."""
     for name, t in model.state_dict().items():
         gen = leaf_generator(seed, name, t.device)
         if _init_lora(name, t, gen):
             continue
-        if name.endswith("embedding"):
+        if t.dtype == torch.int8:
+            t.zero_()
+        elif name.endswith("embedding"):
             t.normal_(0.0, 1.0 / math.sqrt(t.shape[1]), generator=gen)
         elif t.ndim >= 2:
             # 0.8796...: the std of a unit normal truncated to [-2, 2].

@@ -5,7 +5,9 @@ quant_matmul.py``. On a CUDA tensor :func:`quant_matmul` always launches the
 hand-written Hopper kernel (``csrc/quant_matmul.cu``); a build or launch
 failure raises. On a CPU tensor it runs :func:`quant_matmul_reference`, the
 plain PyTorch version with the same casts, which the tests and
-``chip_smoke.py`` hold the kernel against.
+``chip_smoke.py`` hold the kernel against. :class:`QuantMatmul` gives it
+a gradient for the activations (QLoRA trains adapters through the frozen
+int8 base); it is the models' entry point, in training and serving.
 
 :func:`plan` is the one place that picks the kernel's tiling (decode with
 one n8 tile of x's rows up to 8 rows, two up to 16, prefill above) and how
@@ -187,3 +189,32 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 # Kernel launches since the last reset; chip_smoke.py zeroes it before the
 # main path and reads it after, to show the path went through the kernel.
 quant_matmul.launches = 0
+
+
+class QuantMatmul(torch.autograd.Function):
+    """:func:`quant_matmul` with a gradient for ``x``, as the JAX package
+    differentiates its QLoRA forward ``tensordot(x, wq.astype(x.dtype)) *
+    scale.astype(x.dtype)``: ``g = dy * scale`` and ``dx = g @ wq^T``,
+    both in x's dtype, the weight converted for the product (the reference
+    computes it outside any Pallas kernel too). ``wq`` and ``scale`` get no
+    gradient. Only the two weights are saved, no activation, so a
+    recomputed block (remat) keeps nothing of its own. The forward is
+    :func:`quant_matmul`: the kernel on a CUDA tensor, the plain version on
+    a CPU one. Under ``no_grad`` or ``inference_mode`` (serving) it records
+    no graph."""
+
+    @staticmethod
+    def forward(ctx, x, wq, scale):
+        ctx.save_for_backward(wq, scale)
+        return quant_matmul(x, wq, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        wq, scale = ctx.saved_tensors  # under remat: the block's recompute
+        # The profiler range chip_smoke.py reads dx's time from.
+        with torch.profiler.record_function("quant_matmul_dx"):
+            g = dy * scale.to(dy.dtype)
+            return g @ wq.to(dy.dtype).t(), None, None
+

@@ -72,7 +72,9 @@ def run_eval(config: ExperimentConfig, trainer: Trainer, state,
 
 def step_flops(config: ExperimentConfig, trainer: Trainer, state) -> float:
     """Model FLOPs of one step; frozen parameters count 4 a token, trained
-    ones 6 (``utils/metrics.py``)."""
+    ones 6 (``utils/metrics.py``). Every parameter but the embedding
+    counts: an int8 base's ``kernel_q`` weights are frozen parameters, and
+    their per-column scales count as the norm scales do."""
     cfg = trainer.bundle.cfg
     params = list(state.model.parameters())
     n_trainable = (None if trainer.bundle.trainable_mask is None

@@ -36,8 +36,14 @@ def overlay(full: Mapping[str, object], sub: Mapping[str, object]) -> Dict:
 
 def set_trainable(model: nn.Module, mask: Mapping[str, bool]) -> None:
     """``requires_grad`` on exactly the parameters ``mask`` selects; raises,
-    as :func:`prune` does, if it selects none."""
+    as :func:`prune` does, if it selects none, and if it selects a leaf
+    that cannot train: an int8 base leaf (QLoRA), which the reference never
+    differentiates either."""
     params = dict(model.named_parameters())
-    prune(params, mask)
+    bad = [n for n, p in prune(params, mask).items()
+           if not p.is_floating_point()]
+    if bad:
+        raise ValueError(f"trainable mask selects {len(bad)} non-float "
+                         f"(int8) leaves, e.g. {bad[:3]}; they cannot train")
     for name, p in params.items():
         p.requires_grad_(bool(mask[name]))

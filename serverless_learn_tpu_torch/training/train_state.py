@@ -21,6 +21,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from serverless_learn_tpu_torch.bridge import nest as nest_names
 from serverless_learn_tpu_torch.bridge import to_flax
 from serverless_learn_tpu_torch.utils.serialization import Struct
 
@@ -38,13 +39,15 @@ def state_tree(state: TrainState, optimizer, cfg) -> Struct:
     parameters and ``opt_state`` the optax layout of ``optimizer``'s state
     (``Optimizer.state_tree``), both views of the live tensors in flax's
     shapes (``bridge.to_flax``), and ``model_state`` {} (the port's models
-    keep no non-trainable collections). ``cfg`` is the model's
-    ``TransformerConfig``."""
+    keep no non-trainable collections). ``params`` holds every parameter,
+    an int8 base's ``kernel_q`` and ``scale`` among them (QLoRA), as the
+    reference's tree does. ``cfg`` is the model's ``TransformerConfig``."""
     named = dict(state.model.named_parameters())
     trainable = [n for n, p in named.items() if p.requires_grad]
 
-    def nest(tensors):
-        return to_flax(dict(zip(trainable, tensors)), cfg)
+    def nest(tensors, as_params=True):
+        by_name = dict(zip(trainable, tensors))
+        return to_flax(by_name, cfg) if as_params else nest_names(by_name)
 
     return Struct(step=torch.tensor(state.step, dtype=torch.int32),
                   params=to_flax({n: p.detach() for n, p in named.items()},

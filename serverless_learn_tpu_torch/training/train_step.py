@@ -9,7 +9,11 @@ the state; here the step runs eagerly on one card and updates the
 only the trainable parameters have ``requires_grad``
 (``training/partition.py``): the frozen base gets no weight-gradient
 products, and the optimizer state, the global norm and the clipping cover
-the trainable parameters alone; the state keeps the whole model. Metrics are those of the reference:
+the trainable parameters alone; the state keeps the whole model. Over an
+int8 base (QLoRA) the base's projections pass the gradient to their
+inputs and keep none; with ``param_dtype=bfloat16`` the adapters and their
+optimizer moments are bf16, as optax keeps moments in the parameter's
+dtype (``mu_dtype=None``). Metrics are those of the reference:
 ``loss``, ``perplexity`` (exp of the averaged loss), ``lr`` (the schedule
 at the state's step) and ``grad_norm`` (the global norm of the averaged
 gradients, before clipping), returned as 0-dim tensors on the device so
@@ -19,11 +23,12 @@ the step itself never waits for the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from serverless_learn_tpu_torch.bridge import flax_shape
 from serverless_learn_tpu_torch.config import ExperimentConfig
 from serverless_learn_tpu_torch.data.datasets import to_device
 from serverless_learn_tpu_torch.models.registry import (ModelBundle, get_model,
@@ -53,24 +58,39 @@ class Trainer:
     optimizer: Optimizer
 
     def init(self, seed: Optional[int] = None,
-             params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
-        """A fresh state: weights from ``seed`` (``init_params``), or from
-        the state dict ``params`` (for example a flax tree through
-        ``bridge.from_jax_params``), and a zero optimizer state over the
-        trainable parameters."""
+             params: Optional[Dict[str, torch.Tensor]] = None,
+             fill: Optional[Callable[..., Any]] = None) -> TrainState:
+        """A fresh state: weights from ``seed`` (``init_params``), from the
+        state dict ``params`` (for example a flax tree through
+        ``bridge.from_jax_params``), or written into the trainer's own
+        model by ``fill(model, seed)`` (for example
+        ``inference.quantize.random_quantized_params``: one int8 base on
+        the card, never a second state beside it); and a zero optimizer
+        state over the trainable parameters."""
         model = Transformer(self.bundle.cfg, device=self.device,
                             trainable=True)
-        if params is None:
-            init_params(model, self.config.train.seed if seed is None
-                        else seed)
+        seed = self.config.train.seed if seed is None else seed
+        if params is not None:
+            with torch.no_grad():
+                model.load_state_dict(params)
         else:
-            model.load_state_dict(params)
+            (fill or init_params)(model, seed)
         if self.bundle.trainable_mask is not None:
             set_trainable(model, self.bundle.trainable_mask(
                 name for name, _ in model.named_parameters()))
         return TrainState(step=0, model=model,
-                          opt_state=self.optimizer.init(
-                              trainable_params(model)))
+                          opt_state=self.init_opt_state(model))
+
+    def init_opt_state(self, model: torch.nn.Module) -> Dict[str, Any]:
+        """A zero state of this trainer's optimizer over ``model``'s
+        trainable parameters, each with its shape in the reference's tree
+        (which adafactor factors by)."""
+        trained = [(n, p) for n, p in model.named_parameters()
+                   if p.requires_grad]
+        return self.optimizer.init(
+            [p for _, p in trained],
+            shapes=[flax_shape(n, p.shape, self.bundle.cfg)
+                    for n, p in trained])
 
     def place(self, host_batch: Dict[str, np.ndarray]
               ) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,8 @@ Model FLOPs of one causal-LM training step, 2 per multiply-add:
 ``tokens`` = B * T. A trained parameter costs 6 a token (the forward, the
 input gradient and its weight gradient); a frozen one 4 (the forward and
 the input gradient: its weight gradient is never computed, as for LoRA's
-frozen base). ``P_train + P_frozen`` is every parameter but the V * d
+frozen base, and QLoRA's int8 one, whose int8 weights count as frozen
+parameters). ``P_train + P_frozen`` is every parameter but the V * d
 embedding table (a lookup, no products; ``lm_head`` is counted). The last
 term is the causal attention products (q k^T and p v, 4 * B * T^2 * d a
 layer forward, halved by the causal mask, times 3 for the forward, dq and

@@ -5,7 +5,8 @@ llama_tiny size:
   (also from a mesh of two devices), restores into the port bit for bit
   (params, moments, counts, step) for adamw + clip + warmup-cosine, adamw
   with unmasked decay and no clip, adam over bf16 params with a linear
-  warmup, sgd with momentum and LoRA; blobs with flax's chunk
+  warmup, sgd with momentum, LoRA and QLoRA (int8 base, bf16 adapters);
+  blobs with flax's chunk
   threshold lowered so the embedding and head are chunked;
 * the port, writing the same state, writes the same bytes, and a state it
   writes restores in the reference (``restore`` and
@@ -49,6 +50,8 @@ from serverless_learn_tpu_torch.config import (DataConfig, ExperimentConfig,
                                                OptimizerConfig, TrainConfig)
 from serverless_learn_tpu_torch.data.datasets import SyntheticSource
 from serverless_learn_tpu_torch.inference.generate import generate
+from serverless_learn_tpu_torch.inference.quantize import (
+    random_quantized_params)
 from serverless_learn_tpu_torch.training import checkpoint as ck
 from serverless_learn_tpu_torch.training.checkpoint import (
     CheckpointCorrupt, Checkpointer, LocalStore)
@@ -66,6 +69,9 @@ CHAINS = {
     "sgd": (dict(name="sgd"), {}, "float32"),
     "lora": (dict(name="adamw", weight_decay=0.1, grad_clip_norm=1.0),
              {"lora_rank": 4}, "float32"),
+    # QLoRA: int8 base leaves, bf16 adapters and moments
+    "qlora": (dict(name="adamw"), {"lora_rank": 4, "quant": "int8"},
+              "bfloat16"),
 }
 CHUNK = 4096  # bytes: the embedding and lm_head (256 KB each) are chunked
 
@@ -193,7 +199,7 @@ def test_jax_checkpoint_restores_into_port_bit_exact(tmp_path, monkeypatch,
     _assert_moments_are_the_optimizers(state, jstate)
     if chain == "adam":
         assert state.model.embedder.embedding.dtype == torch.bfloat16
-    if chain == "lora":
+    if chain in ("lora", "qlora"):
         assert len(state.opt_state["mu"]) == 8  # 2 layers x q/v x a/b
     # The port, writing the same state, writes the same bytes.
     Checkpointer(LocalStore(str(tmp_path / "port")), name="run",
@@ -333,16 +339,19 @@ def test_crc_in_parts_equals_zlib(monkeypatch):
 
 # -- resume --------------------------------------------------------------------
 
-@pytest.mark.parametrize("chain", ["adamw", "sgd", "lora"])
+@pytest.mark.parametrize("chain", ["adamw", "sgd", "lora", "qlora"])
 def test_resume_equals_an_uninterrupted_run(tmp_path, chain):
     _, tcfg = _configs(chain)
     tr = _port_trainer(chain)
     batches = list(itertools.islice(SyntheticSource(
         tr.bundle.make_batch, tcfg.data, 2, seed=9), 4))
-    whole = tr.init()
+    # From scratch QLoRA trains over flax's zero base, where no gradient
+    # flows: random int8 weights make the run move.
+    kw = {"fill": random_quantized_params} if chain == "qlora" else {}
+    whole = tr.init(**kw)
     for b in batches:
         tr.step(whole, tr.place(b))
-    first = tr.init()
+    first = tr.init(**kw)
     for b in batches[:2]:
         tr.step(first, tr.place(b))
     saver = Checkpointer(LocalStore(str(tmp_path)), name="run")

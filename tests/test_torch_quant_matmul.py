@@ -262,3 +262,38 @@ def test_kernel_from_two_threads_on_one_stream(card):
         t.join()
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs[0] + outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 4096, 1024), (1, 4096, 4096,
+                                                          4096)])
+def test_input_gradient_on_card_matches_plain(card, shape):
+    """QLoRA's gradient through the int8 base on the card: the Function's
+    forward launches K6 once and its dx (the converted weight's product)
+    holds to the plain version's autograd gradient. The Function rounds
+    each term's scale and g = dy * scale to bf16, two independent errors
+    within +-2^-8 of the term: over the contraction they add in quadrature
+    to sigma = 0.82 * 2^-8 * sqrt(sum t^2), t = dy scale wq, and 6 * 2^-8
+    is 7.3 sigma; each side rounds its output to bf16 (2^-8 of |dx| each).
+    A dx 5 % off fails the same limit."""
+    from serverless_learn_tpu_torch.ops.quant_matmul import QuantMatmul
+
+    B, R, I, O = shape
+    x, wq, scale = _inputs(B * R, I, O)
+    dy = np.random.default_rng(1).standard_normal((B, R, O))
+    wc, sc = torch.from_numpy(wq).to(card), torch.from_numpy(scale).to(card)
+    g = torch.from_numpy(dy).to(card, torch.bfloat16)
+    xt = torch.from_numpy(x.reshape(B, R, I)).to(card, torch.bfloat16)
+    xt.requires_grad_()
+    before = quant_matmul.launches
+    QuantMatmul.apply(xt, wc, sc).backward(g)
+    assert quant_matmul.launches == before + 1
+    xr = xt.detach().clone().requires_grad_()
+    quant_matmul_reference(xr, wc, sc).backward(g)
+    want, got = xr.grad.float(), xt.grad.float()
+    limit = (6 * 2 ** -8 * ((g.float() * sc).square()
+                            @ wc.float().square().t()).sqrt()
+             + 2 ** -7 * want.abs())
+    err = (got - want).abs()
+    assert bool((err <= limit).all()), (err / limit).max().item()
+    assert not bool(((1.05 * got - want).abs() <= limit).all())

@@ -159,13 +159,6 @@ def test_run_training_and_its_meter():
 
 def test_unported_options_raise():
     _, tcfg = _configs(1)
-    # QLoRA: LoRA adapters trained over an int8 frozen base.
-    qlora = build_trainer(ExperimentConfig(
-        model="llama_tiny", model_overrides={"lora_rank": 4,
-                                             "quant": "int8"}), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="QLoRA.*not yet ported.*ROADMAP"):
-        qlora.init()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExperimentConfig.from_dict({"model": "llama_tiny",
                                     "train": {"zero_stage": 1}})
