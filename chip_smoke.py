@@ -70,9 +70,14 @@ any failing phase exits non-zero:
    and sampled requests through the port's ``GenerationServer`` and checks
    the replies, by the launch counter that every projection of every
    forward went through the kernel, and that phase 3 checked every row
-   count it served; then times prefill and each of 40 decode steps
-   (median and quartiles), profiles one prefill forward (the int8
-   matmul's share of its device time) and decode steps;
+   count it served; its server has a fresh metrics registry, the metrics
+   endpoint and an event log: the static engine's request, finished and
+   token counters must equal what the phase sent (the warm-up group's
+   finished requests and tokens beside them), the scrape of /metrics must
+   carry them, and every request span must carry a waterfall; then times
+   prefill and each of 40 decode steps (median and quartiles), profiles
+   one prefill forward (the int8 matmul's share of its device time) and
+   decode steps;
 9c. serves the same model through ``GenerationServer``'s defaults, the
     continuous engine over the paged KV pool (block 16, prefill chunk 32,
     budget 64, prefix cache on) with each decode bucket a CUDA graph of
@@ -90,11 +95,30 @@ any failing phase exits non-zero:
     replayed step of every bucket that replayed, that phase 3 checked
     every row count served, and that a replayed chunk equals the eager
     one bit for bit; then times a decode round by the host clock at each
-    harvest and profiles one replayed chunk;
+    harvest and profiles one replayed chunk. Its server, too, has a fresh
+    registry, the metrics endpoint, an event log and the profiler armed:
+    the request, finished, token, prefill-chunk, prefix-hit and preemption
+    (0) counters must equal what the phase knows, every reply's span must
+    carry a waterfall whose own host time is under 2 % of its decode time
+    (``ledger_overhead_frac``), and a ``/debug/profile?seconds=2`` capture
+    taken from the exporter's thread during a second 128-token round must
+    hold ``quant_decode`` kernels; prints the harvest's telemetry host
+    time per decode chunk;
 10. the user path through checkpoints in the JAX package's format, at
     llama_1b's full width, through the CLI's entry points in this process:
     ``train`` (B=2, T=4096, 3 adamw steps, K1-K3) saves 17.98 GB blobs at
-    step 2 (uploaded while step 3 trains) and step 3; the newest restores
+    step 2 (uploaded while step 3 trains) and step 3, with the telemetry
+    on (``--metrics-port 0 --health --events-log --flight-dir``, an
+    in-loop eval every 2 steps, the emergency save armed with its shadow
+    refreshed at every step at least 1 s apart): a thread scrapes
+    /metrics, /goodput, /healthz and /alerts while it trains, and the
+    phase checks that ``slt_train_steps_total`` rose by 3, the last-step
+    gauge advanced, ``slt_train_mfu`` equals the done line's MFU, the
+    ledger has compile, step, checkpoint and eval phases, goodput is in
+    (0, 1], no alert fired, /healthz answered 200, the event log holds
+    one ``train/run`` and three ``train/step`` spans, and K1 launched the
+    eval's batches' forwards beside the steps' (K2/K3 the steps' alone);
+    it prints each shadow refresh's stall; the newest restores
     into a fresh trainer in place and equals the live state bit for bit
     (with the save's, upload's, CRC's and restores' seconds and GB/s);
     ``eval`` from it launches K1 and equals the live model's eval; then
@@ -122,9 +146,21 @@ any failing phase exits non-zero:
     checkpointer and restored in place into a fresh trainer, bit for bit;
     11e: one step profiled (K6, the dx products, the rest of cuBLAS, dense
     attention, other kernels, idle share);
+12a. the emergency save: a child process ``train``s llama_1b at full
+    width and 2 layers with ``--checkpoint-dir`` and ``--checkpoint-every
+    1000`` (the shadow refreshed at every step) and gets SIGTERM after its
+    third step line; its flight dump must say sigterm and carry the
+    card's ``torch.cuda`` memory statistics and
+    ``slt_ckpt_emergency_saves_total`` = 1, and the emergency commit must
+    be the newest shadow's step and restore in place into a fresh
+    trainer that re-encodes to the committed bytes; prints each shadow
+    refresh's stall;
 12. prints one JSON line of kernels (with each kernel's launches on phase
     10's path, and K6's on phase 11's), then the card's name and power
     limit, then the result line ``{"ok": true, "device": {...}}``.
+
+Every profiler session (phases 8b, 8f, 9b, 9c, 11e) goes through the
+port's shared profiler lock (``telemetry/profiler.py``).
 
 Every time and memory figure is printed beside the card's name and power
 limit. Exits non-zero without printing the result line where there is no
@@ -143,6 +179,19 @@ kernel with the same yardsticks.
 runs only phase 8b and phase 10's ``train`` command (5 steps, no
 checkpoint) the same way: llama_1b's training step with f32 parameters
 and adamw, for an A/B of the step between commits.
+
+    python3 chip_smoke.py --serve-only
+
+runs only phase 9c's decode round (llama_8b int8 through the continuous
+engine's defaults, three timed rounds of 4 x 128 new tokens) the same
+way, for an A/B of the continuous decode step between commits.
+
+    python3 chip_smoke.py --ckpt-train-only
+
+runs only phase 10's ``train`` with ``--checkpoint-dir`` at the defaults
+(250 steps, no periodic save among them) the same way, for an A/B of the
+checkpoint path's steady tokens/s, the emergency shadow's refreshes
+included, between commits.
 """
 
 from __future__ import annotations
@@ -191,6 +240,22 @@ DECODE_STEPS = 40  # phase 9b's timed decode steps
 # A contraction that is not a multiple of any split (k_split is a multiple
 # of 64 rows): the last split is ragged.
 RAGGED_I = (4136, 1024)
+
+
+def profiled():
+    """A ``torch.profiler`` session (CPU and CUDA) through the port's
+    shared profiler lock (``telemetry/profiler.py``): two sessions never
+    nest, and an on-demand capture during one answers busy. A checkout
+    from before the port had telemetry (the parent of an A/B mode) has no
+    lock: there the session is a plain one."""
+    try:
+        from serverless_learn_tpu_torch.telemetry import profiler
+    except ModuleNotFoundError:
+        from torch.profiler import ProfilerActivity, profile
+
+        return profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    return profiler.capture_session()
 
 
 def emit(phase: str, **fields):
@@ -515,13 +580,161 @@ def serve_prompts(torch, vocab: int):
     return [torch.randint(0, vocab, (n,), generator=g).tolist() for n in lens]
 
 
+def read_events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def host_memory_gb():
+    """(MemAvailable, this process's VmRSS) in GB, from /proc."""
+    def field(path, key):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return None
+    return field("/proc/meminfo", "MemAvailable"), field(
+        "/proc/self/status", "VmRSS")
+
+
+def step_watch_ledger(torch, slow_s=1.5):
+    """A goodput ledger that also records, for each ``step`` phase, the
+    caching allocator's segment counts and retries, the cyclic GC's pause
+    time and the host's free memory on entry and exit; and, once a step
+    has been open ``slow_s``, every thread's innermost frames. Phase 10
+    keeps it as the process ledger while its ``train`` runs, so a step
+    that a checkpoint boundary slows says where it waited."""
+    import contextlib
+    import traceback
+
+    from serverless_learn_tpu_torch.telemetry import goodput
+
+    gc_s = [0.0, None]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        elif gc_s[1] is not None:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+            gc_s[1] = None
+
+    def alloc():
+        s = torch.cuda.memory_stats()
+        return {k: s.get(k, 0) for k in (
+            "num_alloc_retries", "num_device_alloc", "num_device_free")}
+
+    class Watched(goodput.PhaseLedger):
+        def __init__(self):
+            super().__init__()
+            self.steps, self.open = [], None
+            self.stop = threading.Event()
+            gc.callbacks.append(on_gc)
+            threading.Thread(target=self._watch, daemon=True).start()
+
+        def _watch(self):
+            while not self.stop.wait(0.05):
+                rec = self.open
+                if (rec is not None and "stacks" not in rec
+                        and time.perf_counter() - rec["t0"] > slow_s):
+                    names = {t.ident: t.name for t in threading.enumerate()}
+                    rec["stacks"] = {
+                        names.get(tid, str(tid)): [
+                            f"{fs.filename.rsplit('/', 2)[-1]}:{fs.lineno} "
+                            f"{fs.name}" for fs in
+                            traceback.extract_stack(frame)[-10:]]
+                        for tid, frame in sys._current_frames().items()}
+
+        def close(self):
+            self.stop.set()
+            if on_gc in gc.callbacks:
+                gc.callbacks.remove(on_gc)
+
+        @contextlib.contextmanager
+        def phase(self, name):
+            if name != "step":
+                with super().phase(name):
+                    yield
+                return
+            rec = {"t0": time.perf_counter(), "gc0": gc_s[0],
+                   "alloc0": alloc(), "mem0": host_memory_gb()}
+            self.open = rec
+            try:
+                with super().phase(name):
+                    yield
+            finally:
+                self.open = None
+                a1 = alloc()
+                rec.update(s=time.perf_counter() - rec.pop("t0"),
+                           gc_s=gc_s[0] - rec.pop("gc0"),
+                           alloc=dict((k, a1[k] - v) for k, v in
+                                      rec.pop("alloc0").items()),
+                           mem1=host_memory_gb(),
+                           threads=threading.active_count())
+                self.steps.append(rec)
+
+    return Watched()
+
+
+def engine_telemetry(engine, registry, events_path, scraped, **want):
+    """Phases 9 and 9c's telemetry checks: the engine's counters in its
+    own fresh registry equal ``want`` (the counts the phase knows), the
+    ``/metrics`` scrape carries them, and every request span in the event
+    log carries a waterfall. Returns the record, with the waterfalls'
+    ``ledger_overhead_frac`` (their own host time over their decode time,
+    as the reference's ``slt waterfall`` sums it)."""
+    names = {"requests": "slt_requests_total",
+             "finished": "slt_requests_finished_total",
+             "tokens": "slt_decode_tokens_total",
+             "prefill_chunks": "slt_prefill_chunks_total",
+             "prefix_hits": "slt_kv_prefix_hits_total",
+             "preemptions": "slt_kv_preemptions_total"}
+    snap = registry.snapshot()
+    got, faults = {}, []
+    for key, n in want.items():
+        series = [s for s in snap.get(names[key], {}).get("series", [])
+                  if s["labels"] == {"engine": engine}]
+        got[key] = series[0]["value"] if series else None
+        if got[key] != n:
+            faults.append(f"{names[key]} = {got[key]}, expected {n}")
+        line = f'{names[key]}{{engine="{engine}"}} {int(n)}'
+        if line not in scraped:
+            faults.append(f"/metrics lacks {line!r}")
+    spans = [r for r in read_events(events_path)
+             if r.get("event") == "span" and r.get("span") == "request"]
+    bare = [r["span_id"] for r in spans if "waterfall" not in r]
+    if len(spans) != want["requests"] or bare:
+        faults.append(f"{len(spans)} request spans ({len(bare)} without a "
+                      f"waterfall) for {want['requests']} requests")
+    overhead = sum(r["waterfall"].get("overhead_s", 0.0) for r in spans
+                   if "waterfall" in r)
+    decode = sum(ph.get("s", 0.0) for r in spans if "waterfall" in r
+                 for ph in r["waterfall"]["phases"]
+                 if ph["phase"] == "decode")
+    hist = {name: snap[name]["series"][0]["count"] for name in
+            ("slt_request_ttft_seconds", "slt_request_latency_seconds",
+             "slt_request_queue_wait_seconds") if name in snap}
+    if faults:
+        fail(f"{engine} engine telemetry: " + "; ".join(faults))
+    return {"counters": got, "spans": len(spans),
+            "histogram_counts": hist,
+            "waterfall_overhead_s": overhead, "waterfall_decode_s": decode,
+            "ledger_overhead_frac": overhead / decode if decode else None}
+
+
 def serve_full_width(torch, card):
-    """Phase 9: llama_8b int8 served through the port's GenerationServer."""
+    """Phase 9: llama_8b int8 served through the port's GenerationServer,
+    with a fresh registry, the metrics endpoint and an event log."""
+    import os
+    import shutil
+    import tempfile
+
     from serverless_learn_tpu_torch.config import KVCacheConfig
     from serverless_learn_tpu_torch.inference.server import (GenerationServer,
                                                             request)
     from serverless_learn_tpu_torch.models.registry import build_model
     from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+    from serverless_learn_tpu_torch.telemetry import (MetricsRegistry,
+                                                      fetch_text)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -536,9 +749,15 @@ def serve_full_width(torch, card):
         rows_served.add(args[0].numel())  # every projection's R: B * T
 
     model.register_forward_pre_hook(count_forward)
+    tel = tempfile.mkdtemp(prefix="slt-phase9-")
+    registry = MetricsRegistry()
     server = GenerationServer(model, port=0, max_batch=8,
                               batch_wait_ms=50.0, engine="static",
-                              kv=KVCacheConfig(paged=False)).start()
+                              kv=KVCacheConfig(paged=False),
+                              registry=registry, metrics_port=0,
+                              event_log_path=os.path.join(tel,
+                                                          "events.jsonl"))
+    server.start()
     try:
         server.engine.warm(PROMPT_LEN, NEW_TOKENS, batch_sizes=(SERVE_BATCH,))
         prompts = serve_prompts(torch, cfg.vocab_size)
@@ -569,8 +788,17 @@ def serve_full_width(torch, card):
         first, wall1 = send_all(greedy + [sampled])
         again, wall2 = send_all(greedy)
         launches, n_fwd = quant_matmul.launches, forwards[0]
+        scraped = fetch_text(server.metrics_addr, "/metrics")
     finally:
         server.stop()
+    # The engine's series hold what the phase sent: every request, and
+    # the warm-up group's finished requests and tokens beside them.
+    served = len(first) + len(again)
+    telemetry = engine_telemetry(
+        "static", registry, os.path.join(tel, "events.jsonl"), scraped,
+        requests=served, finished=served + SERVE_BATCH,
+        tokens=(served + SERVE_BATCH) * NEW_TOKENS)
+    shutil.rmtree(tel, ignore_errors=True)
     for req, rep in zip(greedy + [sampled], first):
         if "error" in rep:
             fail(f"server error: {rep['error']}")
@@ -602,7 +830,8 @@ def serve_full_width(torch, card):
          greedy_latency_ms_max=max(lat),
          round1_wall_s=wall1, round2_wall_s=wall2,
          round2_new_tokens_per_s=len(again) * NEW_TOKENS / wall2,
-         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         telemetry=telemetry)
     static = where_time_goes(torch, model, prompts, card)
     return launches, model, [r["new_tokens"] for r in first[:SERVE_BATCH]], \
         static
@@ -644,8 +873,6 @@ def where_time_goes(torch, model, prompts, card):
     time) and 5 decode steps under torch.profiler for the device's busy
     share, kernel time by name, and the eager ops and device kernels a
     step dispatches."""
-    from torch.profiler import ProfilerActivity, profile
-
     from serverless_learn_tpu_torch.inference.generate import init_cache
 
     B = len(prompts)
@@ -668,12 +895,10 @@ def where_time_goes(torch, model, prompts, card):
             model(step, cache=cache, decode=True)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as pprof:
+        with profiled() as pprof:
             model(toks, cache=cache, prefill=True, seq_lengths=lens)
             torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(n):
                 model(step, cache=cache, decode=True)
             torch.cuda.synchronize()
@@ -769,6 +994,37 @@ def forced_logits(torch, model, prompts, tokens, window=None, chunk=32):
             steps.append(model(fed[:, j:j + 1], cache=cache,
                                decode=True)[:, 0])
     return torch.stack(steps, 1).float()
+
+
+def prefix_expectation(groups, block, chunk):
+    """(prefix hits, prefill chunks) the continuous engine must count for
+    ``groups``: lists of prompts, each group admitted while only the
+    earlier groups' prompts are published (their full blocks). A prompt
+    skips its longest published full-block prefix, plus the leading
+    tokens its partial last block shares with a published block (copy on
+    write), never its last token; it is a hit when it skips any, and
+    prefills the rest in chunks of ``chunk``. Nothing is evicted."""
+    pub, hits, chunks = set(), 0, 0
+    for group in groups:
+        for p in group:
+            p, L = tuple(p), len(p)
+            m = 0
+            while m + block <= L and p[:m + block] in pub:
+                m += block
+            rem, cow = p[m:m + block], 0
+            if rem and len(rem) < block:
+                for q in pub:
+                    if len(q) == m + block and q[:m] == p[:m]:
+                        n = 0
+                        while n < len(rem) and q[m + n] == rem[n]:
+                            n += 1
+                        cow = max(cow, n)
+            skip = min(m + cow, L - 1)
+            hits += skip > 0
+            chunks += -(-(L - skip) // chunk)
+        for p in group:
+            pub.update(tuple(p[:k]) for k in range(block, len(p) + 1, block))
+    return hits, chunks
 
 
 def published(trie, prompt) -> bool:
@@ -911,16 +1167,13 @@ def trace_replays(torch, eng, replays, per_fwd):
     replayed calls are its replays times those. Each step's trace also
     gives its device time. Returns ({bucket: record}, replayed calls,
     faults)."""
-    from torch.profiler import ProfilerActivity, profile
-
     traced, faults = {}, []
     for key in sorted(replays):
         chunk = eng._chunks[key]
         chunk.table.fill_(eng._pool.sentinel)
         chunk.step.zero_()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             chunk.graph.replay()
             torch.cuda.synchronize()
         span, _, _, _, kern = device_time(torch, prof, "quant_")
@@ -940,13 +1193,24 @@ def serve_continuous(torch, card, model, static_replies, static_step):
     """Phase 9c: phase 9's llama_8b int8 served through GenerationServer's
     defaults: the continuous engine over the paged pool (block 16,
     prefill_chunk 32, budget 64, prefix cache on), decode chunks replayed
-    from CUDA graphs."""
-    from torch.profiler import ProfilerActivity, profile
+    from CUDA graphs. The server has a fresh registry, the metrics
+    endpoint, an event log and the profiler armed: after the rounds the
+    engine's counters must equal what the phase sent, every reply's span
+    must carry a waterfall whose own host time is under 2 % of its decode
+    time, and a ``/debug/profile?seconds=2`` capture taken from the
+    exporter's thread during a second 128-token round must hold the
+    serving thread's ``quant_decode`` kernels."""
+    import os
+    import shutil
+    import tempfile
 
+    from serverless_learn_tpu_torch.config import KVCacheConfig
     from serverless_learn_tpu_torch.inference.generate import generate
     from serverless_learn_tpu_torch.inference.server import (GenerationServer,
                                                             request)
     from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+    from serverless_learn_tpu_torch.telemetry import (MetricsRegistry,
+                                                      fetch_text)
 
     cfg = model.cfg
     V = cfg.vocab_size
@@ -986,7 +1250,13 @@ def serve_continuous(torch, card, model, static_replies, static_step):
 
     hook = model.register_forward_pre_hook(count_forward)
     torch.cuda.reset_peak_memory_stats()
-    server = GenerationServer(model, port=0).start()
+    tel = tempfile.mkdtemp(prefix="slt-phase9c-")
+    events_path = os.path.join(tel, "events.jsonl")
+    registry = MetricsRegistry()
+    server = GenerationServer(model, port=0, registry=registry,
+                              metrics_port=0, event_log_path=events_path,
+                              profile_dir=os.path.join(tel, "profiles"))
+    server.start()
     eng = server.engine
     # The host clock at the end of each harvest, with its dispatch's kind.
     harvests = []
@@ -1060,6 +1330,27 @@ def serve_continuous(torch, card, model, static_replies, static_step):
             th.join(timeout=600)
         round_wall = time.perf_counter() - t1
         round_log = [h for h in harvests if h[1] >= t1]
+        # The same round again under an on-demand capture, taken by the
+        # exporter's HTTP thread while the engine's thread serves (after
+        # the timed round: a profiler session slows the launches).
+        profile = {}
+
+        def capture():
+            profile.update(json.loads(fetch_text(
+                server.metrics_addr, "/debug/profile?seconds=2",
+                timeout=120)))
+
+        cap = threading.Thread(target=capture)
+        cap.start()
+        time.sleep(0.5)  # the session is running before the requests
+        th3 = [threading.Thread(target=lambda i: request(
+            server.addr, {"prompt": prompts[i], "max_new_tokens":
+                          DECODE_ROUND}, timeout=600), args=(i,))
+               for i in range(SERVE_BATCH)]
+        for th in th3:
+            th.start()
+        for th in th3 + [cap]:
+            th.join(timeout=600)
         # EOS alone, where the trajectory is known: the EOS prompt served
         # alone, then again alone with eos_id its own token at step 5.
         plain = request(server.addr, {"prompt": prompts[e],
@@ -1068,9 +1359,37 @@ def serve_continuous(torch, card, model, static_replies, static_step):
         stopped = request(server.addr, {"prompt": prompts[e],
                                         "max_new_tokens": NEW_TOKENS,
                                         "eos_id": stop})
+        scraped = fetch_text(server.metrics_addr, "/metrics")
     finally:
         server.stop()
         hook.remove()
+    n_req = len(first) + len(later) + 2 * SERVE_BATCH + 2
+    # The phase's own order: the first five together on an empty trie,
+    # the later three once phase 9's prompts are published, two decode
+    # rounds of them, then the EOS prompt twice alone.
+    kv = KVCacheConfig()
+    want_hits, want_chunks = prefix_expectation(
+        [[r["prompt"] for r in first], [r["prompt"] for r in later],
+         prompts, prompts, [prompts[e]], [prompts[e]]],
+        kv.block_size, kv.prefill_chunk)
+    telemetry = engine_telemetry(
+        "continuous", registry, events_path, scraped, requests=n_req,
+        finished=n_req,
+        tokens=(len(first) + len(later) + 2) * NEW_TOKENS
+        + 2 * SERVE_BATCH * DECODE_ROUND,
+        prefill_chunks=want_chunks, prefix_hits=want_hits, preemptions=0)
+    telemetry["harvest_telemetry_ms_per_decode_chunk"] = (
+        eng.telemetry_host_s * 1e3 / max(eng.decode_harvests, 1))
+    telemetry["decode_harvests"] = eng.decode_harvests
+    if not profile.get("ok"):
+        fail(f"phase 9c: /debug/profile answered {profile}")
+    with open(profile["trace"]) as f:
+        trace_text = f.read()
+    telemetry["profile"] = dict(
+        ok=profile.get("ok"), seconds=profile.get("seconds"),
+        trace_mb=len(trace_text) / 1e6,
+        quant_decode_events=trace_text.count("::quant_decode<"))
+    shutil.rmtree(tel, ignore_errors=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pages = eng._pages
     pool_bytes = sum(p.numel() * p.element_size()
@@ -1164,8 +1483,7 @@ def serve_continuous(torch, card, model, static_replies, static_step):
     chunk = eng._chunks.get((SERVE_BATCH, 16)) or next(
         iter(eng._chunks.values()))
     chunk.table.fill_(eng._pool.sentinel)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         chunk.run(graph=True)
         torch.cuda.synchronize()
     span, busy, k6, _, kern = device_time(torch, prof, "quant_")
@@ -1202,9 +1520,17 @@ def serve_continuous(torch, card, model, static_replies, static_step):
              steps=C, span_ms=span / 1e3, busy_ms=busy / 1e3,
              device_ms_per_step=span / C / 1e3,
              device_idle_share=1 - busy / span, quant_matmul_ms=k6 / 1e3,
-             k6_calls=k6_calls(kern), device_kernels=len(kern)))
+             k6_calls=k6_calls(kern), device_kernels=len(kern)),
+         telemetry=telemetry)
     if faults:
         fail("phase 9c: " + "; ".join(faults))
+    if not telemetry["profile"]["quant_decode_events"]:
+        fail("phase 9c: the /debug/profile capture holds no quant_decode "
+             "kernel")
+    frac = telemetry["ledger_overhead_frac"]
+    if frac is None or not frac < 0.02:
+        fail(f"phase 9c: the waterfalls' host time is {frac} of their "
+             "decode time, not under 0.02")
     return launches, replayed
 
 
@@ -1512,8 +1838,6 @@ def train_full_width(torch, card):
     """Phase 8b: llama_1b, batch 2 x 4096 tokens, 5 adamw steps (lr 1e-3,
     clip 1.0) through run_training, counters read around the run, then one
     more step under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from serverless_learn_tpu_torch.config import (DataConfig,
                                                    ExperimentConfig,
                                                    OptimizerConfig,
@@ -1587,8 +1911,7 @@ def train_full_width(torch, card):
     batch = trainer.place(next(iter(make_source(cfg, trainer,
                                                 start_step=state.step))))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         state, m = trainer.step(state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
@@ -1906,8 +2229,6 @@ def train_lora_8b(torch, card):
     batch-2 fused step under torch.profiler."""
     import dataclasses
 
-    from torch.profiler import ProfilerActivity, profile
-
     from serverless_learn_tpu_torch.cli import _train_config, build_parser
     from serverless_learn_tpu_torch.models import transformer
     from serverless_learn_tpu_torch.models.llama import lm_bundle
@@ -2077,8 +2398,7 @@ def train_lora_8b(torch, card):
         cfg.train, batch_size=2, grad_accum=1)), bundle=trainer.bundle,
         device=trainer.device, optimizer=trainer.optimizer)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         state, m = one.step(state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
@@ -2117,6 +2437,18 @@ CKPT_TRAIN = ["--model", "llama_1b", "--batch-size", str(TRAIN_B),
               "--seq-len", str(TRAIN_T), "--set",
               "optimizer.grad_clip_norm=1.0"]
 CKPT_FREE_BYTES = 40e9  # two 18 GB blobs on disk while GC catches up
+# Phase 10's train: an in-loop eval every 2 steps (of train.eval_steps'
+# default 10 batches), and the emergency shadow refreshed at every step
+# boundary at least 1 s apart (the default 30 s would refresh it once in
+# 3 steps; every refresh's stall is printed).
+CKPT_EVAL_EVERY = 2
+EVAL_STEPS_DEFAULT = 10
+CKPT_SHADOW_INTERVAL_S = 1
+# The health engine runs at its defaults: its step watchdog fires when no
+# step lands in 5x the typical interval (at least 1 s), less the time the
+# loop spent in the checkpoint and eval phases. Phase 10's step boundaries
+# hold the loop for an 18 GB shadow refresh and a save (up to ~10 s), so
+# the phase checks that no alert fires through them.
 CRC_SAMPLE = 2 << 30  # bytes of the blob whose CRC phase 10b times twice
 
 
@@ -2152,6 +2484,82 @@ class Patched:
     def __exit__(self, *exc):
         for obj, name, real in self.saved:
             setattr(obj, name, real)
+
+
+def prom_value(text, name):
+    """A series' value in a Prometheus scrape (the unlabelled one)."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def train_telemetry(done, reg, steps_before, scrapes, events_path):
+    """Phase 10's telemetry checks of the ``train`` command (module doc):
+    the step counter, the last-step gauge, the MFU gauge, the ledger's
+    phases and goodput, no alert, /healthz, the spans of the event log,
+    and each emergency-shadow refresh's stall."""
+    from serverless_learn_tpu_torch.telemetry import goodput
+
+    faults = []
+    steps = reg.counter("slt_train_steps_total").value - steps_before
+    if steps != 3:
+        faults.append(f"slt_train_steps_total rose by {steps}, not 3")
+    last = [prom_value(r["/metrics"][1], "slt_train_last_step_unix_s")
+            for r in scrapes if r.get("/metrics")]
+    last = [v for v in last if v]
+    if len(set(last)) < 2 or last != sorted(last):
+        faults.append(f"the last-step gauge did not advance: {last}")
+    mfu = reg.gauge("slt_train_mfu").value
+    if abs(mfu - done["mfu"]) > 5e-4:  # the done line rounds to 3 places
+        faults.append(f"slt_train_mfu {mfu} vs the done line's "
+                      f"{done['mfu']}")
+    good = [json.loads(r["/goodput"][1]) for r in scrapes
+            if r.get("/goodput") and r["/goodput"][0] == 200]
+    ledger = goodput.get_ledger().report(mfu=mfu)
+    phases = set(ledger["phases"])
+    if not {"compile", "step", "checkpoint", "eval"} <= phases:
+        faults.append(f"the ledger's phases are {sorted(phases)}")
+    if not 0 < done["goodput"] <= 1:
+        faults.append(f"goodput {done['goodput']}")
+    fired = [a for r in scrapes if r.get("/alerts")
+             for a in json.loads(r["/alerts"][1]).get("firing", [])]
+    if fired:
+        faults.append(f"alerts fired: {fired[:3]}")
+    health = [r["/healthz"][0] for r in scrapes if r.get("/healthz")]
+    if not health or set(health) != {200}:
+        faults.append(f"/healthz answered {sorted(set(health))}")
+    events = read_events(events_path)
+    spans = [r["span"] for r in events if r.get("event") == "span"]
+    if spans.count("train/run") != 1 or spans.count("train/step") != 3:
+        faults.append(f"the event log's spans: {spans}")
+    shadows = [r for r in events if r.get("event") == "ckpt_shadow"]
+    if not shadows:
+        faults.append("no emergency-shadow refresh")
+    # Where the unattributed time sits: the gaps between the phase
+    # records (those of 50 ms or more) that the event log holds.
+    phases = sorted((r["t0_unix_s"], r["t0_unix_s"] + r["duration_s"],
+                     r["phase"]) for r in events if r.get("event") == "phase")
+    gaps = sorted(((b[0] - a[1], a[2], b[2]) for a, b in
+                   zip(phases, phases[1:]) if b[0] > a[1]), reverse=True)
+    if faults:
+        fail("phase 10 telemetry: " + "; ".join(faults))
+    return dict(
+        steps_counted=steps, scrapes=len(scrapes),
+        endpoints_scraped=sorted({k for r in scrapes for k in r
+                                  if k.startswith("/") and r[k]}),
+        last_step_gauge_values=len(set(last)), mfu_gauge=mfu,
+        done_mfu=done["mfu"], goodput=done["goodput"],
+        badput_breakdown=done["badput_breakdown"],
+        ledger_phases={k: v["seconds"] for k, v in
+                       ledger["phases"].items()},
+        goodput_scrapes=len(good), healthz=sorted(set(health)),
+        alerts_fired=len(fired), spans=dict(
+            (n, spans.count(n)) for n in sorted(set(spans))),
+        done_spans=done.get("spans"),
+        shadow_refreshes=[(r["step"], r["seconds"]) for r in shadows],
+        phase_records=[(round(b - a, 3), n) for a, b, n in phases],
+        largest_gaps_s=[(round(g, 3), a, b) for g, a, b in gaps[:4]])
 
 
 def run_cli(argv):
@@ -2246,6 +2654,9 @@ def checkpoint_path(torch, card):
     import shutil
     import zlib
 
+    from urllib.error import HTTPError
+    from urllib.request import urlopen
+
     from serverless_learn_tpu_torch import cli
     from serverless_learn_tpu_torch.inference import server as server_mod
     from serverless_learn_tpu_torch.inference import speculative
@@ -2254,6 +2665,8 @@ def checkpoint_path(torch, card):
     from serverless_learn_tpu_torch.ops import cross_entropy as ce
     from serverless_learn_tpu_torch.ops import flash_attention as fa
     from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+    from serverless_learn_tpu_torch.telemetry import goodput, tracing
+    from serverless_learn_tpu_torch.telemetry.registry import get_registry
     from serverless_learn_tpu_torch.training import checkpoint as ckpt_mod
     from serverless_learn_tpu_torch.training import loop
     from serverless_learn_tpu_torch.training.train_step import build_trainer
@@ -2299,20 +2712,79 @@ def checkpoint_path(torch, card):
                     super().__init__(*a, **k)
                     kept["ckpt"] = self
 
-                def _put_blob(self, step, blob):
-                    super()._put_blob(step, blob)
+                def _put_blob(self, step, blob, **kw):
+                    super()._put_blob(step, blob, **kw)
                     committed.append(step)
             return Kept
 
+        def keep_as(key):
+            def wrap(real):
+                def start(*a, **k):
+                    kept[key] = real(*a, **k)
+                    return kept[key]
+                return start
+            return wrap
+
+        # The telemetry: a fresh process ledger and tracing sink for this
+        # command; a thread scrapes the endpoints while it trains.
+        tel = os.path.join(root, "telemetry")
+        events_path = os.path.join(tel, "events.jsonl")
+        os.makedirs(tel)
+        watched = step_watch_ledger(torch)
+        goodput.set_ledger(watched)
+        mem_before = host_memory_gb()
+        cuda_before = (torch.cuda.memory_allocated() / 1e9,
+                       torch.cuda.memory_reserved() / 1e9)
+        reg = get_registry()
+        steps_before = reg.counter("slt_train_steps_total").value
+        scrapes, scraping = [], threading.Event()
+
+        def scrape():
+            while not scraping.wait(0.25):
+                exp = kept.get("exporter")
+                if exp is None:
+                    continue
+                row = {"t": time.time()}
+                for path in ("/metrics", "/goodput", "/alerts", "/healthz"):
+                    try:
+                        with urlopen(f"http://{exp.addr}{path}",
+                                     timeout=10) as r:
+                            row[path] = (r.status, r.read().decode())
+                    except HTTPError as e:
+                        row[path] = (e.code, e.read().decode())
+                    except OSError:
+                        row[path] = None  # the exporter stopped
+                scrapes.append(row)
+
+        scraper = threading.Thread(target=scrape, daemon=True)
+        scraper.start()
         zero()
         t0 = time.perf_counter()
-        with Patched((loop, "run_training", keep_run),
-                     (ckpt_mod, "Checkpointer", keep_ckpt)):
-            done = run_cli(["train", *CKPT_TRAIN, "--steps", "3",
-                            "--checkpoint-every", "2", "--set",
-                            "checkpoint.keep=1", "--checkpoint-dir", root])
+        try:
+            with Patched((loop, "run_training", keep_run),
+                         (ckpt_mod, "Checkpointer", keep_ckpt),
+                         (cli, "_start_metrics", keep_as("exporter")),
+                         (cli, "_start_health", keep_as("health"))):
+                done = run_cli([
+                    "train", *CKPT_TRAIN, "--steps", "3",
+                    "--checkpoint-every", "2", "--set", "checkpoint.keep=1",
+                    "--checkpoint-dir", root, "--metrics-port", "0",
+                    "--health", "--events-log", events_path, "--flight-dir",
+                    tel, "--set", f"train.eval_every={CKPT_EVAL_EVERY}",
+                    "--set", "checkpoint.emergency_min_interval_s="
+                    f"{CKPT_SHADOW_INTERVAL_S}"])
+        finally:
+            scraping.set()
+            scraper.join(timeout=30)
+            tracing.reset_tracing()  # later phases write no events here
         train_s = time.perf_counter() - t0
         train_launches = read()
+        watched.close()
+        emit("checkpoint_train_steps", card=card,
+             host_mem_avail_rss_gb_before=mem_before,
+             cuda_allocated_reserved_gb_before=cuda_before, steps=watched.steps)
+        telemetry = train_telemetry(done, reg, steps_before, scrapes,
+                                    events_path)
         trainer, state, cfg = kept["trainer"], kept["state"], kept["cfg"]
         n_params = sum(p.numel() for p in state.model.parameters())
         listing = sorted(os.listdir(os.path.join(root, "ckpt")))
@@ -2331,7 +2803,8 @@ def checkpoint_path(torch, card):
              upload_gb_per_s=gbps(timings["save_bytes"],
                                   timings["upload_s"]),
              crc_s=timings["crc_s"],
-             crc_gb_per_s=gbps(timings["save_bytes"], timings["crc_s"]))
+             crc_gb_per_s=gbps(timings["save_bytes"], timings["crc_s"]),
+             telemetry=telemetry)
         if done["final_step"] != 3 or committed != [2, 3]:
             fail(f"train: final step {done['final_step']}, committed "
                  f"{committed} (expected 3 and [2, 3])")
@@ -2341,9 +2814,12 @@ def checkpoint_path(torch, card):
         if os.path.getsize(blob) < 12 * n_params:
             fail(f"blob of {os.path.getsize(blob)} B holds less than the "
                  f"state's {12 * n_params} B")
-        # 3 steps x 16 layers; fused_ce is off for llama_1b, so no CE.
-        expect("train", train_launches, flash_fwd=48, flash_dq=48,
-               flash_dkv=48)
+        # 3 steps x 16 layers, and the forward of the in-loop eval's
+        # batches (default train.eval_steps) x 16 layers; fused_ce is off
+        # for llama_1b, so no CE.
+        loop_k1 = 16 * EVAL_STEPS_DEFAULT * (3 // CKPT_EVAL_EVERY)
+        expect("train", train_launches, flash_fwd=48 + loop_k1,
+               flash_dq=48, flash_dkv=48)
 
         # -- b. restore in place, bit for bit -----------------------------
         fresh = build_trainer(cfg, "cuda")
@@ -2643,6 +3119,151 @@ def checkpoint_path(torch, card):
     return total, replayed
 
 
+# ----------------------------------------------------- emergency save --
+
+# Phase 12a's child: llama_1b at full width and 2 layers, checkpointing
+# too rarely to save on its own, with the emergency shadow refreshed at
+# every step boundary.
+DRILL_ARGS = ["--model", "llama_1b", "--batch-size", str(TRAIN_B),
+              "--seq-len", str(TRAIN_T), "--set", "model_overrides.n_layers=2",
+              "--set", "optimizer.grad_clip_norm=1.0", "--steps", "100000",
+              "--checkpoint-every", "1000", "--verbose",
+              "--set", "train.log_every=1",
+              "--set", "checkpoint.emergency_min_interval_s=0"]
+DRILL_TIMEOUT_S = 600  # for the third step line, then for the child's exit
+
+
+def emergency_drill(torch, card):
+    """Phase 12a: a child process ``train``s (DRILL_ARGS) and gets SIGTERM
+    after its third step line. Its flight dump must say sigterm and carry
+    the card's ``torch.cuda`` memory statistics and
+    ``slt_ckpt_emergency_saves_total`` = 1; the emergency commit must be
+    the newest shadow's step (or the step a refresh the signal interrupted
+    was copying), restore in place into a fresh trainer here,
+    and re-encode to the committed bytes (their CRC-32 is the
+    manifest's), so what was restored is the shadow bit for bit."""
+    import os
+    import shutil
+    import signal
+
+    from serverless_learn_tpu_torch.cli import _train_config, build_parser
+    from serverless_learn_tpu_torch.training import checkpoint as ckpt_mod
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+    from serverless_learn_tpu_torch.utils.serialization import encode
+
+    root = checkpoint_dir(free_bytes=12e9, prefix="slt-phase12a-")
+    flight_dir = os.path.join(root, "flight")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "serverless_learn_tpu_torch", "train",
+         *DRILL_ARGS, "--checkpoint-dir", root, "--flight-dir", flight_dir],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    # A thread drains the child's stderr, so neither a silent child nor a
+    # full pipe can block the phase: the waits below all time out.
+    lines, third = [], threading.Event()
+
+    def drain():
+        n = 0
+        for line in child.stderr:
+            lines.append(line)
+            if line.startswith('{"step"'):
+                n += 1
+                if n == 3:
+                    third.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    t_kill = rc = None
+    at_kill = 0
+    try:
+        if third.wait(timeout=DRILL_TIMEOUT_S):
+            t_kill = time.perf_counter()
+            child.send_signal(signal.SIGTERM)
+            at_kill = len(lines)
+        rc = child.wait(timeout=DRILL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        reader.join(timeout=30)
+    step_lines = sum(x.startswith('{"step"') for x in lines[:at_kill])
+    tail = lines[-20:]
+    death_s = time.perf_counter() - t_kill if t_kill is not None else None
+    if t_kill is None or rc != -signal.SIGTERM:
+        fail(f"phase 12a: {step_lines} step lines, exit {rc}: "
+             f"{''.join(tail)[-2000:]}")
+    dumps = os.listdir(flight_dir)
+    if len(dumps) != 1:
+        fail(f"phase 12a: flight dumps {dumps}")
+    with open(os.path.join(flight_dir, dumps[0])) as f:
+        dump = json.load(f)
+    saved = dump.get("death_hooks", {}).get("ckpt:ckpt", {})
+    shadows = [(e["step"], e["seconds"]) for e in dump["events"]
+               if e.get("event") == "ckpt_shadow"]
+    emergency = dump.get("metrics", {}).get(
+        "slt_ckpt_emergency_saves_total", {}).get("series", [{}])
+    mem = dump.get("device_memory") or []
+    faults = []
+    if dump.get("reason") != "sigterm":
+        faults.append(f"dump reason {dump.get('reason')}")
+    if not mem or "allocated_bytes.all.current" not in mem[0]:
+        faults.append("the dump carries no torch.cuda memory statistics")
+    if emergency[0].get("value") != 1:
+        faults.append(f"slt_ckpt_emergency_saves_total {emergency}")
+    # The newest shadow's step; or, when the signal interrupted a
+    # refresh, the step being copied (one past the last whole shadow's).
+    step = saved.get("step")
+    newest = (shadows[-1][0] if shadows else 0) + (
+        saved.get("source") == "refresh")
+    if step is None or step != newest:
+        faults.append(f"the emergency save {saved} is not the newest "
+                      f"shadow's step ({shadows[-1:]})")
+    if faults:
+        fail("phase 12a: " + "; ".join(faults))
+
+    # Restore the emergency commit in place into a fresh trainer (the
+    # child's config), then re-encode it: the committed bytes again.
+    args = build_parser().parse_args(["train", *DRILL_ARGS])
+    cfg = _train_config(args)
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.init(seed=1)
+    ck = ckpt_mod.Checkpointer(ckpt_mod.LocalStore(root))
+    with open(os.path.join(root, "ckpt", f"step-{step:010d}.manifest")) as f:
+        manifest = json.load(f)
+    torch.cuda.synchronize()
+    t0r = time.perf_counter()
+    tree = trainer.state_tree(state)
+    ck.restore(tree, step=step)
+    trainer.load_tree(state, tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0r
+    again = encode(trainer.state_tree(state))
+    crc = ckpt_mod._crc(again)
+    if (state.step != step or len(again) != manifest["nbytes"]
+            or crc != manifest["crc32"]
+            or manifest.get("emergency") != "emergency:sigterm"):
+        fail(f"phase 12a: the restored state (step {state.step}) re-encodes "
+             f"to {len(again)} B crc {crc:#010x}, the emergency commit is "
+             f"{manifest}")
+    emit("emergency_save_llama_1b_2_layers", card=card,
+         emergency_step=step, steps_logged_before_sigterm=step_lines,
+         blob_bytes=manifest["nbytes"], crc32=manifest["crc32"],
+         shadow_refreshes_s=shadows,
+         shadow_first_s=shadows[0][1],
+         shadow_later_s_median=(statistics.median(s for _, s in shadows[1:])
+                                if len(shadows) > 1 else None),
+         sigterm_to_exit_s=death_s, child_s=time.perf_counter() - t0,
+         flight_dump_keys=sorted(dump), dump_device_memory_gb=mem[0].get(
+             "allocated_bytes.all.current", 0) / 1e9,
+         restore_in_place_s=restore_s, bit_identical=True)
+    del trainer, state, tree, again
+    shutil.rmtree(root, ignore_errors=True)
+    return step
+
+
 # ------------------------------------------------------------------ QLoRA --
 
 # The JAX package's single-card 8B fine-tuning rung (benchmarks/ladder.py
@@ -2745,7 +3366,7 @@ def qlora_8b(torch, card):
     import os
     import shutil
 
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from serverless_learn_tpu_torch.cli import _train_config, build_parser
     from serverless_learn_tpu_torch.config import OptimizerConfig
@@ -3060,8 +3681,7 @@ def qlora_8b(torch, card):
     attention.xla_attention = transformer.xla_attention = ranged
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             state, m = trainer.step(state, batch)
             float(m["loss"])
             torch.cuda.synchronize()
@@ -3214,6 +3834,135 @@ def train_only(torch, build, card) -> int:
     return 0
 
 
+# --ckpt-train-only's steps: at ~0.30 s a step, over 60 s of steady steps,
+# with the periodic save past the last step (only the final save runs).
+CKPT_AB_STEPS = 250
+
+
+def ckpt_train_only(torch, build, card) -> int:
+    """Phase 10's ``train`` with ``--checkpoint-dir`` at the defaults (the
+    emergency save armed wherever the package beside this file has one,
+    its shadow refreshed at most once per
+    ``checkpoint.emergency_min_interval_s``), CKPT_AB_STEPS steps and no
+    periodic save among them, for an A/B of the checkpoint path's steady
+    tokens/s between commits. The window is the step meter's steps 3 on
+    (record to record, so a refresh's stall lands in the next step)."""
+    import os
+    import shutil
+
+    from serverless_learn_tpu_torch.training import loop
+
+    build.load("flash_attention")
+    root = checkpoint_dir(free_bytes=25e9, prefix="slt-ckpt-ab-")
+    kept = {}
+
+    def keep_run(real):
+        def run(*a, **k):
+            state, meter = real(*a, **k)
+            kept["meter"] = meter
+            return state, meter
+        return run
+
+    t0 = time.perf_counter()
+    try:
+        with Patched((loop, "run_training", keep_run)):
+            done = run_cli(["train", *CKPT_TRAIN, "--steps",
+                            str(CKPT_AB_STEPS), "--checkpoint-every",
+                            str(CKPT_AB_STEPS + 1), "--checkpoint-dir",
+                            root])
+        command_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(os.path.join(root, "ckpt")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    times = [s.step_time_s for s in kept["meter"].history]
+    window = times[2:]
+    med = statistics.median(window)
+    emit("ckpt_train_command_llama_1b", card=card, steps=len(times),
+         window_steps=len(window), window_s=sum(window),
+         tokens_per_s=TRAIN_B * TRAIN_T * len(window) / sum(window),
+         step_median_s=med,
+         held_steps=[[i + 1, t] for i, t in enumerate(times)
+                     if i >= 2 and t > 2 * med],
+         step1_s=times[0], step2_s=times[1], command_s=command_s,
+         committed=saved, done_tokens_per_sec=done.get("tokens_per_sec"),
+         done_step_time_s=done.get("step_time_s"),
+         goodput=done.get("goodput"),
+         badput_breakdown=done.get("badput_breakdown"))
+    if len(times) != CKPT_AB_STEPS:
+        fail(f"--ckpt-train-only: {len(times)} steps")
+    return 0
+
+
+SERVE_ONLY_ROUNDS = 3  # timed decode rounds of --serve-only
+
+
+def serve_only(torch, build, card) -> int:
+    """Phase 9c's decode round alone, for an A/B of the continuous decode
+    step between commits: llama_8b int8 through GenerationServer's
+    defaults (whatever telemetry the package beside this file has on by
+    default), the decode buckets captured by ``warm_shapes``, phase 9's
+    prompts served once, then SERVE_ONLY_ROUNDS rounds of them again with
+    DECODE_ROUND new tokens each (prefix hits, as phase 9c's round). The
+    decode time per token is the host clock between the harvests of two
+    decode chunks dispatched one after the other, over chunk_size."""
+    from serverless_learn_tpu_torch.inference.server import (GenerationServer,
+                                                            request)
+    from serverless_learn_tpu_torch.models.registry import build_model
+
+    build.load("quant_matmul")
+    model = build_model("llama_8b", device="cuda", quant="int8", seed=0)
+    prompts = serve_prompts(torch, model.cfg.vocab_size)
+    server = GenerationServer(model, port=0).start()
+    eng = server.engine
+    harvests = []
+    harvest = eng._harvest
+
+    def timed_harvest(fut):
+        harvest(fut)
+        harvests.append((fut[0], time.perf_counter()))
+
+    eng._harvest = timed_harvest
+    rounds = []
+    try:
+        eng.warm_shapes([(PROMPT_LEN, DECODE_ROUND)])
+        for r in range(SERVE_ONLY_ROUNDS + 1):
+            replies = [None] * SERVE_BATCH
+
+            def client(i):
+                replies[i] = request(server.addr, {
+                    "prompt": prompts[i], "max_new_tokens": DECODE_ROUND},
+                    timeout=600)
+
+            t1 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVE_BATCH)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t1
+            if any(x is None or len(x.get("new_tokens", ())) != DECODE_ROUND
+                   for x in replies):
+                fail(f"--serve-only: malformed replies {str(replies)[:300]}")
+            log = [h for h in harvests if h[1] >= t1]
+            per_tok = [(b[1] - a[1]) * 1e3 / eng.chunk_size
+                       for a, b in zip(log, log[1:])
+                       if a[0] == b[0] == "pchunk"]
+            rounds.append({"round": r, "wall_s": wall, "per_tok": per_tok})
+    finally:
+        server.stop()
+    timed = [v for x in rounds[1:] for v in x["per_tok"]]
+    emit("serve_only_decode_round", card=card, rounds=SERVE_ONLY_ROUNDS,
+         decode_ms_per_token=statistics.median(timed),
+         decode_ms_per_token_all=timed,
+         round_wall_s=[x["wall_s"] for x in rounds],
+         cold_round_per_tok=rounds[0]["per_tok"],
+         harvest_telemetry_ms_per_decode_chunk=(
+             eng.telemetry_host_s * 1e3 / max(eng.decode_harvests, 1)
+             if hasattr(eng, "telemetry_host_s") else None))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3234,6 +3983,10 @@ def main() -> int:
         return quant_matmul_only(torch, qm, build, card)
     if "--train-only" in sys.argv[1:]:
         return train_only(torch, build, card)
+    if "--serve-only" in sys.argv[1:]:
+        return serve_only(torch, build, card)
+    if "--ckpt-train-only" in sys.argv[1:]:
+        return ckpt_train_only(torch, build, card)
 
     t0 = time.perf_counter()
     sources = ["quant_matmul", "flash_attention", "cross_entropy"]
@@ -3277,6 +4030,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     qlora = qlora_8b(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emergency_drill(torch, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",

@@ -24,6 +24,11 @@
         --serve-engine static --kv-monolithic
     python -m serverless_learn_tpu_torch generate --model llama_tiny \\
         --prompt 5,9,11 --max-new-tokens 8
+    python -m serverless_learn_tpu_torch train --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --steps 100 --metrics-port 9100 \\
+        --health --events-log run/events.jsonl --set train.eval_every=20
+    python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8 \\
+        --metrics-port 9101 --profile-dir profiles
 
 The flags are those of the reference CLI (``serverless_learn_tpu/cli.py``)
 for these paths. Checkpoints are the JAX package's (``training/
@@ -32,28 +37,38 @@ the whole state, ``generate`` and ``serve`` the params alone. Without
 ``--checkpoint-dir`` the weights are random, made from ``--seed``; with it,
 a store that holds no checkpoint is an error, never random weights. Every
 command runs on the card; ``--device cpu`` is for tests only.
+
+Telemetry flags of ``train``, ``eval`` and ``serve``, the reference's:
+``--metrics-port`` serves ``/metrics``, ``/metrics.json``, ``/healthz``,
+``/alerts``, ``/goodput`` and ``/debug/profile`` (0 picks a
+port, printed in a ``{"event": "metrics"}`` line); ``--health`` runs the
+health engine behind ``/alerts`` and ``/healthz``; ``--events-log``,
+``--flight-dir`` and ``--node`` arm tracing and the flight recorder;
+``--profile-dir`` arms the profiler (without a metrics port, ``train``
+profiles the whole run). ``train`` with a checkpoint store arms the
+emergency save (``checkpoint.emergency_save``), and its ``done`` line
+carries ``goodput``, ``badput_breakdown`` and ``spans``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 from typing import List, Optional
 
 from serverless_learn_tpu_torch.config import (ExperimentConfig, apply_sets,
                                                coerce, not_ported)
 
-_SERVE_SECTIONS = ("model_overrides", "kv")
+_SERVE_SECTIONS = ("model_overrides", "kv", "health", "waterfall")
 
 NOT_PORTED = {
     "distributed": "multi-process training (--world-size) is not yet ported "
                    "to PyTorch (ROADMAP.md queue 1 item 3, data parallel)",
     "shard_server": "streaming data from the shard server is not yet ported "
                     "to PyTorch (ROADMAP.md queue 1 item 5)",
-    "telemetry": "the metrics endpoint and the health engine are not yet "
-                 "ported to PyTorch (ROADMAP.md queue 1 item 3, the loop's "
-                 "telemetry)",
 }
 
 
@@ -73,6 +88,78 @@ def _overrides(items: Optional[List[str]],
                                            for name in sections))
         out[section][key] = coerce(val)
     return out
+
+
+def _start_metrics(args):
+    """The /metrics exporter when ``--metrics-port`` is given (the caller
+    stops it); logs its address (port 0 picks one). ``--profile-dir`` arms
+    the shared profiler: /debug/profile and alert-triggered captures."""
+    from serverless_learn_tpu_torch.utils.metrics import log_json
+
+    profile_dir = getattr(args, "profile_dir", None)
+    if profile_dir:
+        from serverless_learn_tpu_torch.telemetry import profiler
+
+        profiler.arm(profile_dir)
+    if args.metrics_port is None:
+        return None
+    from serverless_learn_tpu_torch.telemetry import MetricsExporter
+
+    exp = MetricsExporter(port=args.metrics_port,
+                          profile_dir=profile_dir).start()
+    log_json({"event": "metrics", "addr": exp.addr,
+              **({"profile_armed": True} if profile_dir else {})},
+             stream=sys.stdout)
+    return exp
+
+
+def _start_health(args, health_cfg, exporter=None, registry=None):
+    """The health engine when ``--health`` (or ``health.enabled``) asks for
+    it, behind the exporter's /alerts and /healthz (the caller stops it).
+    With the profiler armed, a critical alert captures a trace."""
+    if not (args.health or health_cfg.enabled):
+        return None
+    from serverless_learn_tpu_torch.telemetry import profiler
+    from serverless_learn_tpu_torch.telemetry.health import HealthEngine
+    from serverless_learn_tpu_torch.utils.metrics import log_json
+
+    engine = HealthEngine(registry=registry, config=health_cfg,
+                          flight_dir=args.flight_dir).start()
+    if exporter is not None:
+        exporter.attach_health(engine)
+    profile_armed = (profiler.armed()
+                     and health_cfg.profile_on_critical_s > 0)
+    if profile_armed:
+        profiler.on_alert(engine, seconds=health_cfg.profile_on_critical_s,
+                          cooldown_s=health_cfg.profile_cooldown_s)
+    log_json({"event": "health", "interval_s": engine.interval_s,
+              "slos": [s["name"] for s in engine.slos],
+              **({"profile_on_critical_s": health_cfg.profile_on_critical_s}
+                 if profile_armed else {}),
+              **({"alerts_addr": exporter.addr} if exporter else {})},
+             stream=sys.stdout)
+    return engine
+
+
+def _init_tracing_from_args(args):
+    """Arm tracing and the flight recorder when ``--events-log``,
+    ``--flight-dir`` or ``--node`` asks for them: a SIGTERM'd or crashing
+    process then leaves ``flight-<node>-<ts>.json`` with its last spans."""
+    from serverless_learn_tpu_torch.utils.metrics import log_json
+
+    events_log, flight_dir = args.events_log, args.flight_dir
+    if not (events_log or flight_dir or args.node):
+        return
+    from serverless_learn_tpu_torch.telemetry import init_tracing
+
+    if flight_dir is None:
+        flight_dir = (os.path.dirname(os.path.abspath(events_log))
+                      if events_log else ".")
+    name = init_tracing(node=args.node, events_log=events_log,
+                        flight_dir=flight_dir)
+    log_json({"event": "tracing", "node": name,
+              **({"events_log": events_log} if events_log else {}),
+              "flight_dir": flight_dir}, stream=sys.stdout)
 
 
 def _make_checkpointer(args, cfg=None):
@@ -231,54 +318,84 @@ def _refuse_unported(args):
         raise SystemExit(NOT_PORTED["distributed"])
     if args.shard_server:
         raise SystemExit(NOT_PORTED["shard_server"])
-    if args.metrics_port is not None or args.health:
-        raise SystemExit(NOT_PORTED["telemetry"])
 
 
 def cmd_train(args) -> int:
     """Train a model on the card; with ``--checkpoint-dir`` save every
-    ``train.checkpoint_every`` steps and at the end. Ends with the
-    reference's ``done`` line on stdout."""
+    ``train.checkpoint_every`` steps and at the end, with the emergency
+    save armed. Ends with the reference's ``done`` line on stdout."""
     from serverless_learn_tpu_torch.ops import cross_entropy as ce
     from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.telemetry import goodput
+    from serverless_learn_tpu_torch.telemetry.tracing import get_tracer
     from serverless_learn_tpu_torch.training.loop import run_training
     from serverless_learn_tpu_torch.training.train_step import build_trainer
     from serverless_learn_tpu_torch.utils.metrics import log_json
 
     _refuse_unported(args)
     cfg = _train_config(args)
+    _init_tracing_from_args(args)
     kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ce.cross_entropy_fwd,
                ce.cross_entropy_bwd)
     before = [k.launches for k in kernels]
-    ckpt = None
+    ckpt = exporter = health = None
     try:
+        exporter = _start_metrics(args)
+        health = _start_health(args, cfg.health, exporter=exporter)
+        bracket = contextlib.nullcontext()
+        if args.profile_dir and exporter is None:
+            # Without an endpoint, profile the whole run, through the
+            # shared lock so nothing nests a second session.
+            from serverless_learn_tpu_torch.telemetry.profiler import (
+                capture_session)
+
+            bracket = capture_session(args.profile_dir)
         ckpt = _make_checkpointer(args, cfg)
         trainer = callback = None
         if ckpt is not None:
             trainer = build_trainer(cfg, args.device)
             every = cfg.train.checkpoint_every
+            if cfg.checkpoint.emergency_save:
+                # A SIGTERM'd or crashing run commits its newest shadow,
+                # losing at most emergency_min_interval_s of steps.
+                ckpt.arm_emergency(
+                    min_interval_s=cfg.checkpoint.emergency_min_interval_s)
 
             def callback(step, state, stats):
+                held = ckpt.note_state(lambda: trainer.state_tree(state))
+                if held is not None:
+                    log_json({"event": "ckpt_shadow", "step": step,
+                              "seconds": round(held, 6)})
                 if every and step % every == 0:
                     ckpt.save(trainer.state_tree(state))
 
-        state, meter = run_training(cfg, trainer=trainer,
-                                    step_callback=callback,
-                                    verbose=args.verbose, device=args.device)
+        with bracket:
+            state, meter = run_training(cfg, trainer=trainer,
+                                        step_callback=callback,
+                                        verbose=args.verbose,
+                                        device=args.device)
         if ckpt is not None:
             ckpt.save(trainer.state_tree(state))
             ckpt.wait()
+        summary = meter.steady_state()
+        grep = goodput.get_ledger().report(mfu=summary.get("mfu"))
+        losses = [s.metrics["loss"] for s in meter.history]
+        log_json({"event": "done", "final_step": state.step,
+                  **{k: round(v, 3) for k, v in summary.items()},
+                  "goodput": grep["goodput"],
+                  "badput_breakdown": grep["badput_breakdown"],
+                  "spans": get_tracer().summary(),
+                  "losses": [round(x, 5) for x in losses],
+                  "kernel_launches": {k.__name__: k.launches - n
+                                      for k, n in zip(kernels, before)}},
+                 stream=sys.stdout)
     finally:
         if ckpt is not None:
-            ckpt.close()  # drain the upload in flight
-    summary = meter.steady_state()
-    losses = [s.metrics["loss"] for s in meter.history]
-    log_json({"event": "done", "final_step": state.step,
-              **{k: round(v, 3) for k, v in summary.items()},
-              "losses": [round(x, 5) for x in losses],
-              "kernel_launches": {k.__name__: k.launches - n
-                                  for k, n in zip(kernels, before)}},
-             stream=sys.stdout)
+            ckpt.close()  # drain the upload in flight, disarm the save
+        if health is not None:
+            health.stop()
+        if exporter is not None:
+            exporter.stop()
     return 0
 
 
@@ -292,23 +409,34 @@ def cmd_eval(args) -> int:
 
     _refuse_unported(args)
     cfg = _train_config(args)
-    trainer = build_trainer(cfg, args.device)
-    ckpt = _make_checkpointer(args, cfg)
-    state, step = trainer.init(), None
-    if ckpt is not None:
-        try:
-            if ckpt.latest_step() is None:
-                # Metrics of a random init would look plausible and mean
-                # nothing where the user pointed at a store.
-                raise SystemExit(
-                    "no checkpoint found in the configured store; drop "
-                    "--checkpoint-dir to eval a fresh init")
-            trainer.load_tree(state, ckpt.restore(trainer.state_tree(state)))
-            step = state.step
-        finally:
-            ckpt.close()
-    metrics = run_eval(cfg, trainer, state,
-                       num_batches=args.eval_steps or cfg.train.eval_steps)
+    _init_tracing_from_args(args)
+    exporter = health = None
+    try:
+        exporter = _start_metrics(args)
+        health = _start_health(args, cfg.health, exporter=exporter)
+        trainer = build_trainer(cfg, args.device)
+        ckpt = _make_checkpointer(args, cfg)
+        state, step = trainer.init(), None
+        if ckpt is not None:
+            try:
+                if ckpt.latest_step() is None:
+                    # Metrics of a random init would look plausible and
+                    # mean nothing where the user pointed at a store.
+                    raise SystemExit(
+                        "no checkpoint found in the configured store; drop "
+                        "--checkpoint-dir to eval a fresh init")
+                trainer.load_tree(state,
+                                  ckpt.restore(trainer.state_tree(state)))
+                step = state.step
+            finally:
+                ckpt.close()
+        metrics = run_eval(cfg, trainer, state,
+                           num_batches=args.eval_steps or cfg.train.eval_steps)
+    finally:
+        if health is not None:
+            health.stop()
+        if exporter is not None:
+            exporter.stop()
     print(json.dumps({"checkpoint_step": step,
                       **{k: round(float(v), 6) for k, v in metrics.items()}}))
     return 0
@@ -361,26 +489,45 @@ def cmd_generate(args) -> int:
 
 def cmd_serve(args) -> int:
     """Serve generation requests (JSON lines over TCP) from a causal LM."""
+    from serverless_learn_tpu_torch.config import (HealthConfig,
+                                                   WaterfallConfig)
     from serverless_learn_tpu_torch.inference.server import GenerationServer
 
     sets = _overrides(args.set, _SERVE_SECTIONS)
     kv = _kv_config(args, sets["kv"])
+    try:
+        health_cfg = HealthConfig(**sets["health"])
+        waterfall = WaterfallConfig(**sets["waterfall"])
+    except TypeError as e:
+        raise SystemExit(f"--set: {e}")
+    _init_tracing_from_args(args)
     model, step = _model_from_args(args, sets["model_overrides"])
     server = GenerationServer(model, host=args.host, port=args.port,
                               max_batch=args.max_batch,
                               batch_wait_ms=args.batch_wait_ms,
                               engine=args.serve_engine,
-                              chunk_size=args.chunk_size, kv=kv)
-    print(json.dumps({"event": "serving", "addr": server.addr,
-                      "model": args.model, "checkpoint_step": step,
-                      "engine": args.serve_engine,
-                      "kv": getattr(server.engine, "kv_stats",
-                                    lambda: None)()}), flush=True)
+                              chunk_size=args.chunk_size, kv=kv,
+                              metrics_port=args.metrics_port,
+                              event_log_path=args.events_log,
+                              profile_dir=args.profile_dir,
+                              waterfall=waterfall)
+    health = None
     try:
+        health = _start_health(args, health_cfg, exporter=server._exporter,
+                               registry=server.registry)
+        print(json.dumps({"event": "serving", "addr": server.addr,
+                          "model": args.model, "checkpoint_step": step,
+                          "engine": args.serve_engine,
+                          "kv": getattr(server.engine, "kv_stats",
+                                        lambda: None)(),
+                          **({"metrics_addr": server.metrics_addr}
+                             if server.metrics_addr else {})}), flush=True)
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        if health is not None:
+            health.stop()
         server.stop()
     return 0
 
@@ -392,7 +539,8 @@ def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--set", action="append", metavar="model_overrides.K=V",
                    help="override a model config field, e.g. --set "
                         "model_overrides.n_layers=4; serve also takes the "
-                        "KV cache's, e.g. --set kv.block_size=32")
+                        "KV cache's, the health engine's and the waterfall's,"
+                        " e.g. --set kv.block_size=32")
     p.add_argument("--quant", choices=["int8"], default=None,
                    help="weight-only int8 projections (the hand-written "
                         "int8 matmul kernel on the card)")
@@ -402,6 +550,30 @@ def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda",
                    help="cuda (default), or cpu for tests only")
     _add_checkpoint_flags(p)
+
+
+def _add_telemetry_flags(p: argparse.ArgumentParser):
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve /metrics, /metrics.json, /healthz, /alerts, "
+                        "/goodput and /debug/profile from this "
+                        "port (0 = auto)")
+    p.add_argument("--health", action="store_true",
+                   help="run the health engine (anomaly, SLO burn-rate and "
+                        "staleness detectors) behind /alerts and /healthz")
+    p.add_argument("--events-log", metavar="PATH", default=None,
+                   help="append one JSONL record per span and event here; "
+                        "also arms the flight recorder")
+    p.add_argument("--flight-dir", metavar="DIR", default=None,
+                   help="flight-recorder dumps on SIGTERM or a crash "
+                        "(default: the events log's directory, or cwd)")
+    p.add_argument("--node", default=None,
+                   help="node name stamped on records (default "
+                        "<hostname>-<pid>; SLT_NODE overrides)")
+    p.add_argument("--profile-dir", metavar="DIR", default=None,
+                   help="arm the profiler: /debug/profile?seconds=N on the "
+                        "metrics endpoint, alert-triggered captures with "
+                        "--health; train without --metrics-port profiles "
+                        "the whole run")
 
 
 def _add_checkpoint_flags(p: argparse.ArgumentParser):
@@ -440,10 +612,7 @@ def _add_train_flags(p: argparse.ArgumentParser):
                    help="not yet ported: raises")
     p.add_argument("--world-size", type=int, default=None,
                    help="not yet ported: raises")
-    p.add_argument("--metrics-port", type=int, default=None,
-                   help="not yet ported: raises")
-    p.add_argument("--health", action="store_true",
-                   help="not yet ported: raises")
+    _add_telemetry_flags(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -484,6 +653,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser("serve",
                         help="serve LM generation over TCP (JSON lines)")
     _add_model_flags(sv)
+    _add_telemetry_flags(sv)
     sv.add_argument("--host", default="127.0.0.1",
                     help="bind address (0.0.0.0 to accept remote clients)")
     sv.add_argument("--port", type=int, default=50060)

@@ -1,17 +1,17 @@
 """Configuration of the port's training path: its own copy of the parts of
 ``serverless_learn_tpu/config.py`` (``ExperimentConfig`` and the sections
 ``model``, ``model_overrides``, ``mesh``, ``optimizer``, ``train`` and
-``data``, ``checkpoint``, and the serving engines' ``kv``) with the same
-field names and
-defaults, so the reference's JSON configs and ``--set section.key=value``
-overrides mean the same here.
+``data``, ``checkpoint``, the serving engines' ``kv``, the health
+engine's ``health`` and the request ledger's ``waterfall``) with the same
+field names and defaults, so the reference's JSON configs and ``--set
+section.key=value`` overrides mean the same here.
 
-What this slice does not run raises instead of being ignored: a mesh of
+What the port does not run raises instead of being ignored: a mesh of
 more than one device, a non-f32 gradient exchange, every field of
 ``_FIELDS_NOT_PORTED`` set away from its default, and any of the sections
-``control``, ``local_sgd``, ``health``, ``membership``, ``fleet``,
-``waterfall``, ``numerics`` and ``elastic`` (the port keeps no copy of
-their defaults, so it refuses them when set at all).
+``control``, ``local_sgd``, ``membership``, ``fleet``, ``numerics`` and
+``elastic`` (the port keeps no copy of their defaults, so it refuses them
+when set at all).
 """
 
 from __future__ import annotations
@@ -24,24 +24,19 @@ from typing import Any, Dict, Iterable, Optional
 _SECTIONS_NOT_PORTED = {
     "control": "the control plane (coordinator, shard server)",
     "local_sgd": "gossip / DiLoCo local SGD",
-    "health": "the health engine",
     "membership": "gossip membership",
     "fleet": "the serving fleet",
-    "waterfall": "request waterfalls",
-    "numerics": "numerics telemetry",
+    "numerics": "numerics telemetry (ROADMAP.md queue 1 item 3g)",
     "elastic": "elastic training",
 }
 ROADMAP_TRAINING = "ROADMAP.md queue 1 item 3"
 _DATA_ITEM = "ROADMAP.md queue 1 item 5"
-_EMERGENCY = ("the emergency save on the flight recorder's death path",
-              "ROADMAP.md queue 1 item 3e")
 _REPLICAS = ("peer checkpoint replication (training/replicate.py)",
              _DATA_ITEM)
 # (section, field) -> (what it runs, ROADMAP item): kept so the reference's
 # configs load, raising when set away from the default.
 _FIELDS_NOT_PORTED = {
     ("train", "zero_stage"): ("ZeRO", "ROADMAP.md queue 1 item 3d"),
-    ("train", "eval_every"): ("in-loop eval", "ROADMAP.md queue 1 item 3e"),
     ("train", "donate_state"): ("a step that keeps its input state alive "
                                 "(the port updates the state in place)",
                                 ROADMAP_TRAINING),
@@ -54,8 +49,6 @@ _FIELDS_NOT_PORTED = {
     ("data", "mask_rate"): ("the shard server's host transforms", _DATA_ITEM),
     ("data", "learnable"): ("mlp_mnist's learnable synthetic task",
                             _DATA_ITEM),
-    ("checkpoint", "emergency_save"): _EMERGENCY,
-    ("checkpoint", "emergency_min_interval_s"): _EMERGENCY,
     ("checkpoint", "cache_dir"): _REPLICAS,
     ("checkpoint", "peers"): _REPLICAS,
     ("checkpoint", "replica_fanout"): _REPLICAS,
@@ -120,7 +113,7 @@ class TrainConfig:
     # Each step accumulates grads over `grad_accum` microbatches of
     # batch_size / grad_accum samples before the one optimizer update.
     grad_accum: int = 1
-    eval_every: int = 0  # 0 => no in-loop eval
+    eval_every: int = 0  # 0 => no in-loop eval; else every N steps
     eval_steps: int = 10  # batches of the `eval` command
     zero_stage: int = 0
     grad_reduce_dtype: str = "float32"  # only f32 (no cross-device exchange)
@@ -142,10 +135,12 @@ class DataConfig:
 class CheckpointConfig:
     """Checkpoint knobs (``training/checkpoint.py``), the reference's
     fields and defaults. ``verify`` gates the size/CRC checks of a
-    restore; ``keep`` is how many committed steps GC keeps. The emergency
-    save is not armed in the port (``emergency_save`` keeps its default and
-    does nothing yet); it and the peer-replication fields raise when set
-    away from their defaults (``_FIELDS_NOT_PORTED``)."""
+    restore; ``keep`` is how many committed steps GC keeps.
+    ``emergency_save`` arms the save on the flight recorder's death path
+    whenever ``train`` has a checkpointer, from a host shadow refreshed at
+    most once per ``emergency_min_interval_s``. The peer-replication
+    fields raise when set away from their defaults
+    (``_FIELDS_NOT_PORTED``)."""
 
     verify: bool = True
     keep: int = 3                       # retained steps (Checkpointer GC)
@@ -192,6 +187,70 @@ class KVCacheConfig:
 
 
 @dataclass(frozen=True)
+class WaterfallConfig:
+    """Per-request waterfall ledger knobs (``telemetry/waterfall.py``,
+    used by ``inference/continuous.py`` and ``inference/batching.py``),
+    the reference's fields and defaults.
+
+    A decode gap counts as a stall when it exceeds the request's EWMA
+    inter-token baseline by ``stall_mult`` times AND by at least
+    ``min_stall_s``. Attribution intersects the gap with the engine's
+    boundary-event ring (``events_window`` entries); per-request storage
+    is bounded by ``max_stall_events`` and ``max_gap_samples``."""
+
+    enabled: bool = True
+    ewma_alpha: float = 0.3        # decode-ITL baseline smoothing
+    stall_mult: float = 2.0        # gap > mult * baseline => stall
+    min_stall_s: float = 0.002     # ... and exceeds baseline by this
+    max_stall_events: int = 64     # attributed stall entries kept/request
+    max_gap_samples: int = 256     # raw decode gaps kept/request
+    events_window: int = 256       # engine boundary-event ring size
+
+
+@dataclass(frozen=True)
+class HealthConfig:
+    """Health engine knobs (``telemetry/health.py``), the reference's
+    fields and defaults. ``slos`` declares the objectives the burn-rate
+    alerter tracks (``telemetry.health.parse_slos``), e.g.
+
+        "health": {"enabled": true, "slos": [
+          {"name": "ttft", "kind": "latency",
+           "metric": "slt_request_ttft_seconds",
+           "threshold_s": 0.5, "objective": 0.95}]}
+
+    The ``numerics_*`` fields tune the reference's numerics detectors,
+    which wait for the port of ``telemetry/numerics.py``: they are
+    accepted and unused."""
+
+    enabled: bool = False           # CLI --health also turns the engine on
+    sample_interval_s: float = 2.0  # registry sampling period
+    anomaly_z: float = 6.0          # |modified z| that fires
+    anomaly_min_samples: int = 12   # warmup before any z is produced
+    anomaly_window: int = 240       # bounded per-series sample ring
+    stale_factor: float = 5.0       # no step/round/chunk in factor x EWMA
+    stale_min_interval_s: float = 1.0
+    straggler_factor: float = 4.0   # MADs above median = late
+    straggler_min_rounds: int = 2
+    straggler_window_rounds: int = 20
+    slo_fast_burn: float = 14.4
+    slo_slow_burn: float = 6.0
+    slo_short_window_s: float = 60.0
+    slo_long_window_s: float = 720.0
+    clear_after_ticks: int = 3       # clean ticks before auto-resolve
+    anchor_lag_rounds: float = 2.0   # DiLoCo lag gauge alert threshold
+    dump_cooldown_s: float = 300.0   # min gap between critical flight dumps
+    # Alert-triggered profiling: with --profile-dir, a critical alert
+    # captures this many seconds (0 disables), at most once a cooldown.
+    profile_on_critical_s: float = 3.0
+    profile_cooldown_s: float = 600.0
+    numerics_spike_z: float = 6.0
+    numerics_plateau_window: int = 200
+    numerics_plateau_min_rel: float = 1e-3
+    numerics_explode_z: float = 8.0
+    slos: tuple = ()                 # SLO spec objects (see docstring)
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: str = "mlp_mnist"
     model_overrides: dict = field(default_factory=dict)
@@ -201,6 +260,8 @@ class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     kv: KVCacheConfig = field(default_factory=KVCacheConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    health: HealthConfig = field(default_factory=HealthConfig)
+    waterfall: WaterfallConfig = field(default_factory=WaterfallConfig)
 
     def __post_init__(self):
         t = self.train
@@ -225,6 +286,11 @@ class ExperimentConfig:
         if t.checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0, got "
                              f"{t.checkpoint_every}")
+        if t.eval_every < 0:
+            raise ValueError(f"eval_every must be >= 0, got {t.eval_every}")
+        if self.checkpoint.emergency_min_interval_s < 0:
+            raise ValueError("emergency_min_interval_s must be >= 0, got "
+                             f"{self.checkpoint.emergency_min_interval_s}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
@@ -237,7 +303,7 @@ class ExperimentConfig:
                                  "ROADMAP.md queue 1")
         unknown = (set(raw) - {"model", "model_overrides", "mesh",
                                "optimizer", "train", "data", "kv",
-                               "checkpoint"}
+                               "checkpoint", "health", "waterfall"}
                    - set(_SECTIONS_NOT_PORTED))
         if unknown:
             raise ValueError(f"unknown config sections {sorted(unknown)}")
@@ -254,6 +320,8 @@ class ExperimentConfig:
             data=build(DataConfig, raw.get("data")),
             kv=build(KVCacheConfig, raw.get("kv")),
             checkpoint=build(CheckpointConfig, raw.get("checkpoint")),
+            health=build(HealthConfig, raw.get("health")),
+            waterfall=build(WaterfallConfig, raw.get("waterfall")),
         )
 
     @classmethod

@@ -1,7 +1,6 @@
 """Continuous batching: a slot-level decode scheduler over a paged KV pool,
-port of ``serverless_learn_tpu/inference/continuous.py`` without its
-telemetry (metrics registry, waterfalls, spans, flight, goodput, alert
-events) and without ``set_params``.
+port of ``serverless_learn_tpu/inference/continuous.py`` with its
+telemetry and without ``set_params`` (ROADMAP.md queue 1 item 1c).
 
 Instead of running a coalesced group to completion (``inference/
 batching.py``), the engine keeps ``max_slots`` decode slots and admits and
@@ -63,6 +62,24 @@ is reproducible, independent of its batch-mates and token-identical after
 preemption, as the reference's ``fold_in(PRNGKey(seed), position)``
 streams are; the bits differ from ``jax.random``'s. ``top_k`` above
 ``max_top_k`` is refused at submit.
+
+**Telemetry**, the reference's: the ``engine="continuous"`` series of the
+registry (requests, tokens, chunks, queue wait, TTFT, latency, ITL, slots,
+KV pages, prefix hits, prefill chunks, preemptions), a ``request`` span
+per request with its :class:`~..telemetry.waterfall.RequestWaterfall`
+(the engine's boundary events: compile, prefill steal, compaction,
+harvest drain, preemption, pool exhaustion), flight records, the
+``kv.blocks_exhausted`` alert events, and the goodput phases ``idle``,
+``admit``, ``prefill``, ``decode`` and ``compile``. A new decode bucket's
+graph capture and a first-seen prefill or admission shape are charged to
+``compile``, like the reference's jit of a new bucket (on the card they
+also pay the kernels' first launches). All of it runs on the host, in the
+dispatcher's thread, outside any captured region. ``telemetry_host_s``
+sums the host time of the harvest's per-row telemetry over
+``decode_harvests`` decode-chunk harvests. Each boundary runs inside
+``profiler.device_work()``: a profiler session started from another
+thread (``/debug/profile``) starts and stops between boundaries, never
+during a graph replay.
 """
 
 from __future__ import annotations
@@ -70,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -77,14 +95,23 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from serverless_learn_tpu_torch.config import KVCacheConfig
+from serverless_learn_tpu_torch.config import KVCacheConfig, WaterfallConfig
 from serverless_learn_tpu_torch.inference import kvcache
-from serverless_learn_tpu_torch.inference.batching import _bucket
+from serverless_learn_tpu_torch.inference.batching import (PROMPT_BUCKETS,
+                                                           _bucket)
 from serverless_learn_tpu_torch.inference.generate import init_cache
 from serverless_learn_tpu_torch.inference.kvcache import (BlockPool,
                                                           PrefixTrie,
                                                           pages_for)
 from serverless_learn_tpu_torch.models.transformer import Transformer
+from serverless_learn_tpu_torch.telemetry import flight, goodput, profiler
+from serverless_learn_tpu_torch.telemetry.registry import (RATE_BUCKETS,
+                                                           SIZE_BUCKETS, Span,
+                                                           get_registry)
+from serverless_learn_tpu_torch.telemetry.tracing import (TraceContext,
+                                                          node_name)
+from serverless_learn_tpu_torch.telemetry.waterfall import (BoundaryEvents,
+                                                            RequestWaterfall)
 
 
 def _wbucket(n: int) -> int:
@@ -262,6 +289,9 @@ class _Request:
     admit_seq: int = 0         # admission order (preemption picks youngest)
     gen: int = 0               # residency epoch; preemption voids in-flight
     #                            chunks of the old epoch
+    span: Optional[Span] = None  # request trace: submit/admit/first/done
+    wf: Optional[RequestWaterfall] = None  # per-request waterfall ledger
+    preempt_t: float = 0.0     # perf_counter of the last preemption
 
 
 class ContinuousBatchingEngine:
@@ -269,7 +299,9 @@ class ContinuousBatchingEngine:
 
     def __init__(self, model: Transformer, max_slots: int = 8,
                  chunk_size: int = 32, pipeline_depth: int = 2,
-                 max_top_k: int = 64, kv: Optional[KVCacheConfig] = None):
+                 max_top_k: int = 64, kv: Optional[KVCacheConfig] = None,
+                 registry=None, event_log=None,
+                 waterfall: Optional[WaterfallConfig] = None):
         self.model = model
         self.device = model.device
         self._cuda = self.device.type == "cuda"
@@ -341,9 +373,96 @@ class ContinuousBatchingEngine:
         # warm() raises this so a known batch size admits as ONE bucket;
         # 1 in normal service.
         self._min_admit = 1
+        self._init_telemetry(registry, event_log, waterfall)
         self._thread = threading.Thread(target=self._dispatch_loop,
                                         daemon=True)
         self._thread.start()
+
+    def _init_telemetry(self, registry, event_log, waterfall):
+        self.event_log = event_log
+        self.waterfall = waterfall if waterfall is not None \
+            else WaterfallConfig()
+        self._wf_events = BoundaryEvents(window=self.waterfall.events_window)
+        self._wf_stall_m: Dict[str, object] = {}  # cause -> counter child
+        self._wf_decode_total = 0.0  # decode wall across finished requests
+        self._wf_steal_total = 0.0   # prefill_steal stall across the same
+        self._last_decode_rows: tuple = ()  # compaction detection
+        self._kv_alert_firing = False
+        self._last_kv_alert = 0.0
+        # Shapes run before: a first-seen one is charged to "compile".
+        self._admit_shapes: set = set()
+        self._prefill_shapes: set = set()
+        self.telemetry_host_s = 0.0
+        self.decode_harvests = 0
+        reg = registry or get_registry()
+        self.registry = reg
+        lbl = {"engine": "continuous"}
+        self._m_requests = reg.counter(
+            "slt_requests_total", "requests accepted by the engine", **lbl)
+        self._m_finished = reg.counter("slt_requests_finished_total", **lbl)
+        self._m_cancelled = reg.counter(
+            "slt_requests_cancelled_total",
+            "submit() timeouts whose slot/queue entry was retired", **lbl)
+        self._m_tokens = reg.counter(
+            "slt_decode_tokens_total", "tokens returned to callers", **lbl)
+        self._m_chunks = reg.counter("slt_decode_chunks_total", **lbl)
+        self._m_qwait = reg.histogram(
+            "slt_request_queue_wait_seconds", "submit -> slot admission",
+            **lbl)
+        self._m_ttft = reg.histogram(
+            "slt_request_ttft_seconds", "submit -> first token on host",
+            **lbl)
+        self._m_latency = reg.histogram(
+            "slt_request_latency_seconds", "submit -> final token", **lbl)
+        self._m_per_tok = reg.histogram(
+            "slt_decode_seconds_per_token",
+            "per-token decode time after the first token", **lbl)
+        self._m_admit_sz = reg.histogram(
+            "slt_admit_batch_size", "requests per admit boundary",
+            buckets=SIZE_BUCKETS, **lbl)
+        self._m_tps = reg.histogram(
+            "slt_request_tokens_per_sec", buckets=RATE_BUCKETS, **lbl)
+        self._m_slots = reg.gauge(
+            "slt_slots_in_use", "occupied decode slots", **lbl)
+        self._m_prompt_tokens = reg.histogram(
+            "slt_request_prompt_tokens",
+            "prompt length per accepted request (the prefix-hit-rate "
+            "denominator)", buckets=PROMPT_BUCKETS, **lbl)
+        self._m_kv_total = reg.gauge(
+            "slt_kv_blocks_total", "KV pool size in blocks", **lbl)
+        self._m_kv_in_use = reg.gauge(
+            "slt_kv_blocks_in_use", "allocated KV pool blocks", **lbl)
+        self._m_kv_hits = reg.counter(
+            "slt_kv_prefix_hits_total",
+            "admissions that reused shared prefix blocks", **lbl)
+        self._m_kv_hit_tokens = reg.counter(
+            "slt_kv_prefix_tokens_total",
+            "prompt tokens skipped via shared prefix blocks", **lbl)
+        self._m_prefill_chunks = reg.counter(
+            "slt_prefill_chunks_total",
+            "prefill chunks interleaved between decode boundaries", **lbl)
+        self._m_kv_blocked = reg.counter(
+            "slt_kv_admit_blocked_total",
+            "admission/prefill boundaries deferred on pool exhaustion",
+            **lbl)
+        self._m_preempt = reg.counter(
+            "slt_kv_preemptions_total",
+            "slots preempted to free KV blocks (deterministic restart)",
+            **lbl)
+        if self._paged:
+            self._m_kv_total.set(self._pool.num_blocks)
+            self._m_kv_in_use.set(0)
+        self._m_itl = reg.histogram(
+            "slt_decode_itl_seconds",
+            "inter-token latency from the per-request decode trace", **lbl)
+        self._m_prefill_interf = reg.gauge(
+            "slt_prefill_interference_frac",
+            "fraction of decode wall-clock stalled by interleaved prefill "
+            "(waterfall prefill_steal attribution)", **lbl)
+        # The dispatcher's liveness stamp for the health engine.
+        self._m_activity = reg.gauge(
+            "slt_engine_last_activity_unix_s",
+            "wall time of the dispatcher's last admit/chunk", **lbl)
 
     # -- device state ------------------------------------------------------
 
@@ -445,10 +564,12 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt, max_new: int, temperature: float, top_k: int,
                eos_id: Optional[int], seed: int,
-               timeout_s: float = 600.0) -> dict:
+               timeout_s: float = 600.0,
+               trace: Optional[TraceContext] = None) -> dict:
         """Blocks until the dispatcher finishes this request; returns
         {"new_tokens": [...], "batch_size": n} or {"error": ...}, the
-        static engine's contract."""
+        static engine's contract. ``trace``: the caller's trace context,
+        which the request span chains under."""
         max_seq = self.model.cfg.max_seq_len
         if len(prompt) == 0:
             return {"error": "prompt must contain at least one token"}
@@ -463,6 +584,12 @@ class ContinuousBatchingEngine:
         r = _Request(prompt=np.asarray(prompt, np.int32), max_new=max_new,
                      temperature=float(temperature), top_k=int(top_k),
                      eos_id=eos_id, seed=int(seed))
+        r.span = (Span("request", trace_id=trace.trace_id,
+                       parent_id=trace.span_id)
+                  if trace is not None else Span("request"))
+        r.wf = self._new_waterfall()
+        self._m_requests.inc()
+        self._m_prompt_tokens.observe(len(prompt))
         self._q.put(r)
         if not r.done.wait(timeout_s):
             # The caller is gone: the dispatcher retires the slot (or the
@@ -478,11 +605,50 @@ class ContinuousBatchingEngine:
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slots) if r is None]
 
+    def _emit_span(self, span) -> None:
+        """Span record -> the JSONL event log (node-stamped) and the
+        flight ring."""
+        rec = span.to_event()
+        rec.setdefault("node", node_name())
+        if self.event_log is not None:
+            self.event_log.emit(rec)
+        flight.record(rec)
+
+    def _emit_event(self, rec: dict) -> None:
+        rec.setdefault("node", node_name())
+        if self.event_log is not None:
+            self.event_log.emit(rec)
+        flight.record(rec)
+
+    def _new_waterfall(self) -> Optional[RequestWaterfall]:
+        if not self.waterfall.enabled:
+            return None
+        w = self.waterfall
+        return RequestWaterfall(
+            engine="continuous", ewma_alpha=w.ewma_alpha,
+            stall_mult=w.stall_mult, min_stall_s=w.min_stall_s,
+            max_stall_events=w.max_stall_events,
+            max_gap_samples=w.max_gap_samples)
+
+    def _stall_counter(self, cause: str):
+        c = self._wf_stall_m.get(cause)
+        if c is None:
+            c = self.registry.counter(
+                "slt_decode_stall_seconds_total",
+                "decode stall seconds by attributed boundary-event cause",
+                cause=cause, engine="continuous")
+            self._wf_stall_m[cause] = c
+        return c
+
     def _cancel(self, r: _Request):
         """Retire an abandoned request: its submitter already returned."""
         r.finished = True
         r.result = {"error": "cancelled after submit timeout"}
         self.requests_cancelled += 1
+        self._m_cancelled.inc()
+        if r.span is not None:
+            r.span.mark("cancelled")
+            self._emit_span(r.span)
 
     def _drop_cancelled(self, staged: List[_Request]) -> None:
         keep = []
@@ -498,10 +664,22 @@ class ContinuousBatchingEngine:
         r.admit_seq = self._admit_counter
         self._admit_counter += 1
         self._slots[sid] = r
+        if r.wf is not None and r.preempt_t > 0.0:
+            # Close this request's preempt -> re-admission window: its next
+            # decode gap attributes to "preempt" through it.
+            r.wf.note_event("preempt", r.preempt_t, time.perf_counter())
+            r.preempt_t = 0.0
+        if r.span is not None:
+            r.span.mark("admit")
+            wait = r.span.between(None, "admit")
+            if wait is not None:
+                self._m_qwait.observe(wait)
 
     def _post_admit_stats(self, n: int):
         self.requests_admitted += n
+        self._m_admit_sz.observe(n)
         live = self.max_slots - len(self._free_slots())
+        self._m_slots.set(live)
         for r in self._slots:
             if r is not None:
                 r.peak_batch = max(r.peak_batch, live)
@@ -542,22 +720,35 @@ class ContinuousBatchingEngine:
             lengths[i] = len(r.prompt)
             self._note_admitted(r, ids[i])
         self._post_admit_stats(n)
-        temp, topk, eos, seed = (self._to_dev(a)
-                                 for a in self._sampling(batch, nb))
-        lens = self._to_dev(lengths)
-        small = init_cache(self.model, nb)
-        logits = self.model(self._to_dev(prompts), cache=small, prefill=True,
-                            seq_lengths=lens)
-        last = logits[torch.arange(nb, device=self.device), lens.long() - 1]
-        tok0 = sample_slots(last, temp, topk, seed,
-                            torch.zeros_like(lens), self.max_top_k)
-        sid = self._to_dev(np.asarray(ids, np.int64))
-        for big, new in zip(self._mono.k + self._mono.v, small.k + small.v):
-            big[sid] = new[:n]
-        self._mono.index[sid] = small.index[:n]
-        self._set_rows(sid, tok=tok0[:n], pos=1,
-                       done=((eos >= 0) & (tok0 == eos))[:n], temp=temp[:n],
-                       topk=topk[:n], eos=eos[:n], seed=seed[:n])
+        new_shape = (nb, pb) not in self._admit_shapes
+        self._admit_shapes.add((nb, pb))
+        t_j0 = time.perf_counter()
+        with goodput.phase("compile" if new_shape else "admit"):
+            temp, topk, eos, seed = (self._to_dev(a)
+                                     for a in self._sampling(batch, nb))
+            lens = self._to_dev(lengths)
+            small = init_cache(self.model, nb)
+            logits = self.model(self._to_dev(prompts), cache=small,
+                                prefill=True, seq_lengths=lens)
+            last = logits[torch.arange(nb, device=self.device),
+                          lens.long() - 1]
+            tok0 = sample_slots(last, temp, topk, seed,
+                                torch.zeros_like(lens), self.max_top_k)
+            sid = self._to_dev(np.asarray(ids, np.int64))
+            for big, new in zip(self._mono.k + self._mono.v,
+                                small.k + small.v):
+                big[sid] = new[:n]
+            self._mono.index[sid] = small.index[:n]
+            self._set_rows(sid, tok=tok0[:n], pos=1,
+                           done=((eos >= 0) & (tok0 == eos))[:n],
+                           temp=temp[:n], topk=topk[:n], eos=eos[:n],
+                           seed=seed[:n])
+        if new_shape:
+            t_j1 = time.perf_counter()
+            self._wf_events.note("compile", t_j0, t_j1)
+            for r in batch:
+                if r.wf is not None:
+                    r.wf.note_compile(t_j0, t_j1)
         host, ev = self._to_host(tok0)
         # The admit's first tokens harvest like a 1-token chunk, in order.
         return ("admit", host, ev, [(ids[i], batch[i]) for i in range(n)])
@@ -608,6 +799,46 @@ class ContinuousBatchingEngine:
         self._pending_cow.pop(sid, None)
         self._slots[sid] = None
 
+    def _note_kv_blocked(self):
+        """Pool exhaustion is admission backpressure: counted, and emitted
+        as a rate-limited alert event of the health engine's shape."""
+        self._m_kv_blocked.inc()
+        self._wf_events.note("kv_exhausted", time.perf_counter())
+        now = time.time()
+        if self._kv_alert_firing and now - self._last_kv_alert < 5.0:
+            return
+        self._kv_alert_firing = True
+        self._last_kv_alert = now
+        free, total = self._pool.free_blocks, self._pool.num_blocks
+        self._emit_event({
+            "event": "alert", "alert": "kv.blocks_exhausted",
+            "severity": "warning", "detector": "kvcache",
+            "state": "firing",
+            "message": f"KV block pool exhausted ({free}/{total} free): "
+                       f"admissions deferred (backpressure)",
+            "labels": {"engine": "continuous"},
+            "value": free / max(total, 1), "threshold": 0.0, "count": 1,
+            "first_fired_unix_s": round(now, 3),
+            "last_fired_unix_s": round(now, 3)})
+
+    def _maybe_resolve_kv_alert(self):
+        if not self._kv_alert_firing:
+            return
+        free, total = self._pool.free_blocks, self._pool.num_blocks
+        if free / max(total, 1) < 0.25:
+            return
+        self._kv_alert_firing = False
+        now = time.time()
+        self._emit_event({
+            "event": "alert", "alert": "kv.blocks_exhausted",
+            "severity": "warning", "detector": "kvcache",
+            "state": "resolved",
+            "message": f"KV pool pressure cleared ({free}/{total} free)",
+            "labels": {"engine": "continuous"},
+            "value": free / max(total, 1), "threshold": 0.0, "count": 1,
+            "first_fired_unix_s": round(self._last_kv_alert, 3),
+            "last_fired_unix_s": round(now, 3)})
+
     def _preempt_candidate(self, exclude: int) -> Optional[int]:
         """Youngest occupied slot (never the oldest: someone must finish),
         excluding ``exclude``."""
@@ -636,8 +867,15 @@ class ContinuousBatchingEngine:
         r.chunks_dispatched = 0
         r.tokens = []
         r.gen += 1  # in-flight chunks of the old residency are void
+        r.preempt_t = time.perf_counter()
+        # A marker for every in-flight decode trace: a preemption pauses
+        # the whole boundary, not just the victim.
+        self._wf_events.note("preempt", r.preempt_t)
+        if r.span is not None:
+            r.span.mark("preempt")
         staged.insert(0, r)
         self.preemptions += 1
+        self._m_preempt.inc()
 
     # ---- paged admission + prefill + decode ----
 
@@ -652,6 +890,7 @@ class ContinuousBatchingEngine:
         for _ in range(n):
             r = staged[0]
             sid = free[admitted]
+            t_a0 = time.perf_counter()
             L = len(r.prompt)
             pos0, shared, donor = 0, [], None
             if self._trie is not None:
@@ -675,6 +914,7 @@ class ContinuousBatchingEngine:
             if got is None:
                 # FIFO backpressure: nothing behind this request admits
                 # either; it stays queued and retries next boundary.
+                self._note_kv_blocked()
                 break
             self._pool.incref(shared)
             pages = list(shared) + got
@@ -689,7 +929,13 @@ class ContinuousBatchingEngine:
             staged.pop(0)
             r.prefilling = True
             r.prefill_pos = pos0
+            if r.wf is not None:
+                # Host-side admission work: trie lookup and page alloc.
+                r.wf.note_admit(t_a0, time.perf_counter())
             self._note_admitted(r, sid)
+            if pos0 > 0:
+                self._m_kv_hits.inc()
+                self._m_kv_hit_tokens.inc(pos0)
             admitted += 1
         if admitted:
             self._post_admit_stats(admitted)
@@ -719,6 +965,7 @@ class ContinuousBatchingEngine:
             if batch and tk > budget:
                 break
             if not self._ensure_pages(sid, r.prefill_pos + tk):
+                self._note_kv_blocked()
                 continue
             budget -= tk
             batch.append((sid, r, tk))
@@ -747,34 +994,56 @@ class ContinuousBatchingEngine:
             if cow is not None:
                 cows.append(cow)
             tbl_rows[i] = self._tbl[sid, :W]
-        temp, topk, eos, seed = (self._to_dev(a) for a in self._sampling(
-            [r for _, r, _ in batch], nb))
-        pages = self._pages
-        if cows:
-            # COW: copy each donor page before the extend overwrites its
-            # copy from the divergent offset.
-            src, dst = (self._to_dev(np.asarray(c, np.int64))
-                        for c in zip(*cows))
-            for p in pages.pages_k + pages.pages_v:
-                p[dst] = p[src]
-        lens_t = self._to_dev(lens)
-        cache = pages.with_tables(self._to_dev(tbl_rows), self._to_dev(ci0))
-        logits = self.model(self._to_dev(toks), cache=cache, extend=True,
-                            seq_lengths=lens_t)
-        last = logits[torch.arange(nb, device=self.device),
-                      (lens_t.long() - 1).clamp(min=0)]
-        tok0 = sample_slots(last, temp, topk, seed, torch.zeros_like(lens_t),
-                            self.max_top_k)
-        # Only rows that FINISHED their prompt become decodable; the rest
-        # write the scratch row.
-        sid_t = self._to_dev(slot_ids)
-        fin_ids = torch.where(self._to_dev(fin), sid_t, M)
-        self._set_rows(fin_ids, tok=tok0, pos=1,
-                       done=(eos >= 0) & (tok0 == eos), temp=temp,
-                       topk=topk, eos=eos, seed=seed)
-        self._set_rows(sid_t, ci=cache.index)
+        new_shape = (nb, T, W) not in self._prefill_shapes
+        self._prefill_shapes.add((nb, T, W))
+        t_j0 = time.perf_counter()
+        with goodput.phase("compile" if new_shape else "prefill"):
+            temp, topk, eos, seed = (self._to_dev(a) for a in self._sampling(
+                [r for _, r, _ in batch], nb))
+            pages = self._pages
+            if cows:
+                # COW: copy each donor page before the extend overwrites
+                # its copy from the divergent offset.
+                src, dst = (self._to_dev(np.asarray(c, np.int64))
+                            for c in zip(*cows))
+                for p in pages.pages_k + pages.pages_v:
+                    p[dst] = p[src]
+            lens_t = self._to_dev(lens)
+            cache = pages.with_tables(self._to_dev(tbl_rows),
+                                      self._to_dev(ci0))
+            logits = self.model(self._to_dev(toks), cache=cache, extend=True,
+                                seq_lengths=lens_t)
+            last = logits[torch.arange(nb, device=self.device),
+                          (lens_t.long() - 1).clamp(min=0)]
+            tok0 = sample_slots(last, temp, topk, seed,
+                                torch.zeros_like(lens_t), self.max_top_k)
+            # Only rows that FINISHED their prompt become decodable; the
+            # rest write the scratch row.
+            sid_t = self._to_dev(slot_ids)
+            fin_ids = torch.where(self._to_dev(fin), sid_t, M)
+            self._set_rows(fin_ids, tok=tok0, pos=1,
+                           done=(eos >= 0) & (tok0 == eos), temp=temp,
+                           topk=topk, eos=eos, seed=seed)
+            self._set_rows(sid_t, ci=cache.index)
+        t_j1 = time.perf_counter()
+        # In-flight decode traces see this window as a prefill steal, or a
+        # first-seen shape's compile (an interval: it holds the
+        # dispatcher). A warm chunk is a 0-width marker: the calls above
+        # only queue the work, which lands inside the victims' gap.
+        if new_shape:
+            self._wf_events.note("compile", t_j0, t_j1)
+        else:
+            self._wf_events.note("prefill_steal", t_j0)
         snapshot = []
         for i, (sid, r, tk) in enumerate(batch):
+            if r.wf is not None:
+                # The first chunk starts at the prefix-cache hit position.
+                hit = r.prefill_pos if not r.wf.prefill_chunks else 0
+                r.wf.note_prefill_chunk(t_j0, t_j1, int(tk),
+                                        prefix_hit_tokens=hit,
+                                        compiled=new_shape)
+                if new_shape:
+                    r.wf.note_compile(t_j0, t_j1)
             r.prefill_pos += tk
             if fin[i]:
                 r.prefilling = False
@@ -787,6 +1056,7 @@ class ContinuousBatchingEngine:
                                         self._slot_pages[sid][:n_full])
             snapshot.append((sid, r, bool(fin[i]), r.gen))
         self.prefill_chunks_run += len(batch)
+        self._m_prefill_chunks.inc(len(batch))
         host, ev = self._to_host(tok0)
         return ("prefill", host, ev, snapshot)
 
@@ -813,6 +1083,8 @@ class ContinuousBatchingEngine:
                 self._preempt(victim, staged)
             if self._ensure_pages(sid, needed):
                 rows.append(sid)
+            else:
+                self._note_kv_blocked()
         # Preemption may have evicted rows already collected.
         rows = [sid for sid in rows if self._slots[sid] is not None
                 and not self._slots[sid].prefilling]
@@ -827,15 +1099,31 @@ class ContinuousBatchingEngine:
         tbl_rows = np.full((nb, W), self._pool.sentinel, np.int32)
         for j, sid in enumerate(rows):
             tbl_rows[j] = self._tbl[sid, :W]
-        chunk = self._chunk(nb, W)
-        ids = self._to_dev(live_arr)
-        for name in _Rows.NAMES:
-            getattr(chunk.rows, name).copy_(getattr(self._rows, name)[ids])
-        chunk.table.copy_(self._to_dev(tbl_rows))
-        chunk.run(graph=self._cuda)
-        self._set_rows(ids, **{name: getattr(chunk.rows, name)
-                               for name in ("tok", "pos", "done", "ci")})
+        new_bucket = (nb, W) not in self._chunks
+        rows_now = tuple(rows)
+        if self._last_decode_rows and rows_now != self._last_decode_rows \
+                and not new_bucket:
+            # The live batch re-packed (retire, preempt or admit changed
+            # the rows): "compaction" on in-flight decode traces. A new
+            # bucket is charged as compile instead.
+            self._wf_events.note("compaction", time.perf_counter())
+        self._last_decode_rows = rows_now
+        t_j0 = time.perf_counter()
+        with goodput.phase("compile" if new_bucket else "decode"):
+            chunk = self._chunk(nb, W)  # a new bucket's graph is captured
+            ids = self._to_dev(live_arr)
+            for name in _Rows.NAMES:
+                getattr(chunk.rows, name).copy_(
+                    getattr(self._rows, name)[ids])
+            chunk.table.copy_(self._to_dev(tbl_rows))
+            chunk.run(graph=self._cuda)
+            self._set_rows(ids, **{name: getattr(chunk.rows, name)
+                                   for name in ("tok", "pos", "done",
+                                                "ci")})
+        if new_bucket:
+            self._wf_events.note("compile", t_j0, time.perf_counter())
         self.chunks_run += 1
+        self._m_chunks.inc()
         self.decoded_rows_total += len(rows)
         self.dispatched_rows_total += nb
         snapshot = []
@@ -850,8 +1138,17 @@ class ContinuousBatchingEngine:
 
     def _harvest(self, fut) -> None:
         kind, host, ev, snapshot = fut
+        t_h0 = time.perf_counter()
         if ev is not None:
             ev.synchronize()
+        t_now = time.perf_counter()
+        if t_now - t_h0 > 1e-4:
+            # The dispatcher sat blocked here: tokens of later in-flight
+            # chunks stall behind it (harvest drain).
+            self._wf_events.note("harvest_drain", t_h0, t_now)
+        if kind in ("pchunk", "chunk"):
+            self.decode_harvests += 1
+        tel_s = 0.0
         arr = host.numpy()
         if kind == "admit":
             arr = arr[:, None]  # [nb] -> [nb, 1], rows indexed by snapshot
@@ -879,10 +1176,37 @@ class ContinuousBatchingEngine:
                     else:
                         self._slots[sid] = None
                 continue
+            t_t0 = time.perf_counter()
+            first = r.span is not None \
+                and "first_token" not in r.span.marks
+            if first:
+                r.span.mark("first_token")
+                ttft = r.span.between(None, "first_token")
+                if ttft is not None:
+                    self._m_ttft.observe(ttft)
+            tel_s += time.perf_counter() - t_t0
+            n_before = len(r.tokens)
             for t in row:
                 r.tokens.append(int(t))
                 if len(r.tokens) >= r.max_new:
                     break
+            t_t0 = time.perf_counter()
+            if r.wf is not None:
+                if first:
+                    # Tokens delivered with the first share its arrival;
+                    # the decode trace starts here.
+                    r.wf.first_token(t_now)
+                else:
+                    out = r.wf.note_decode(t_now, len(r.tokens) - n_before,
+                                           self._wf_events)
+                    if out is not None:
+                        itl_s, causes = out
+                        for _ in range(len(r.tokens) - n_before):
+                            self._m_itl.observe(itl_s)
+                        if causes:
+                            for cause, v in causes.items():
+                                self._stall_counter(cause).inc(v)
+            tel_s += time.perf_counter() - t_t0
             # Retire on EOS exactly as generate fills: the EOS token is
             # kept, the rest of the budget fills with EOS.
             if r.eos_id is not None and r.eos_id in r.tokens:
@@ -894,12 +1218,45 @@ class ContinuousBatchingEngine:
                 r.result = {"new_tokens": r.tokens[:r.max_new],
                             "batch_size": r.peak_batch}
                 self.requests_finished += 1
+                t_t0 = time.perf_counter()
+                self._finish_telemetry(r)
+                tel_s += time.perf_counter() - t_t0
                 if self._slots[sid] is r:
                     if self._paged:
                         self._retire_slot(sid)
                     else:
                         self._slots[sid] = None
                 r.done.set()
+        self._m_slots.set(self.max_slots - len(self._free_slots()))
+        self.telemetry_host_s += tel_s
+
+    def _finish_telemetry(self, r: _Request):
+        """A finished request's counters, latency histograms, span and
+        waterfall."""
+        self._m_finished.inc()
+        self._m_tokens.inc(r.max_new)
+        if r.span is None:
+            return
+        r.span.mark("done")
+        lat = r.span.between(None, "done")
+        if lat is not None:
+            self._m_latency.observe(lat)
+            if lat > 0:
+                self._m_tps.observe(r.max_new / lat)
+        decode = r.span.between("first_token", "done")
+        if decode is not None and r.max_new > 1:
+            self._m_per_tok.observe(decode / (r.max_new - 1))
+        r.span.meta["max_new"] = r.max_new
+        r.span.meta["batch_size"] = r.peak_batch
+        if r.wf is not None:
+            r.span.meta["waterfall"] = r.wf.finalize(r.span)
+            if decode is not None and decode > 0:
+                self._wf_decode_total += decode
+                self._wf_steal_total += r.wf.stall_totals.get(
+                    "prefill_steal", 0.0)
+                self._m_prefill_interf.set(self._wf_steal_total
+                                           / self._wf_decode_total)
+        self._emit_span(r.span)
 
     def _dispatch_loop(self):
         with torch.no_grad(), self._on_stream():
@@ -913,13 +1270,17 @@ class ContinuousBatchingEngine:
             idle = (not futures and not staged
                     and all(r is None for r in self._slots))
             try:
-                staged.append(self._q.get(timeout=0.05 if idle else 0.0))
+                if idle:
+                    with goodput.phase("idle"):
+                        staged.append(self._q.get(timeout=0.05))
+                else:
+                    staged.append(self._q.get(timeout=0.0))
                 while True:
                     staged.append(self._q.get_nowait())
             except queue.Empty:
                 pass
             try:
-                with self._lock:
+                with self._lock, profiler.device_work():
                     self._boundary(staged, futures)
             except Exception as ex:
                 self._fail_all(ex, staged, futures)
@@ -930,19 +1291,29 @@ class ContinuousBatchingEngine:
             if staged:
                 # Paged admission only allocates pages and a slot; the
                 # compute happens in the prefill step.
-                self._admit_paged(staged)
+                with goodput.phase("admit"):
+                    if self._admit_paged(staged):
+                        self._m_activity.set(time.time())
             for step in (self._prefill_step, self._decode_step_paged):
                 fut = step(staged)
                 if fut is not None:
                     futures.append(fut)
+                    self._m_activity.set(time.time())
+            self._m_kv_in_use.set(self._pool.used_blocks)
+            self._maybe_resolve_kv_alert()
         else:
             if staged:
                 fut = self._admit(staged)
                 if fut is not None:
                     futures.append(fut)
+                    self._m_activity.set(time.time())
             if any(r is not None and not r.finished for r in self._slots):
-                toks = self._mono_chunk()
+                with goodput.phase("compile" if self.chunks_run == 0
+                                   else "decode"):
+                    toks = self._mono_chunk()
                 self.chunks_run += 1
+                self._m_chunks.inc()
+                self._m_activity.set(time.time())
                 self.decoded_rows_total += sum(
                     1 for r in self._slots
                     if r is not None and not r.finished)
@@ -955,7 +1326,9 @@ class ContinuousBatchingEngine:
         # nothing is active (nobody else will harvest).
         while futures and (len(futures) > self.pipeline_depth
                            or not any(r is not None for r in self._slots)):
-            self._harvest(futures.popleft())
+            # The harvest is where queued decode work drains: "decode".
+            with goodput.phase("decode"):
+                self._harvest(futures.popleft())
 
     def _fail_all(self, ex: Exception, staged: List[_Request],
                   futures: deque):
@@ -1038,7 +1411,8 @@ class ContinuousBatchingEngine:
             for p in range(lo, pages_for(L + new, ps) + 1):
                 dec_w.add(min(_wbucket(p), self._max_pages))
         made = 0
-        with self._lock, torch.no_grad(), self._on_stream():
+        with self._lock, profiler.device_work(), torch.no_grad(), \
+                self._on_stream():
             for nb in nbs:
                 for W in sorted(dec_w):
                     if (nb, W) not in self._chunks:

@@ -19,42 +19,35 @@ ping reports under "kv"), or with ``engine="static"`` the group coalescer
 one batched prefill + decode. ``kv`` (``KVCacheConfig``, default paged)
 configures either engine's cache. A request line longer than ``MAX_LINE``
 bytes gets an error reply and the connection is dropped. A ``traceparent``
-field, when well formed, has its trace id echoed in the reply.
+field, when well formed, parents the engine's request span and has its
+trace id echoed in the reply.
+
+Telemetry, the reference's: ``registry`` (default the process's) takes
+the engine's series and the server's ``slt_server_requests_total``,
+``slt_server_errors_total`` and ``slt_server_request_seconds``;
+``metrics_port`` starts the ``/metrics`` exporter (0 picks a port, in
+``metrics_addr``); ``event_log_path`` is the JSONL sink of the request
+spans; ``profile_dir`` arms the shared profiler (``/debug/profile``);
+``waterfall`` configures the per-request ledgers.
 """
 
 from __future__ import annotations
 
 import json
-import re
 import socket
 import threading
 import time
 from typing import Optional
 
-from serverless_learn_tpu_torch.config import KVCacheConfig
+from serverless_learn_tpu_torch.config import KVCacheConfig, WaterfallConfig
 from serverless_learn_tpu_torch.models.transformer import Transformer
+from serverless_learn_tpu_torch.telemetry import (JsonlEventLog,
+                                                  get_registry,
+                                                  parse_traceparent)
 
 # Longest accepted request line. A 128k-token prompt of 7-digit ids is
 # ~1 MB; 4 MB leaves headroom while bounding per-connection memory.
 MAX_LINE = 4 * 1024 * 1024
-
-_TRACEPARENT_RE = re.compile(
-    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
-
-
-def _trace_id(value) -> Optional[str]:
-    """The trace id of a W3C ``traceparent`` value, or None when it is
-    absent or malformed (a bad header never fails its request)."""
-    if not isinstance(value, str):
-        return None
-    m = _TRACEPARENT_RE.match(value.strip().lower())
-    if not m:
-        return None
-    version, trace_id, span_id, _ = m.groups()
-    if version == "ff" or trace_id == "0" * 32 or span_id == "0" * 16:
-        return None
-    return trace_id
-
 
 class GenerationServer:
     """Owns a model and serves generation requests."""
@@ -63,26 +56,56 @@ class GenerationServer:
                  port: int = 0, conn_timeout_s: float = 60.0,
                  max_batch: int = 8, batch_wait_ms: float = 3.0,
                  engine: str = "continuous", chunk_size: int = 32,
-                 kv: Optional[KVCacheConfig] = None):
+                 kv: Optional[KVCacheConfig] = None, registry=None,
+                 metrics_port: Optional[int] = None,
+                 event_log_path: Optional[str] = None,
+                 profile_dir: Optional[str] = None,
+                 waterfall: Optional[WaterfallConfig] = None):
         # The paged KV cache is the serving default, as in the reference;
         # KVCacheConfig(paged=False) keeps the monolithic rows.
         if kv is None:
             kv = KVCacheConfig()
+        self.registry = registry or get_registry()
+        self.event_log = (JsonlEventLog(event_log_path)
+                          if event_log_path else None)
         if engine == "continuous":
             from serverless_learn_tpu_torch.inference.continuous import (
                 ContinuousBatchingEngine)
 
             self.engine = ContinuousBatchingEngine(
-                model, max_slots=max_batch, chunk_size=chunk_size, kv=kv)
+                model, max_slots=max_batch, chunk_size=chunk_size, kv=kv,
+                registry=self.registry, event_log=self.event_log,
+                waterfall=waterfall)
         elif engine == "static":
             from serverless_learn_tpu_torch.inference.batching import (
                 BatchingEngine)
 
-            self.engine = BatchingEngine(model, max_batch=max_batch,
-                                         batch_wait_ms=batch_wait_ms, kv=kv)
+            self.engine = BatchingEngine(
+                model, max_batch=max_batch, batch_wait_ms=batch_wait_ms,
+                kv=kv, registry=self.registry, event_log=self.event_log,
+                waterfall=waterfall)
         else:
             raise ValueError(f"unknown engine {engine!r}: expected "
                              "'continuous' or 'static'")
+        self._exporter = None
+        self.metrics_addr: Optional[str] = None
+        if profile_dir:
+            from serverless_learn_tpu_torch.telemetry import profiler
+
+            profiler.arm(profile_dir)
+        if metrics_port is not None:
+            from serverless_learn_tpu_torch.telemetry import MetricsExporter
+
+            self._exporter = MetricsExporter(self.registry, host=host,
+                                             port=metrics_port,
+                                             profile_dir=profile_dir).start()
+            self.metrics_addr = self._exporter.addr
+        self._m_requests = self.registry.counter(
+            "slt_server_requests_total", "requests answered over the wire")
+        self._m_errors = self.registry.counter(
+            "slt_server_errors_total", "error replies (validation + engine)")
+        self._m_latency = self.registry.histogram(
+            "slt_server_request_seconds", "handle() wall time")
         self.model = model
         self.conn_timeout_s = conn_timeout_s
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -120,8 +143,23 @@ class GenerationServer:
         return {"error": f"unknown op {op!r}"}
 
     def handle(self, req: dict) -> dict:
+        try:
+            rep = self._handle(req)
+        except Exception:
+            # The caller turns this into an error reply; count it as one.
+            self._m_requests.inc()
+            self._m_errors.inc()
+            raise
+        self._m_requests.inc()
+        if "error" in rep:
+            self._m_errors.inc()
+        elif "latency_ms" in rep:
+            self._m_latency.observe(rep["latency_ms"] / 1e3)
+        return rep
+
+    def _handle(self, req: dict) -> dict:
         t0 = time.perf_counter()
-        trace_id = _trace_id(req.get("traceparent"))
+        trace = parse_traceparent(req.get("traceparent"))
         cfg = self.model.cfg
         prompt = req.get("prompt")
         if (not isinstance(prompt, list) or not prompt
@@ -139,7 +177,7 @@ class GenerationServer:
             prompt, max_new, temperature=float(req.get("temperature", 0.0)),
             top_k=int(req.get("top_k", 0)),
             eos_id=None if eos is None else int(eos),
-            seed=int(req.get("seed", 0)))
+            seed=int(req.get("seed", 0)), trace=trace)
         if "error" in rep:
             return rep
         with self._stats_lock:
@@ -148,8 +186,8 @@ class GenerationServer:
                "new_tokens": rep["new_tokens"],
                "batch_size": rep.get("batch_size", 1),
                "latency_ms": round((time.perf_counter() - t0) * 1e3, 2)}
-        if trace_id is not None:
-            out["trace_id"] = trace_id
+        if trace is not None:
+            out["trace_id"] = trace.trace_id
         return out
 
     # -- socket loop -------------------------------------------------------
@@ -264,6 +302,10 @@ class GenerationServer:
         for t, _ in live:
             t.join(timeout=30.0)
         self.engine.stop()
+        if self._exporter is not None:
+            self._exporter.stop()
+        if self.event_log is not None:
+            self.event_log.close()
 
 
 def request(addr: str, req: dict, timeout: float = 120.0) -> dict:

@@ -23,7 +23,9 @@ loop's other work is queued on the device without waiting. Acceptance
 depends on how far draft and target agree, a property of the weights:
 random weights agree by chance, a prefix of a trained model's layers much
 more. Greedy only: sampling would need rejection sampling to keep the
-target's distribution.
+target's distribution. Each call publishes the reference's
+``slt_spec_accept_rate`` gauge and ``slt_spec_draft_tokens_total`` /
+``slt_spec_verified_tokens_total`` counters.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 
 from serverless_learn_tpu_torch.inference.generate import init_cache
 from serverless_learn_tpu_torch.models.transformer import Transformer
+from serverless_learn_tpu_torch.telemetry.registry import get_registry
 
 
 def prefix_draft(model: Transformer, n_layers: int) -> Transformer:
@@ -140,5 +143,17 @@ def speculative_generate(target: Transformer, draft: Transformer,
         hit = (new == eos_id).to(torch.int32).cumsum(dim=1) > 0
         new = torch.where(hit, torch.full_like(new, eos_id), new)
     acc = (accepted.double() / drafted.clamp(min=1).double()).mean().item()
+    # The draft's economics, as the reference publishes them: the accept
+    # rate, and the token counters that give it over any window.
+    reg = get_registry()
+    reg.gauge("slt_spec_accept_rate",
+              "mean accepted-draft fraction of the last speculative "
+              "generate call").set(acc)
+    reg.counter("slt_spec_draft_tokens_total",
+                "tokens proposed by the draft model").inc(
+                    float(drafted.sum()))
+    reg.counter("slt_spec_verified_tokens_total",
+                "draft tokens accepted by the target verify pass").inc(
+                    float(accepted.sum()))
     return (torch.cat([prompt, new], dim=1),
             {"acceptance": acc, "rounds": rounds})

@@ -29,11 +29,26 @@ restore` writes into the template's own tensors, leaf by leaf, so the card
 never holds a second copy of the state. There is no fallback to fresh
 weights anywhere: a store without a checkpoint raises.
 
+**Emergency save** (:meth:`Checkpointer.arm_emergency`): a death hook of
+the flight recorder (``telemetry/flight.py``) commits, on SIGTERM or an
+unhandled exception, a blob of the newest host shadow. The port updates
+the state in place, so a signal handler, which runs between bytecodes,
+could see a half-applied optimizer update: the hook never reads the live
+tensors. :meth:`Checkpointer.note_state`, called by the training thread
+at a step boundary after the step's sync, copies the state into the
+shadow, at most once per ``min_interval_s`` and charged to the goodput
+ledger's ``checkpoint`` phase. The shadow is one pre-populated host
+buffer allocated on the first refresh and overwritten in place after.
+The emergency commit is the blob layout, which the JAX package restores.
+
+Telemetry: the reference's seven ``slt_ckpt_*`` series, and the goodput
+ledger's ``checkpoint`` phase around the synchronous parts of a save and
+a restore (the copy into the blob, the wait on the previous upload; the
+upload itself overlaps training and is not charged).
+
 Not ported yet, each raising where it would be reached: the shard-server
-store and replicated restore sources (ROADMAP.md queue 1 item 5), the
-emergency save on the flight recorder's death path (queue 1 item 3e, with
-the flight recorder) and the ZeRO layouts (queue 1 item 3d). The metrics
-registry's counters wait for the telemetry items (1b, 3e).
+store and replicated restore sources (ROADMAP.md queue 1 item 5) and the
+ZeRO layouts (queue 1 item 3d).
 """
 
 from __future__ import annotations
@@ -52,6 +67,9 @@ import numpy as np
 import torch
 
 from serverless_learn_tpu_torch.config import not_ported
+from serverless_learn_tpu_torch.telemetry import flight, goodput
+from serverless_learn_tpu_torch.telemetry import tracing as ttrace
+from serverless_learn_tpu_torch.telemetry.registry import get_registry
 from serverless_learn_tpu_torch.utils.serialization import (
     Seq, Struct, decode, dtype_name, encode, host_buffer, leaves_with_paths,
     torch_dtype)
@@ -132,10 +150,19 @@ def _pid_alive(pid: int) -> bool:
     return True
 
 
+# Bytes per write() or readinto() of the local store. One call over an
+# 18 GB blob held the host's memory map for seconds on an H100 host, so
+# other threads' mmaps (host allocations, thread stacks) waited, and a
+# training step beside an upload took 5-7 s instead of 0.3 s
+# (``chip_smoke.py`` phase 10); with 64 MB calls it took 0.4 s.
+_IO_CHUNK = 64 << 20
+
+
 class LocalStore:
     """Keys as files under ``root``; ``put`` is atomic (tmp + rename).
     ``get`` returns a writable buffer (``utils.serialization.host_buffer``),
-    so arrays decoded from it are writable views of it."""
+    so arrays decoded from it are writable views of it. Both move data in
+    ``_IO_CHUNK`` calls."""
 
     def __init__(self, root: str):
         self.root = root
@@ -167,8 +194,10 @@ class LocalStore:
         path = self._path(key)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + f".tmp.{os.getpid()}"
+        mv = memoryview(data).cast("B")
         with open(tmp, "wb") as f:
-            f.write(data)
+            for i in range(0, len(mv), _IO_CHUNK):
+                f.write(mv[i:i + _IO_CHUNK])
         os.replace(tmp, path)
 
     def get(self, key: str) -> memoryview:
@@ -182,7 +211,12 @@ class LocalStore:
                 0, min(length, size - offset))
             out = host_buffer(n)
             f.seek(offset)
-            got = f.readinto(out)
+            got = 0
+            while got < n:
+                k = f.readinto(out[got:got + _IO_CHUNK])
+                if not k:
+                    break
+                got += k
         return out[:got]
 
     def exists(self, key: str) -> bool:
@@ -267,6 +301,37 @@ def _misfit(step: int, problems: List[str]) -> str:
             + (f" (+{len(problems) - 5} more)" if len(problems) > 5 else ""))
 
 
+def _host_shadow(tree: Any, shadow: Any = None):
+    """Copy ``tree``'s leaves into ``shadow`` (a tree of CPU tensors of
+    the same structure) in place and return it; without a ``shadow``, or
+    when the structure changed, first allocate one: views into a single
+    pre-populated host buffer (``host_buffer``), so the copies from the
+    card do not fault page by page."""
+    leaves = list(leaves_with_paths(tree))
+    if shadow is not None:
+        have = list(leaves_with_paths(shadow))
+        if [(p, tuple(t.shape), t.dtype) for p, t in have] != \
+                [(p, tuple(t.shape), t.dtype) for p, t in leaves]:
+            shadow = None
+    if shadow is None:
+        sizes = {p: t.numel() * t.element_size() for p, t in leaves}
+        buf = host_buffer(max(1, sum(sizes.values())))
+        pos = [0]
+
+        def alloc(path, leaf):
+            n = sizes[path]
+            out = (torch.frombuffer(buf, dtype=torch.uint8, count=n,
+                                    offset=pos[0]).view(leaf.dtype)
+                   if n else torch.empty(0, dtype=leaf.dtype))
+            pos[0] += n
+            return out.view(leaf.shape)
+
+        shadow = _rebuild(tree, alloc)
+    for (_, src), (_, dst) in zip(leaves, leaves_with_paths(shadow)):
+        dst.copy_(src.detach())
+    return shadow
+
+
 def _check_leaf(path: str, dst: torch.Tensor, shape, dtype: torch.dtype):
     if tuple(dst.shape) != tuple(shape) or dst.dtype != dtype:
         raise ValueError(f"checkpoint leaf {path} is {tuple(shape)} "
@@ -301,6 +366,40 @@ class Checkpointer:
         # it, since after a quarantine it is the state to fall back to.
         self._last_verified: Optional[int] = None
         self._atexit_armed = False
+        # Emergency save (arm_emergency / note_state): a host shadow of
+        # the state, refreshed at step boundaries by the training thread.
+        self._emg_min_s = 0.0
+        self._emg_last_t: Optional[float] = None
+        self._emg_armed = False
+        self._emg_shadow: Any = None
+        self._emg_shadow_step: Optional[int] = None
+        self._emg_shadow_t: Optional[float] = None
+        # The tree a refresh is copying from, while it copies: a signal
+        # landing mid-copy finds the shadow half overwritten, and the
+        # live tree (at a step boundary) whole.
+        self._emg_refreshing: Any = None
+        self.shadow_refreshes = 0
+        reg = get_registry()
+        self._m_saves = reg.counter("slt_ckpt_saves_total",
+                                    "checkpoint commits (incl. emergency)")
+        self._m_last_step = reg.gauge("slt_ckpt_last_step",
+                                      "newest committed checkpoint step")
+        self._m_verified = reg.counter(
+            "slt_ckpt_verified_restores_total",
+            "restores that passed size+CRC verification")
+        self._m_corrupt = reg.counter(
+            "slt_ckpt_corrupt_total",
+            "checkpoint copies that failed verification")
+        self._m_fallbacks = reg.counter(
+            "slt_ckpt_fallbacks_total",
+            "restores that fell back past a quarantined step")
+        self._m_emergency = reg.counter(
+            "slt_ckpt_emergency_saves_total",
+            "best-effort saves on the flight recorder's death path")
+        self._m_peer_restores = reg.counter(
+            "slt_ckpt_peer_restores_total",
+            "step loads served by a local cache or peer replica "
+            "instead of the central store")
 
     # -- save --------------------------------------------------------------
 
@@ -309,12 +408,13 @@ class Checkpointer:
         this returns), then commit it on the upload thread."""
         if self.sharded:
             return self.save_sharded(tree, step)
-        step = int(tree["step"]) if step is None else int(step)
-        t0 = time.perf_counter()
-        blob = encode(tree)
-        self.timings.update(save_sync_s=time.perf_counter() - t0,
-                            save_bytes=len(blob))
-        self.wait()  # at most one upload in flight
+        with goodput.phase("checkpoint"):
+            step = int(tree["step"]) if step is None else int(step)
+            t0 = time.perf_counter()
+            blob = encode(tree)
+            self.timings.update(save_sync_s=time.perf_counter() - t0,
+                                save_bytes=len(blob))
+            self.wait()  # at most one upload in flight
 
         def upload():
             self._put_blob(step, blob)
@@ -334,10 +434,11 @@ class Checkpointer:
             upload()
         return step
 
-    def _put_blob(self, step: int, blob):
+    def _put_blob(self, step: int, blob, reason: str = ""):
         """Blob, manifest, ``LATEST``, in that order: a crash between two
         leaves a complete older or a complete newer commit, never a
-        pointer at torn bytes."""
+        pointer at torn bytes. ``reason`` marks an emergency commit's
+        manifest, as the reference's."""
         key = self._key(step)
         t0 = time.perf_counter()
         self.store.put(key, blob)
@@ -346,15 +447,23 @@ class Checkpointer:
         t2 = time.perf_counter()
         manifest = {"step": step, "layout": "blob", "nbytes": len(blob),
                     "crc32": crc}
+        if reason:
+            manifest["emergency"] = reason
         self.store.put(key + ".manifest", json.dumps(manifest).encode())
         self.store.put(f"{self.name}/LATEST",
                        json.dumps({"step": step}).encode())
         self.timings.update(upload_s=time.perf_counter() - t0 - (t2 - t1),
                             crc_s=t2 - t1)
+        self._m_saves.inc()
+        self._m_last_step.set(step)
 
     def save_sharded(self, tree, step: Optional[int] = None) -> int:
         """The sharded layout from one process, synchronously: one chunk
         per leaf in ``proc-00000.dat``, CRC-stamped in its ``.idx``."""
+        with goodput.phase("checkpoint"):
+            return self._save_sharded(tree, step)
+
+    def _save_sharded(self, tree, step: Optional[int]) -> int:
         step = int(tree["step"]) if step is None else int(step)
         t0 = time.perf_counter()
         leaves = list(leaves_with_paths(tree))
@@ -388,14 +497,18 @@ class Checkpointer:
             {"step": step, "n_procs": 1}).encode())
         self.store.put(f"{self.name}/LATEST",
                        json.dumps({"step": step}).encode())
+        self._m_saves.inc()
+        self._m_last_step.set(step)
         self._gc(step)
         return step
 
     def wait(self):
         """Block until the upload in flight has committed; re-raise its
-        error."""
+        error. The wait holds the caller for the checkpoint: charged to
+        the ``checkpoint`` phase."""
         if self._pending is not None:
-            self._pending.join()
+            with goodput.phase("checkpoint"):
+                self._pending.join()
             self._pending = None
         if self._pending_error is not None:
             err, self._pending_error = self._pending_error, None
@@ -417,18 +530,110 @@ class Checkpointer:
             pass  # exit paths never raise
 
     def close(self):
-        """Drain the upload in flight and disarm the atexit drain.
-        Idempotent."""
+        """Drain the upload in flight, disarm the emergency save and the
+        atexit drain. Idempotent."""
         try:
             self.wait()
         finally:
+            self.disarm_emergency()
             if self._atexit_armed:
                 atexit.unregister(self._drain_at_exit)
                 self._atexit_armed = False
 
-    def arm_emergency(self, *args, **kwargs):
-        raise not_ported("the emergency save on the flight recorder's "
-                         "death path", "ROADMAP.md queue 1 item 3e")
+    # -- emergency save ----------------------------------------------------
+
+    def arm_emergency(self, min_interval_s: float = 30.0):
+        """A synchronous blob save on the flight recorder's death path
+        (SIGTERM, an unhandled exception): a dying trainer commits its
+        newest shadowed state (:meth:`note_state`'s host shadow), so it
+        loses at most ``min_interval_s`` of steps. At most one save per
+        ``min_interval_s``."""
+        self._emg_min_s = float(min_interval_s)
+        self._emg_armed = True
+        flight.add_death_hook(f"ckpt:{self.name}", self._emergency_save)
+
+    def note_state(self, tree) -> Optional[float]:
+        """Refresh the emergency shadow from ``tree`` (a state tree over
+        the live tensors, ``Trainer.state_tree``, or a function that makes
+        one, called only when the refresh runs). Call from the training
+        thread at a step boundary, after the step's sync, where no update
+        is half applied. At most once per ``min_interval_s``; charged to
+        the ``checkpoint`` phase. Returns the seconds the refresh held the
+        loop, or None when it did not run."""
+        if not self._emg_armed:
+            return None
+        now = time.monotonic()
+        if (self._emg_shadow_t is not None
+                and now - self._emg_shadow_t < self._emg_min_s):
+            return None
+        t0 = time.perf_counter()
+        if callable(tree):
+            tree = tree()
+        with goodput.phase("checkpoint"):
+            self._emg_refreshing = tree
+            try:
+                self._emg_shadow = _host_shadow(tree, self._emg_shadow)
+                self._emg_shadow_step = int(tree["step"])
+            finally:
+                self._emg_refreshing = None
+        held = time.perf_counter() - t0
+        self._emg_shadow_t = now
+        self.shadow_refreshes += 1
+        self.timings["shadow_s"] = held
+        ttrace.emit_event({"event": "ckpt_shadow", "name": self.name,
+                           "step": self._emg_shadow_step,
+                           "seconds": round(held, 6)})
+        return held
+
+    def host_shadow(self):
+        """(host tree, step) of the newest shadow, or (None, None)."""
+        return self._emg_shadow, self._emg_shadow_step
+
+    def disarm_emergency(self):
+        self._emg_armed = False
+        self._emg_shadow = None
+        self._emg_shadow_step = None
+        self._emg_shadow_t = None
+        flight.remove_death_hook(f"ckpt:{self.name}")
+
+    def _death_state(self):
+        """(host tree, step, source) for the death hook: during a shadow
+        refresh (the signal interrupted the copy) the tree being copied,
+        copied whole; else the shadow. The live tensors are never read
+        outside a refresh, where an update may be half applied."""
+        tree = self._emg_refreshing
+        if tree is not None:
+            return (_host_shadow(tree, self._emg_shadow), int(tree["step"]),
+                    "refresh")
+        return self._emg_shadow, self._emg_shadow_step, "shadow"
+
+    def _emergency_save(self, reason: str):
+        """The death hook. Never raises; returns a summary for the flight
+        dump."""
+        try:
+            now = time.monotonic()
+            if (self._emg_last_t is not None
+                    and now - self._emg_last_t < self._emg_min_s):
+                return {"skipped": "rate-limited"}
+            host, step, source = self._death_state()
+            if host is None:
+                return {"skipped": "no-state"}
+            self._emg_last_t = now
+            try:
+                self.wait()
+            except Exception:
+                pass
+            blob = encode(host)
+            self._put_blob(step, blob, reason=f"emergency:{reason}")
+            self._m_emergency.inc()
+            rec = {"event": "ckpt_emergency_save", "name": self.name,
+                   "step": step, "reason": reason, "nbytes": len(blob),
+                   "source": source}
+            flight.record(rec)
+            ttrace.emit_event(rec)
+            return {"step": step, "nbytes": len(blob), "source": source}
+        except Exception as e:  # a crash handler must never crash
+            return {"error": f"{type(e).__name__}: {e}"}
 
     # -- restore -----------------------------------------------------------
 
@@ -453,7 +658,8 @@ class Checkpointer:
         """Restore into ``template``'s own tensors, in place (a state tree
         whose leaves are the live tensors, on any device), and return it.
         Every key, shape and dtype must match."""
-        return self._restore_any(template, step, in_place=True)
+        with goodput.phase("checkpoint"):
+            return self._restore_any(template, step, in_place=True)
 
     def restore_host(self, template, step: Optional[int] = None):
         """A new tree of CPU tensors with ``template``'s structure; the
@@ -500,22 +706,32 @@ class Checkpointer:
         if step is not None:
             out = self._restore_step(template, step, in_place)
             self._last_verified = step
+            self._m_verified.inc()
         else:
             cands = self.candidate_steps()
             if not cands:
                 raise FileNotFoundError(f"no checkpoint under {self.name!r}")
             last: Optional[Exception] = None
+            corrupt_seen = False
             for s in cands:
                 try:
                     out = self._restore_step(template, s, in_place)
                 except CheckpointCorrupt as e:
                     self._quarantine(s, e)
+                    corrupt_seen = True
                     last = e
                     continue
                 except FileNotFoundError as e:
                     last = e  # a racing GC or a torn listing: next older
                     continue
                 self._last_verified = s
+                self._m_verified.inc()
+                if corrupt_seen:
+                    self._m_fallbacks.inc()
+                    rec = {"event": "ckpt_fallback", "name": self.name,
+                           "restored_step": s}
+                    flight.record(rec)
+                    ttrace.emit_event(rec)
                 break
             else:
                 assert last is not None
@@ -524,6 +740,17 @@ class Checkpointer:
         return out
 
     def _restore_step(self, template, step: int, in_place: bool):
+        try:
+            return self._restore_verified(template, step, in_place)
+        except CheckpointCorrupt as e:
+            self._m_corrupt.inc()
+            rec = {"event": "ckpt_corrupt", "name": self.name, "step": step,
+                   "detail": e.detail}
+            flight.record(rec)
+            ttrace.emit_event(rec)
+            raise
+
+    def _restore_verified(self, template, step: int, in_place: bool):
         if self._is_sharded(self.store, step):
             return self._load_sharded(template, step, in_place)
         if not self.store.exists(self._key(step)):
@@ -624,6 +851,10 @@ class Checkpointer:
     def _quarantine(self, step: int, err: CheckpointCorrupt):
         """Mark a step corrupt so no later restore retries it; its data
         stays for forensics until GC."""
+        rec = {"event": "ckpt_quarantined", "name": self.name,
+               "step": step, "detail": err.detail}
+        flight.record(rec)
+        ttrace.emit_event(rec)
         try:
             self.store.put(self._key(step) + ".CORRUPT", json.dumps(
                 {"step": step, "detail": err.detail,

@@ -1,19 +1,41 @@
 """The training loop, the port of ``serverless_learn_tpu/training/loop.py``:
 a trainer, a synthetic batch source placed on the device ahead of the
-step, the throughput meter, and the forward-only eval of the ``eval``
-command over a held-out synthetic stream. The reference's metrics registry, goodput
-ledger, flight recorder and tracing spans wait for the telemetry item of
-ROADMAP.md.
+step, the throughput meter, the forward-only eval over a held-out
+synthetic stream (the ``eval`` command, and in the loop every
+``train.eval_every`` steps), and the reference's telemetry of the loop:
+
+* the registry series (``slt_train_*``, ``slt_opt_state_bytes``);
+* the goodput ledger's phases: ``compile`` for the first step (it builds
+  the kernels), ``step`` for the rest, ``eval`` for in-loop evals. Each
+  step's phase closes after its metrics are read back to the host, which
+  waits for the card, so goodput never counts queued work;
+* a ``train/run`` span around the loop and a ``train/step`` span a step
+  (emitted to the event log when tracing has a sink), the host tracer's
+  ``train/step`` aggregate and a flight record a step;
+* ``slt_train_mfu`` from the analytic step FLOPs at the end.
+
+Each iteration (step, eval, callback) runs inside
+``profiler.device_work()``, so a profiler session started from another
+thread starts and stops between iterations.
+
+The numerics auditor (``training/audit.py``) waits for ROADMAP.md queue 1
+item 3g.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
 
 from serverless_learn_tpu_torch.config import ExperimentConfig
 from serverless_learn_tpu_torch.data.datasets import SyntheticSource, prefetch
+from serverless_learn_tpu_torch.telemetry import flight, goodput, profiler
+from serverless_learn_tpu_torch.telemetry import tracing as ttrace
+from serverless_learn_tpu_torch.telemetry.registry import get_registry
+from serverless_learn_tpu_torch.training.optimizer import (
+    publish_opt_state_gauge)
 from serverless_learn_tpu_torch.training.train_step import (Trainer,
                                                             build_trainer)
 from serverless_learn_tpu_torch.utils.metrics import (H100_BF16_PEAK,
@@ -87,11 +109,13 @@ def step_flops(config: ExperimentConfig, trainer: Trainer, state) -> float:
 def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
                  state=None, source=None,
                  step_callback: Optional[Callable] = None,
-                 verbose: bool = False, device="cuda"):
+                 verbose: bool = False, device="cuda", registry=None,
+                 ledger=None):
     """Run ``config.train.num_steps`` steps from ``state.step``; returns
     (state, meter). ``step_callback(step, state, stats)`` runs after each
     step. Each step's metrics are read back to the host (which waits for
-    the card), so step times are honest."""
+    the card), so step times are honest. ``registry`` and ``ledger``
+    default to the process's (``get_registry``, ``goodput.get_ledger``)."""
     trainer = trainer or build_trainer(config, device)
     if state is None:
         state = trainer.init()
@@ -103,16 +127,90 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
         flops_per_step=step_flops(config, trainer, state),
         peak_flops=H100_BF16_PEAK if trainer.device.type == "cuda" else None,
         tokens_per_sample=config.data.seq_len)
+    reg = registry or get_registry()
+    metrics_of = {
+        "steps": reg.counter("slt_train_steps_total", "optimizer steps run"),
+        "step_t": reg.histogram("slt_train_step_seconds",
+                                "wall time per step"),
+        "sps": reg.gauge("slt_train_samples_per_sec"),
+        "sps_chip": reg.gauge("slt_train_samples_per_sec_per_chip"),
+        "loss": reg.gauge("slt_train_loss"),
+        # The health engine's staleness watchdog and /healthz read this:
+        # a loop wedged inside one step stops advancing it.
+        "last_step": reg.gauge("slt_train_last_step_unix_s",
+                               "wall time of the latest optimizer step")}
+    reg.gauge("slt_train_grad_accum",
+              "microbatches per step").set(config.train.grad_accum)
+    reg.gauge("slt_train_batch_size").set(config.train.batch_size)
+    reg.gauge("slt_train_n_chips").set(1)
+    reg.gauge("slt_train_zero_stage").set(config.train.zero_stage)
+    publish_opt_state_gauge(trainer.state_tree(state)["opt_state"],
+                            registry=reg)
+    led = ledger or goodput.get_ledger()
+    led.ensure_started()
+    tracer = ttrace.get_tracer()
+    start_step = state.step
     meter.start()
-    for i, batch in zip(range(state.step, config.train.num_steps), batches):
+    with ttrace.span("train/run", steps=config.train.num_steps,
+                     model=config.model) as run_span:
+        try:
+            for i, batch in zip(range(start_step, config.train.num_steps),
+                                batches):
+                with profiler.device_work():
+                    state = _one_step(config, trainer, state, batch, i,
+                                      i == start_step, meter, led, tracer,
+                                      metrics_of, step_callback, verbose)
+        finally:
+            run_span.meta["last_step"] = state.step
+    summary = meter.steady_state()
+    if "mfu" in summary:
+        reg.gauge("slt_train_mfu", "model FLOPs utilization").set(
+            summary["mfu"])
+    if "tflops_per_sec_per_chip" in summary:
+        reg.gauge("slt_train_tflops_per_sec_per_chip").set(
+            summary["tflops_per_sec_per_chip"])
+    return state, meter
+
+
+def _one_step(config, trainer, state, batch, i: int, first: bool, meter,
+              led, tracer, m, step_callback, verbose):
+    """Step ``i + 1`` of :func:`run_training`: the step and its readback,
+    its telemetry (``m``: the registry series), the in-loop eval when due,
+    then the callback. Returns the state."""
+    # The first step builds the kernels: "compile", so it poisons neither
+    # goodput nor the step-time baseline.
+    with ttrace.step_annotation(i + 1), \
+            ttrace.span("train/step", step=i + 1), \
+            tracer.span("train/step", annotate_device=False), \
+            led.phase("compile" if first else "step"):
         state, metrics = trainer.step(state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}
-        stats = meter.record(i + 1, metrics)
-        if verbose and (i + 1) % config.train.log_every == 0:
-            log_json({"step": stats.step,
-                      "step_time_s": round(stats.step_time_s, 5),
-                      "samples_per_sec": round(stats.samples_per_sec, 1),
-                      **{k: round(v, 5) for k, v in metrics.items()}})
-        if step_callback is not None:
-            step_callback(i + 1, state, stats)
-    return state, meter
+    stats = meter.record(i + 1, metrics)
+    flight.record({"event": "train_step", "step": i + 1,
+                   "step_time_s": round(stats.step_time_s, 5),
+                   **{k: round(v, 5) for k, v in metrics.items()}})
+    m["steps"].inc()
+    m["step_t"].observe(stats.step_time_s)
+    m["last_step"].set(time.time())
+    m["sps"].set(stats.samples_per_sec)
+    m["sps_chip"].set(stats.samples_per_sec)
+    if "loss" in metrics:
+        m["loss"].set(metrics["loss"])
+    if verbose and (i + 1) % config.train.log_every == 0:
+        log_json({"step": stats.step,
+                  "step_time_s": round(stats.step_time_s, 5),
+                  "samples_per_sec": round(stats.samples_per_sec, 1),
+                  **{k: round(v, 5) for k, v in metrics.items()}})
+    every = config.train.eval_every
+    if every > 0 and (i + 1) % every == 0:
+        # A fresh source each pass: every eval scores the same seeded
+        # batches, so eval losses compare across the run.
+        with led.phase("eval"):
+            eval_metrics = run_eval(config, trainer, state)
+        if verbose:
+            log_json({"step": i + 1, **{k: round(v, 5)
+                                        for k, v in eval_metrics.items()}})
+        meter.start()  # eval time must not count in the next step's window
+    if step_callback is not None:
+        step_callback(i + 1, state, stats)
+    return state

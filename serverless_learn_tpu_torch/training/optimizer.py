@@ -430,3 +430,20 @@ class Optimizer:
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(cfg)
+
+
+def publish_opt_state_gauge(opt_tree, registry=None) -> float:
+    """Set ``slt_opt_state_bytes``, the resident optimizer-state bytes of
+    the card, from the state in the reference's optax layout
+    (``state_tree``: moments and counts); returns the value. The port of
+    ``serverless_learn_tpu/training/zero.py:publish_opt_state_gauge`` on
+    one card."""
+    from serverless_learn_tpu_torch.telemetry.registry import get_registry
+
+    val = float(sum(t.numel() * t.element_size()
+                    for _, t in leaves_with_paths(opt_tree)))
+    (registry or get_registry()).gauge(
+        "slt_opt_state_bytes",
+        "resident optimizer-state bytes per chip "
+        "(shrinks ~1/dp under train.zero_stage >= 1)").set(val)
+    return val

@@ -508,6 +508,50 @@ def test_localstore_sweeps_orphan_tmp_from_dead_writers(tmp_path):
     assert os.path.exists(live), "a live writer's tmp must stay"
 
 
+def test_localstore_moves_data_in_bounded_calls(tmp_path, monkeypatch):
+    """put and get move a buffer in ``_IO_CHUNK`` calls (one call over a
+    many-GB blob stalls other threads' host allocations) and keep its
+    bytes: the JAX package's store reads what the port wrote, and back."""
+    calls = []
+
+    class Recording:
+        def __init__(self, f):
+            self.f = f
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.f.close()
+
+        def write(self, b):
+            calls.append(("write", len(b)))
+            return self.f.write(b)
+
+        def readinto(self, b):
+            calls.append(("read", len(b)))
+            return self.f.readinto(b)
+
+        def __getattr__(self, name):
+            return getattr(self.f, name)
+
+    monkeypatch.setattr(ck, "_IO_CHUNK", 1000)
+    monkeypatch.setattr(ck, "open", lambda *a, **k: Recording(open(*a, **k)),
+                        raising=False)
+    data = np.random.default_rng(3).integers(
+        0, 255, 10_001).astype(np.uint8).tobytes()
+    store = LocalStore(str(tmp_path))
+    store.put("t/x", data)
+    assert [n for op, n in calls if op == "write"] == [1000] * 10 + [1]
+    calls.clear()
+    assert bytes(store.get("t/x")) == data
+    assert bytes(store.get_range("t/x", 5, 2500)) == data[5:2505]
+    assert calls and max(n for _, n in calls) <= 1000
+    assert bytes(jck.LocalStore(str(tmp_path)).get("t/x")) == data
+    jck.LocalStore(str(tmp_path)).put("t/y", data[::-1])
+    assert bytes(store.get("t/y")) == data[::-1]
+
+
 def test_close_drains_pending_async_commit(tmp_path):
     gate = threading.Event()
 
@@ -527,6 +571,33 @@ def test_close_drains_pending_async_commit(tmp_path):
     assert not c._atexit_armed
 
 
+def test_waiting_for_the_upload_is_charged_to_checkpoint(tmp_path):
+    """The caller held by ``wait`` (the end of ``train``) is in the
+    ``checkpoint`` phase, which the step watchdog excuses."""
+    from serverless_learn_tpu_torch.telemetry import goodput
+
+    gate = threading.Event()
+
+    class GatedStore(LocalStore):
+        def put(self, key, data):
+            gate.wait(timeout=10.0)
+            super().put(key, data)
+
+    prev = goodput.set_ledger(goodput.PhaseLedger(emit=False))
+    try:
+        c = Checkpointer(GatedStore(str(tmp_path)), name="t")
+        c.save(_state(1), step=1)
+        before = goodput.get_ledger().snapshot()["phases"]["checkpoint"]
+        threading.Timer(0.3, gate.set).start()
+        c.wait()
+        after = goodput.get_ledger().snapshot()["phases"]["checkpoint"]
+    finally:
+        goodput.set_ledger(prev)
+    assert after["seconds"] - before["seconds"] >= 0.25
+    assert after["count"] == before["count"] + 1
+    c.close()
+
+
 def test_wrong_structure_raises_and_no_checkpoint_raises(tmp_path):
     c = _ckpt(tmp_path)
     with pytest.raises(FileNotFoundError):
@@ -536,8 +607,6 @@ def test_wrong_structure_raises_and_no_checkpoint_raises(tmp_path):
         c.restore({"step": torch.tensor(0), "v": torch.zeros(16)})
     with pytest.raises(ValueError, match=r"\(8,\)"):
         c.restore(_template(8))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3e"):
-        c.arm_emergency()
 
 
 # -- the command line ------------------------------------------------------
@@ -611,3 +680,171 @@ def test_cli_empty_store_exits(tmp_path, cmd):
             [cmd, "--model", "llama_tiny", "--device", "cpu"])
     with pytest.raises(SystemExit, match="no checkpoint found"):
         cli.main([*argv, "--checkpoint-dir", str(tmp_path)])
+
+
+# -- the emergency save ----------------------------------------------------
+
+DRILL = ["--model", "llama_tiny", "--batch-size", "2", "--seq-len", "32",
+         "--device", "cpu", "--set", "train.dtype=float32",
+         "--set", "model_overrides.n_layers=1"]
+
+
+def test_sigterm_drill_commits_the_shadow_for_both_packages(tmp_path):
+    """``train`` in a child process, SIGTERM'd after its third step line:
+    the flight dump (reason sigterm) carries the emergency save's step,
+    which is the newest shadow's, and ``slt_ckpt_emergency_saves_total``
+    = 1; the emergency blob restores into the reference's
+    ``Checkpointer`` and into the port bit for bit, and equals that many
+    steps of an uninterrupted run (one CPU thread on both sides, so the
+    sums run in one order)."""
+    import signal
+    import subprocess
+    import sys
+
+    root, flight_dir = tmp_path / "ck", tmp_path / "flight"
+    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, torch; torch.set_num_threads(1); "
+         "from serverless_learn_tpu_torch.cli import main; "
+         "sys.exit(main(sys.argv[1:]))",
+         "train", *DRILL, "--steps", "100000", "--checkpoint-dir", str(root),
+         "--checkpoint-every", "1000", "--flight-dir", str(flight_dir),
+         "--verbose", "--set", "train.log_every=1",
+         "--set", "checkpoint.emergency_min_interval_s=0"],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=env, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
+        text=True)
+    try:
+        steps = 0
+        for line in child.stderr:
+            if line.startswith('{"step"'):
+                steps += 1
+                if steps == 3:
+                    child.send_signal(signal.SIGTERM)
+                    break
+        child.stderr.read()
+        assert child.wait(timeout=120) == -signal.SIGTERM
+    finally:
+        if child.poll() is None:
+            child.kill()
+    (dump_name,) = os.listdir(flight_dir)
+    dump = json.load(open(flight_dir / dump_name))
+    assert dump["reason"] == "sigterm"
+    saved = dump["death_hooks"]["ckpt:ckpt"]
+    shadows = [e["step"] for e in dump["events"]
+               if e.get("event") == "ckpt_shadow"]
+    step = saved["step"]
+    # The step-3 line precedes its shadow refresh (the loop logs, then
+    # calls the checkpointer); a signal inside a refresh saves the step
+    # it was copying.
+    assert step >= 2
+    assert step == shadows[-1] + (saved["source"] == "refresh")
+    assert dump["metrics"]["slt_ckpt_emergency_saves_total"][
+        "series"][0]["value"] == 1
+    manifest = json.load(open(root / "ckpt" / f"step-{step:010d}.manifest"))
+    assert manifest["emergency"] == "emergency:sigterm"
+
+    # The same config, uninterrupted, for `step` steps, in this process.
+    cfg = ExperimentConfig(
+        model="llama_tiny", model_overrides={"n_layers": 1},
+        train=TrainConfig(batch_size=2, num_steps=step, dtype="float32"),
+        data=DataConfig(seq_len=32))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from serverless_learn_tpu_torch.training.loop import run_training
+        from serverless_learn_tpu_torch.telemetry.registry import (
+            MetricsRegistry)
+        from serverless_learn_tpu_torch.telemetry.goodput import PhaseLedger
+
+        tr = build_trainer(cfg, device="cpu")
+        state, _ = run_training(cfg, trainer=tr, device="cpu",
+                                registry=MetricsRegistry(),
+                                ledger=PhaseLedger(emit=False))
+    finally:
+        torch.set_num_threads(n)
+    tree = tr.state_tree(state)
+    got = Checkpointer(LocalStore(str(root))).restore_host(tree, step=step)
+    live = dict(ser.leaves_with_paths(tree))
+    for path, leaf in ser.leaves_with_paths(got):
+        assert torch.equal(leaf, live[path].detach().cpu()), path
+
+    jcfg = JExperimentConfig(
+        model="llama_tiny", model_overrides={"n_layers": 1},
+        mesh=JMeshConfig(dp=1),
+        train=JTrainConfig(batch_size=2, dtype="float32"),
+        data=JDataConfig(seq_len=32))
+    jtr = jax_build_trainer(jcfg, mesh=make_mesh(jcfg.mesh,
+                                                 devices=jax.devices()[:1]))
+    jstate = jck.Checkpointer(jck.LocalStore(str(root))).restore(
+        jtr.abstract_state(), step=step, shardings=jtr.state_shardings)
+    assert int(jstate.step) == step
+    _assert_same_leaves(got, jstate)
+
+
+def test_emergency_save_rate_limit_and_shadow(tmp_path):
+    """The shadow refreshes at most once an interval and allocates its
+    host buffer once; the death hook commits the shadow's step, then
+    refuses a second save inside the interval; a disarmed checkpointer
+    has no hook and no shadow."""
+    from serverless_learn_tpu_torch.telemetry import flight
+
+    c = _ckpt(tmp_path)
+    c.arm_emergency(min_interval_s=3600)
+    assert f"ckpt:{c.name}" in flight._death_hooks
+    s1 = _state(1)
+    assert c.note_state(s1) is not None
+    shadow, step = c.host_shadow()
+    buf = shadow["w"].untyped_storage().data_ptr()
+    assert step == 1 and torch.equal(shadow["w"], s1["w"])
+    assert c.note_state(_state(2)) is None  # inside the interval
+    assert c.host_shadow()[1] == 1
+    c._emg_shadow_t = None  # the interval has passed
+    s3 = _state(3)
+    assert c.note_state(lambda: s3) is not None
+    shadow, step = c.host_shadow()
+    assert step == 3 and torch.equal(shadow["w"], s3["w"])
+    assert shadow["w"].untyped_storage().data_ptr() == buf  # reused
+    s3["w"].add_(1)  # the live state moves on; the shadow does not
+    assert not torch.equal(shadow["w"], s3["w"])
+    saved = c._emergency_save("drill")
+    assert saved["step"] == 3 and saved["source"] == "shadow"
+    assert saved["nbytes"] == os.path.getsize(_blob_path(tmp_path, "t", 3))
+    assert c._emergency_save("again") == {"skipped": "rate-limited"}
+    got = c.restore_host(_template(), step=3)
+    assert torch.equal(got["w"], shadow["w"])
+    c.close()
+    assert f"ckpt:{c.name}" not in flight._death_hooks
+    assert c.host_shadow() == (None, None)
+    assert c.note_state(s3) is None  # disarmed
+
+
+def test_emergency_save_during_a_refresh_saves_the_tree_being_copied(
+        tmp_path, monkeypatch):
+    """A signal that lands inside a shadow refresh finds the shadow half
+    overwritten: the death hook then saves the tree the refresh was
+    copying (whole, at a step boundary), not the torn shadow."""
+    c = _ckpt(tmp_path)
+    c.arm_emergency(min_interval_s=0)
+    c.note_state(_state(1))
+    live = _state(2)
+    saved, landed = {}, []
+    real = ck._host_shadow
+
+    def torn(tree, shadow=None):
+        if tree is live and not landed:  # the signal lands mid-copy
+            landed.append(True)
+            shadow["step"].copy_(tree["step"])  # one leaf copied so far
+            saved.update(c._emergency_save("sigterm"))
+            raise KeyboardInterrupt
+        return real(tree, shadow)
+
+    monkeypatch.setattr(ck, "_host_shadow", torn)
+    with pytest.raises(KeyboardInterrupt):
+        c.note_state(live)
+    assert saved["step"] == 2 and saved["source"] == "refresh"
+    got = c.restore_host(_template(), step=2)
+    assert torch.equal(got["w"], live["w"]) and int(got["step"]) == 2
+    assert c._emg_refreshing is None
+    c.close()

@@ -460,3 +460,70 @@ def test_graph_replayed_chunk_equals_eager_chunk_on_card():
         assert eng.graph_captures >= 2 and eng.graph_replays > 0
     finally:
         eng.stop()
+
+
+COUNTERS = ("slt_requests_total", "slt_requests_finished_total",
+            "slt_decode_tokens_total", "slt_prefill_chunks_total",
+            "slt_kv_prefix_hits_total", "slt_kv_prefix_tokens_total",
+            "slt_kv_preemptions_total")
+
+
+def test_engine_counters_equal_the_reference(ref):
+    """The same requests, one after another, through the reference's
+    engine and the port's, each on a fresh registry: equal request,
+    token, prefill-chunk, prefix-hit and preemption counters and equal
+    replies; every reply's span in the event log carries a waterfall."""
+    import jax
+    import jax.numpy as jnp
+
+    from serverless_learn_tpu.config import KVCacheConfig as JKV
+    from serverless_learn_tpu.inference.continuous import (
+        ContinuousBatchingEngine as JEngine)
+    from serverless_learn_tpu.models.registry import get_model
+    from serverless_learn_tpu.telemetry.registry import (
+        MetricsRegistry as JRegistry)
+    from serverless_learn_tpu_torch.telemetry.registry import (
+        MetricsRegistry as TRegistry)
+
+    model, _ = ref
+    bundle = get_model("llama_tiny", dtype=jnp.float32,
+                       param_dtype=jnp.float32, max_seq_len=MAX_SEQ)
+    params = bundle.module.init(jax.random.PRNGKey(0),
+                                jnp.zeros((1, 8), jnp.int32))["params"]
+    sysp = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3]
+    reqs = [_greedy(LONG, 6), _greedy(sysp + [11, 2], 5),
+            _greedy(sysp + [9], 5), _greedy([4], 3, eos_id=None)]
+    kw = dict(max_slots=4, chunk_size=4)
+    jreg, treg = JRegistry(), TRegistry()
+    records = []
+    log = type("Sink", (), {"emit": lambda self, r: records.append(r),
+                            "close": lambda self: None})()
+    jeng = JEngine(bundle.module, params, registry=jreg,
+                   kv=JKV(block_size=4, prefill_chunk=4, prefill_budget=8),
+                   **kw)
+    teng = _engine(model, registry=treg, event_log=log, **kw)
+    try:
+        for r in reqs:
+            assert (teng.submit(*r)["new_tokens"]
+                    == jeng.submit(*r)["new_tokens"])
+    finally:
+        jeng.stop()
+        teng.stop()
+    js, ts = jreg.snapshot(), treg.snapshot()
+    for name in COUNTERS:
+        want = [s["value"] for s in js[name]["series"]]
+        assert [s["value"] for s in ts[name]["series"]] == want, name
+        assert ts[name]["series"][0]["labels"] == {"engine": "continuous"}
+    assert ts["slt_requests_total"]["series"][0]["value"] == len(reqs)
+    assert ts["slt_kv_prefix_hits_total"]["series"][0]["value"] == 1
+    for name in ("slt_request_ttft_seconds", "slt_request_latency_seconds",
+                 "slt_request_queue_wait_seconds"):
+        assert ts[name]["series"][0]["count"] == len(reqs), name
+    spans = [r for r in records if r.get("event") == "span"]
+    assert len(spans) == len(reqs)
+    for sp in spans:
+        wf = sp["waterfall"]
+        assert sp["span"] == "request" and wf["engine"] == "continuous"
+        assert sum(wf["ttft_decomp_s"].values()) == pytest.approx(
+            wf["ttft_s"], abs=1e-5)
+    assert teng.decode_harvests > 0 and teng.telemetry_host_s > 0

@@ -124,3 +124,65 @@ def test_cli_generate_on_cpu(capsys):
     rep = json.loads(capsys.readouterr().out)
     assert rep["prompt"] == [[5, 9, 11]]
     assert rep["tokens"][0][:3] == [5, 9, 11] and len(rep["tokens"][0]) == 7
+
+
+def test_cli_serve_answers_metrics_and_train_prints_the_done_keys(capsys):
+    """``serve --metrics-port 0`` answers a request, then /metrics counts
+    it; ``train --metrics-port 0 --health`` prints the reference's ``done``
+    keys (``serverless_learn_tpu/cli.py`` cmd_train: the meter's
+    steady state, ``goodput``, ``badput_breakdown``, ``spans``)."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from serverless_learn_tpu_torch.telemetry import fetch_text
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "serverless_learn_tpu_torch", "serve",
+         "--model", "llama_tiny", "--device", "cpu", "--port", "0",
+         "--metrics-port", "0", "--set", "model_overrides.n_layers=1"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        lines = {}
+        for line in child.stdout:
+            rec = json.loads(line)
+            lines[rec["event"]] = rec
+            if rec["event"] == "serving":
+                break
+        addr, maddr = lines["serving"]["addr"], lines["serving"][
+            "metrics_addr"]
+        rep = request(addr, {"prompt": [5, 9, 11], "max_new_tokens": 4})
+        assert len(rep["new_tokens"]) == 4
+        text = fetch_text(maddr, "/metrics")
+        assert "slt_server_requests_total 1" in text
+        assert 'slt_requests_total{engine="continuous"} 1' in text
+        assert 'slt_decode_tokens_total{engine="continuous"} 4' in text
+        assert json.loads(fetch_text(maddr, "/healthz"))["ok"] is True
+    finally:
+        child.send_signal(signal.SIGINT)
+        try:
+            child.wait(timeout=60)
+        finally:
+            if child.poll() is None:
+                child.kill()
+    assert child.returncode == 0
+
+    assert cli.main(["train", "--model", "llama_tiny", "--batch-size", "2",
+                     "--seq-len", "32", "--steps", "3", "--device", "cpu",
+                     "--set", "model_overrides.n_layers=1",
+                     "--metrics-port", "0", "--health"]) == 0
+    out = [json.loads(line) for line in
+           capsys.readouterr().out.strip().splitlines()]
+    assert [r["event"] for r in out] == ["metrics", "health", "done"]
+    done = out[-1]
+    jax_keys = {"event", "final_step", "samples_per_sec",
+                "samples_per_sec_per_chip", "step_time_s",
+                "tflops_per_sec_per_chip", "goodput", "badput_breakdown",
+                "spans"}
+    assert jax_keys <= set(done)
+    assert 0 < done["goodput"] <= 1
+    assert "compile" in done["badput_breakdown"]
+    assert done["spans"]["train/step"]["count"] >= 3  # a process-wide tracer

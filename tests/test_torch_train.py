@@ -174,14 +174,11 @@ def test_unported_options_raise():
 # A value away from the default for every field the port keeps but does not
 # run.
 UNPORTED_VALUES = {
-    ("train", "zero_stage"): 1, ("train", "eval_every"): 5,
-    ("train", "donate_state"): False,
+    ("train", "zero_stage"): 1, ("train", "donate_state"): False,
     ("data", "shard_server_addr"): "shards:50053",
     ("data", "dataset"): "sft_corpus", ("data", "eval_dataset"): "held_out",
     ("data", "augment"): True, ("data", "mask_rate"): 0.3,
     ("data", "learnable"): True,
-    ("checkpoint", "emergency_save"): False,
-    ("checkpoint", "emergency_min_interval_s"): 60.0,
     ("checkpoint", "cache_dir"): "ckpt-cache", ("checkpoint", "peers"): "a:1",
     ("checkpoint", "replica_fanout"): 3, ("checkpoint", "serve_cache"): True,
     ("checkpoint", "serve_cache_port"): 50070,
@@ -244,3 +241,146 @@ def test_train_cli_on_cpu():
          "--checkpoint-store", "localhost:50053"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0 and "not yet ported" in bad.stderr
+
+
+# -- the loop's telemetry ---------------------------------------------------
+
+EVAL_STEPS = 4  # steps of the telemetry runs; in-loop eval every 2
+
+
+def _series(snap):
+    """{family: (type, sorted label sets)} of a registry snapshot."""
+    return {name: (fam["type"], sorted(json.dumps(s["labels"],
+                                                  sort_keys=True)
+                                       for s in fam["series"]))
+            for name, fam in snap.items()}
+
+
+def _eval_lines(text):
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{") and "eval_loss" in line]
+
+
+def test_run_training_telemetry_matches_jax(monkeypatch, capsys):
+    """run_training with train.eval_every=2 publishes the JAX loop's
+    registry series with its label sets; the step counter and the
+    configuration gauges equal it, the loss gauge and the in-loop eval
+    metrics agree to LOSS_TOL (the two runs' losses, above), and the last
+    in-loop eval equals run_eval on the final state exactly."""
+    from serverless_learn_tpu.telemetry import goodput as jgoodput
+    from serverless_learn_tpu.telemetry import registry as jregistry
+    from serverless_learn_tpu.training.loop import (
+        run_training as jax_run_training)
+    from serverless_learn_tpu_torch.telemetry.goodput import PhaseLedger
+    from serverless_learn_tpu_torch.telemetry.registry import MetricsRegistry
+    from serverless_learn_tpu_torch.training.loop import run_eval
+
+    jcfg, tcfg = _configs(1)
+    import dataclasses
+    jcfg = dataclasses.replace(jcfg, train=dataclasses.replace(
+        jcfg.train, num_steps=EVAL_STEPS, eval_every=2, eval_steps=2))
+    tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(
+        tcfg.train, num_steps=EVAL_STEPS, eval_every=2, eval_steps=2))
+    jreg = jregistry.MetricsRegistry()
+    monkeypatch.setattr(jregistry, "_default_registry", jreg)
+    prev = jgoodput.set_ledger(jgoodput.PhaseLedger(emit=False))
+    try:
+        jtr = jax_build_trainer(jcfg, mesh=make_mesh(
+            jcfg.mesh, devices=jax.devices()[:1]))
+        jstate = jtr.init()
+        params = from_jax_params(jax.tree_util.tree_map(np.asarray,
+                                                        jstate.params))
+        jax_run_training(jcfg, trainer=jtr, state=jstate, verbose=True)
+        jled = jgoodput.get_ledger().report()
+    finally:
+        jgoodput.set_ledger(prev)
+    j_evals = _eval_lines(capsys.readouterr().err)
+
+    treg, tled = MetricsRegistry(), PhaseLedger(emit=False)
+    ttr = build_trainer(tcfg, device="cpu")
+    state, meter = run_training(tcfg, trainer=ttr,
+                                state=ttr.init(params=params), verbose=True,
+                                device="cpu", registry=treg, ledger=tled)
+    t_evals = _eval_lines(capsys.readouterr().err)
+
+    js, ts = jreg.snapshot(), treg.snapshot()
+    assert _series(ts) == _series(js)
+    value = lambda snap, name: snap[name]["series"][0]["value"]  # noqa: E731
+    assert value(ts, "slt_train_steps_total") == EVAL_STEPS
+    for name in ("slt_train_steps_total", "slt_train_grad_accum",
+                 "slt_train_batch_size", "slt_train_n_chips",
+                 "slt_train_zero_stage", "slt_opt_state_bytes"):
+        assert value(ts, name) == value(js, name), name
+    assert ts["slt_train_step_seconds"]["series"][0]["count"] == EVAL_STEPS
+    np.testing.assert_allclose(value(ts, "slt_train_loss"),
+                               value(js, "slt_train_loss"), **LOSS_TOL)
+    assert len(t_evals) == len(j_evals) == EVAL_STEPS // 2
+    for t, j in zip(t_evals, j_evals):
+        assert t["step"] == j["step"]
+        for key in ("eval_loss", "eval_perplexity"):
+            np.testing.assert_allclose(t[key], j[key], **LOSS_TOL,
+                                       err_msg=key)
+    final = run_eval(tcfg, ttr, state)
+    for key, v in final.items():
+        assert round(v, 5) == t_evals[-1][key], key
+    tphases, jphases = tled.report()["phases"], jled["phases"]
+    for name in ("compile", "step", "eval"):
+        assert tphases[name]["count"] == jphases[name]["count"], name
+    assert tphases["eval"]["count"] == EVAL_STEPS // 2
+
+
+def _train_cli(capsys, tmp_path, *sets):
+    from serverless_learn_tpu_torch import cli
+
+    argv = ["train", "--model", "llama_tiny", "--batch-size", "2",
+            "--seq-len", "64", "--steps", "3", "--device", "cpu",
+            "--set", "model_overrides.n_layers=1",
+            "--set", "train.dtype=float32", "--set", "train.eval_steps=1",
+            "--checkpoint-dir", str(tmp_path / "ckpt"),
+            "--checkpoint-every", "100"]
+    for s in sets:
+        argv += ["--set", s]
+    assert cli.main(argv) == 0
+    cap = capsys.readouterr()
+    done = json.loads(cap.out.strip().splitlines()[-1])
+    shadows = [json.loads(line) for line in cap.err.splitlines()
+               if '"ckpt_shadow"' in line]
+    return done, shadows
+
+
+@pytest.mark.parametrize("field", [
+    "train.eval_every", "checkpoint.emergency_save",
+    "checkpoint.emergency_min_interval_s"])
+def test_telemetry_fields_take_effect(field, capsys, tmp_path):
+    """The three fields that raised before the telemetry was ported now
+    change what ``train`` does: in-loop evals, the emergency shadow, and
+    its refresh interval."""
+    from serverless_learn_tpu_torch.telemetry import goodput
+
+    if field == "train.eval_every":
+        prev = goodput.set_ledger(goodput.PhaseLedger(emit=False))
+        try:
+            done, _ = _train_cli(capsys, tmp_path, "train.eval_every=1")
+            evals = goodput.get_ledger().report()["phases"]["eval"]
+        finally:
+            goodput.set_ledger(prev)
+        assert evals["count"] == 3 and done["final_step"] == 3
+        assert "eval" in done["badput_breakdown"]
+    elif field == "checkpoint.emergency_save":
+        _, on = _train_cli(capsys, tmp_path)  # armed by default
+        _, off = _train_cli(capsys, tmp_path / "off",
+                            "checkpoint.emergency_save=false")
+        assert [s["step"] for s in on] == [1] and off == []
+    else:
+        _, every = _train_cli(capsys, tmp_path,
+                              "checkpoint.emergency_min_interval_s=0")
+        _, once = _train_cli(capsys, tmp_path / "b",
+                             "checkpoint.emergency_min_interval_s=1e9")
+        assert [s["step"] for s in every] == [1, 2, 3]
+        assert [s["step"] for s in once] == [1]
+        assert all(s["seconds"] >= 0 for s in every)
+    section, name = field.split(".")
+    if name != "emergency_save":  # a negative count or interval is refused
+        with pytest.raises(ValueError, match=name):
+            ExperimentConfig.from_dict({"model": "llama_tiny",
+                                        section: {name: -1}})
