@@ -155,9 +155,26 @@ any failing phase exits non-zero:
     be the newest shadow's step and restore in place into a fresh
     trainer that re-encodes to the committed bytes; prints each shadow
     refresh's stall;
-12. prints one JSON line of kernels (with each kernel's launches on phase
-    10's path, and K6's on phase 11's), then the card's name and power
-    limit, then the result line ``{"ok": true, "device": {...}}``.
+13. the cluster on the card, through the CLI: the port's coordinator
+    (lease 2 s) and shard server as child processes, a synthetic llama_1b
+    dataset and a byte-level text corpus published, then ``worker``
+    (llama_1b at full width and 2 layers, B = 2, T = 4,096, 60 steps,
+    its checkpoints in the shard server); a second member joins after the
+    3rd step (epoch + 1, stripe (0, 2)) and is SIGKILLed 4 steps after
+    that formation (lease expiry, epoch + 1, stripe (0, 1)). Checks the
+    two transitions (``mesh_formed`` lines, ``slt_remesh_total``), each
+    restore verified and equal to its save's step, steps 1..60 with none
+    lost or repeated, the shard server's fetches (only the stripe's
+    shards on (0, 2), all again after), K1-K3's launches, no paging
+    alert, /healthz 200 and the peak card memory across a transition; then a
+    ``train --shard-server`` run on the text dataset must fail when the
+    shard server is SIGKILLed under it. Prints the worker's tokens/s and
+    step time beside phase 8b's, the data-wait share of goodput, each
+    transition's save, re-form and restore, and the shard server's bytes;
+14. prints one JSON line of kernels (with each kernel's launches on phase
+    10's path, K6's on phase 11's and K1-K3's on phase 13's worker), then
+    the card's name and power limit, then the result line ``{"ok": true,
+    "device": {...}}``.
 
 Every profiler session (phases 8b, 8f, 9b, 9c, 11e) goes through the
 port's shared profiler lock (``telemetry/profiler.py``).
@@ -192,6 +209,11 @@ runs only phase 10's ``train`` with ``--checkpoint-dir`` at the defaults
 (250 steps, no periodic save among them) the same way, for an A/B of the
 checkpoint path's steady tokens/s, the emergency shadow's refreshes
 included, between commits.
+
+    python3 chip_smoke.py --elastic-only
+
+builds the flash kernels and runs only phase 13 (the cluster), with no
+result line.
 """
 
 from __future__ import annotations
@@ -1539,6 +1561,8 @@ def serve_continuous(torch, card, model, static_replies, static_step):
 # The training slice's attention shape: llama_1b (32 heads / 8 KV heads,
 # head dim 64), batch 2 x 4096 tokens, causal, bf16.
 TRAIN_B, TRAIN_T = 2, 4096
+# Phase 8b's step time and tokens/s, printed beside phase 13's worker.
+PHASE_8B: dict = {}
 FLASH_SHAPE = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 64)
 # The LoRA slice's: llama_8b (32 heads / 8 KV heads, head dim 128).
 FLASH_SHAPE_8B = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 128)
@@ -1896,6 +1920,9 @@ def train_full_width(torch, card):
          max_memory_allocated_gb=peak_gb, launches=launches,
          dense_attention_calls=dense_calls[0],
          expected_step1_loss=expected)
+    PHASE_8B.update(layers=mcfg.n_layers, tokens_per_s=summary[
+        "tokens_per_sec"], median_step_s_after_2=statistics.median(
+            times[2:]))
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite training loss: {losses}")
     # Step 1 at init: the final norm gives each position unit RMS and
@@ -3264,6 +3291,490 @@ def emergency_drill(torch, card):
     return step
 
 
+# ------------------------------------------------------ the cluster (13) --
+
+# Phase 13's worker: llama_1b at full width (d 2,048, 32/8 heads, vocab
+# 128,256) and 2 layers, B = 2, T = 4,096, so K1-K3 launch, 2 each a step.
+ELASTIC_MODEL, ELASTIC_LAYERS = "llama_1b", 2
+ELASTIC_STEPS = 60
+ELASTIC_ARGS = ["--model", ELASTIC_MODEL, "--batch-size", str(TRAIN_B),
+                "--seq-len", str(TRAIN_T), "--set",
+                f"model_overrides.n_layers={ELASTIC_LAYERS}", "--set",
+                "optimizer.grad_clip_norm=1.0"]
+# A short lease and a fast sweep, so a SIGKILLed member is evicted in ~2 s;
+# the members heartbeat 10 times a lease.
+ELASTIC_LEASE_MS, ELASTIC_SWEEP_MS, ELASTIC_HEARTBEAT_MS = 2000, 100, 200
+# The synthetic dataset: 8 shards of 2 records (one batch each), 4 a stripe
+# while the stripe is (r, 2).
+ELASTIC_RECORDS, ELASTIC_PER_SHARD = 16, 2
+ELASTIC_JOIN_AT = 3       # the worker's step line after which a member joins
+ELASTIC_CRASH_AFTER = 4   # step lines on the (r, 2) stripe before its SIGKILL
+ELASTIC_TEXT_ROWS = 24    # byte-level rows of 4,096 in the text dataset
+ELASTIC_WAIT_S = 600      # the longest any line or exit is waited for
+# Host memory the phase needs: the shard server's root in tmpfs (at most
+# two 7.8 GB checkpoints with checkpoint.keep=1) and the worker's emergency
+# shadow and save buffer.
+ELASTIC_HOST_BYTES = 40e9
+# The joining member: a process that only holds a lease.
+JOINER = """
+import signal, sys
+from serverless_learn_tpu_torch.control.client import WorkerAgent
+agent = WorkerAgent(sys.argv[1], "joiner:1", name="phase13-joiner",
+                    heartbeat_interval_ms=int(sys.argv[2])).start()
+print("joined", agent.worker_id, flush=True)
+signal.pause()
+"""
+
+
+class Child:
+    """A child process whose stdout and stderr lines are read by threads,
+    so neither a silent child nor a full pipe blocks the phase; every wait
+    has a timeout."""
+
+    def __init__(self, argv, cwd):
+        self.argv = argv
+        self.proc = subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.lines = {"out": [], "err": []}
+        self._cv = threading.Condition()
+        self._readers = [threading.Thread(target=self._read, args=(k, s),
+                                          daemon=True)
+                         for k, s in (("out", self.proc.stdout),
+                                      ("err", self.proc.stderr))]
+        for t in self._readers:
+            t.start()
+
+    def _read(self, key, stream):
+        for line in stream:
+            with self._cv:
+                self.lines[key].append(line)
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def records(self, key="err"):
+        """The lines that are JSON objects."""
+        with self._cv:
+            lines = list(self.lines[key])
+        out = []
+        for line in lines:
+            if line.startswith("{"):
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+        return out
+
+    def wait_for(self, pred, what, key="err", timeout=ELASTIC_WAIT_S):
+        """The records of ``key`` once ``pred(records)`` holds; fails at
+        the timeout or when the child exits first."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                recs = self.records(key)
+                if pred(recs):
+                    return recs
+                if self.proc.poll() is not None and not any(
+                        t.is_alive() for t in self._readers):
+                    break
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._cv.wait(min(left, 1.0))
+        self.stop()
+        fail(f"phase 13: {what}: not seen (exit {self.proc.returncode}); "
+             f"{''.join(self.lines['err'][-15:])[-3000:]}")
+
+    def wait(self, timeout=ELASTIC_WAIT_S):
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"phase 13: {self.argv[3:5]} did not exit in {timeout}s")
+        for t in self._readers:
+            t.join(timeout=30)
+        return rc
+
+    def stop(self, sig=None):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig or signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        return self.proc.returncode
+
+
+def elastic_root():
+    """Phase 13's directory: in tmpfs (``/dev/shm``) where the host has
+    ELASTIC_HOST_BYTES available, so the checkpoints of its transitions
+    (tens of GB written) stay off the disk, else on a disk with that much
+    free (``checkpoint_dir``). Returns (path, where)."""
+    import os
+    import tempfile
+
+    avail, _ = host_memory_gb()
+    if os.path.isdir("/dev/shm") and avail and avail * 1e9 >= \
+            ELASTIC_HOST_BYTES:
+        return tempfile.mkdtemp(prefix="slt-phase13-", dir="/dev/shm"), \
+            "tmpfs"
+    return checkpoint_dir(free_bytes=ELASTIC_HOST_BYTES,
+                          prefix="slt-phase13-"), "disk"
+
+
+ELASTIC_STATE_BYTES = 7_763_779_592  # the 2-layer worker's checkpoint
+# The longest another thread may wait to allocate while a state-sized
+# host buffer is populated: half the phase's lease.
+ELASTIC_STALL_S = ELASTIC_LEASE_MS / 2000
+
+
+def allocation_stall(nbytes):
+    """(seconds to populate a ``host_buffer`` of ``nbytes``, the longest
+    another thread waited to allocate 0.5 MB meanwhile): a populate that
+    holds the process's memory map stalls every thread, a heartbeat
+    thread's too."""
+    from serverless_learn_tpu_torch.utils.serialization import host_buffer
+
+    waits, stop = [], threading.Event()
+
+    def allocate():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            blocks = [bytearray(100_000) for _ in range(5)]
+            waits.append(time.perf_counter() - t0)
+            del blocks
+            time.sleep(0.01)
+
+    t = threading.Thread(target=allocate, daemon=True)
+    t.start()
+    time.sleep(0.1)
+    t0 = time.perf_counter()
+    buf = host_buffer(nbytes)
+    populate_s = time.perf_counter() - t0
+    time.sleep(0.1)
+    stop.set()
+    t.join(timeout=30)
+    del buf
+    return populate_s, max(waits)
+
+
+def text_corpus(path, rows, seed=0):
+    """A byte-level text corpus from ``seed``: documents of lowercase
+    words, enough for ``rows`` packed rows of TRAIN_T."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"etaoinshrdlucmfwypvbgkjqxz", np.uint8)
+    docs, size = [], 0
+    while size < rows * TRAIN_T:
+        n = int(rng.integers(200, 2000))
+        text = letters[rng.integers(0, len(letters), n)]
+        text[rng.random(n) < 0.18] = ord(" ")
+        docs.append(text.tobytes().decode())
+        size += n + 1
+    with open(path, "w") as f:
+        f.write("\n\n".join(docs))
+
+
+def elastic_cluster(torch, card):
+    """Phase 13: the reference's cluster demo on the card, through the
+    CLI: the port's ``coordinator`` (lease 2 s, sweep 100 ms) and
+    ``shard-server`` as child processes, ``publish`` of a synthetic
+    llama_1b dataset (8 shards of 2 records x 4,096) and of a byte-level
+    text corpus written from seed 0, then ``worker`` (llama_1b at full
+    width, 2 layers, B = 2, T = 4,096, 60 steps; ``--metrics-port 0
+    --health --events-log``) with its checkpoints in the shard server.
+    After its 3rd step line a second member registers (a child holding a
+    lease through the port's ``WorkerAgent``): epoch + 1, stripe (0, 2).
+    After 4 step lines on that stripe the member is SIGKILLed: its lease
+    expires, epoch + 1, stripe (0, 1).
+
+    First, another thread's longest wait to allocate while a state-sized
+    host buffer is populated must stay under half the lease. Checks:
+    three formations (two transitions), epochs and stripes as
+    above, in the worker's ``mesh_formed`` lines and ``slt_remesh_total``
+    on /metrics; each restore is the step its save wrote, verified
+    against the save's CRCs (``slt_ckpt_verified_restores_total``); the
+    step lines run 1..60 with none lost or repeated; the shard server's
+    fetches (its span records joined to the worker's client spans) read
+    only even shards on (0, 2) and all 8 again after; K1-K3 launch
+    2 x 60 times and K4/K5 not at all; no alert pages (no critical alert;
+    warnings are printed) and /healthz answers 200; the card's peak memory across each transition stays
+    under 1.5x the checkpoint's size (one trainer's state, not two).
+    Last, the shard server is SIGKILLed under a ``train --shard-server``
+    run on the text dataset, which must exit non-zero with the source's
+    error. Prints the worker's tokens/s and step time beside phase 8b's,
+    the ``data_wait`` share of goodput, each transition's save, re-form
+    and restore (s, GB, GB/s), the shard server's bytes served and the
+    peak memory. Returns the worker's kernel launches."""
+    import os
+    import shutil
+    import signal
+
+    from serverless_learn_tpu_torch.control.client import ShardClient
+    from serverless_learn_tpu_torch.telemetry import fetch_text
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    py = [sys.executable, "-m", "serverless_learn_tpu_torch"]
+    populate_s, stall_s = allocation_stall(ELASTIC_STATE_BYTES)
+    if stall_s > ELASTIC_STALL_S:
+        fail(f"phase 13: populating a {ELASTIC_STATE_BYTES / 1e9:.2f} GB host "
+             f"buffer held another thread's allocation {stall_s:.2f} s")
+    root, where = elastic_root()
+    logs = {k: os.path.join(root, f"{k}.jsonl")
+            for k in ("coordinator", "shard_server", "worker")}
+    children = []
+    t_phase = time.perf_counter()
+
+    def start(argv):
+        children.append(Child(argv, here))
+        return children[-1]
+
+    def addr_of(c, what):
+        up = c.wait_for(lambda r: any("addr" in x for x in r), what,
+                        key="out", timeout=120)
+        port = next(x["addr"] for x in up if "addr" in x).rsplit(":", 1)[1]
+        return f"127.0.0.1:{port}"
+
+    def steps(r):
+        return [x["step"] for x in r if "step" in x and "event" not in x]
+
+    def formed(r):
+        return [x for x in r if x.get("event") == "mesh_formed"]
+
+    try:
+        co = start(py + ["coordinator", "--port", "0", "--host", "127.0.0.1",
+                         "--lease-ttl-ms", str(ELASTIC_LEASE_MS),
+                         "--sweep-ms", str(ELASTIC_SWEEP_MS),
+                         "--events-log", logs["coordinator"]])
+        ss = start(py + ["shard-server", "--port", "0", "--host",
+                         "127.0.0.1", "--root", os.path.join(root, "store"),
+                         "--events-log", logs["shard_server"]])
+        co_addr = addr_of(co, "the coordinator's address")
+        ss_addr = addr_of(ss, "the shard server's address")
+        pub = run_cli(["publish", "--shard-server", ss_addr, "--dataset",
+                       "ds", "--format", "synthetic", "--model", ELASTIC_MODEL,
+                       "--seq-len", str(TRAIN_T), "--num-records",
+                       str(ELASTIC_RECORDS), "--records-per-shard",
+                       str(ELASTIC_PER_SHARD), "--seed", "0"])
+        corpus = os.path.join(root, "corpus.txt")
+        text_corpus(corpus, ELASTIC_TEXT_ROWS)
+        pub_text = run_cli(["publish", "--shard-server", ss_addr,
+                            "--dataset", "text", "--format", "text",
+                            "--path", corpus, "--seq-len", str(TRAIN_T),
+                            "--records-per-shard", "2"])
+        n_shards = pub["num_shards"]
+
+        t_worker = time.perf_counter()
+        worker = start(py + [
+            "worker", *ELASTIC_ARGS, "--coordinator", co_addr,
+            "--shard-server", ss_addr, "--dataset", "ds", "--steps",
+            str(ELASTIC_STEPS), "--name", "phase13", "--verbose", "--set",
+            "train.log_every=1", "--set",
+            f"control.heartbeat_interval_ms={ELASTIC_HEARTBEAT_MS}",
+            "--set", "checkpoint.keep=1", "--metrics-port", "0", "--health",
+            "--events-log", logs["worker"], "--flight-dir",
+            os.path.join(root, "flight")])
+        up = worker.wait_for(
+            lambda r: any(x.get("event") == "metrics" for x in r),
+            "the worker's metrics line", key="out", timeout=300)
+        metrics_addr = next(x["addr"] for x in up
+                            if x.get("event") == "metrics")
+        scrapes, stop_scrape = [], threading.Event()
+
+        def scrape():
+            while not stop_scrape.wait(0.5):
+                rec = {}
+                for path in ("/metrics", "/alerts", "/healthz"):
+                    try:
+                        rec[path] = (200, fetch_text(metrics_addr, path,
+                                                     timeout=5))
+                    except Exception as e:  # noqa: BLE001
+                        code = getattr(e, "code", None)
+                        rec[path] = (code, None) if code else None
+                scrapes.append(rec)
+
+        scraper = threading.Thread(target=scrape, daemon=True)
+        scraper.start()
+        worker.wait_for(lambda r: len(steps(r)) >= ELASTIC_JOIN_AT,
+                        f"step line {ELASTIC_JOIN_AT}")
+        joiner = start([sys.executable, "-c", JOINER, co_addr,
+                        str(ELASTIC_HEARTBEAT_MS)])
+        deadline = time.monotonic() + 120
+        while not any(x.startswith("joined") for x in joiner.lines["out"]):
+            if time.monotonic() > deadline or joiner.proc.poll() is not None:
+                fail("phase 13: the joiner did not register: "
+                     f"{''.join(joiner.lines['err'])[-2000:]}")
+            time.sleep(0.05)
+        t_join = time.time()
+        recs = worker.wait_for(lambda r: len(formed(r)) >= 2,
+                               "the formation after the join")
+        at = len(steps(recs))
+        worker.wait_for(lambda r: len(steps(r)) >= at + ELASTIC_CRASH_AFTER,
+                        "steps on the (0, 2) stripe")
+        joiner.stop(signal.SIGKILL)
+        t_kill = time.time()
+        worker.wait_for(lambda r: len(formed(r)) >= 3,
+                        "the formation after the lease expiry")
+        rc = worker.wait()
+        stop_scrape.set()
+        scraper.join(timeout=30)
+        worker_s = time.perf_counter() - t_worker
+        recs = worker.records("err")
+        done = [x for x in worker.records("out")
+                if x.get("event") == "worker_done"]
+        if rc != 0 or not done:
+            fail(f"phase 13: worker exited {rc}: "
+                 f"{''.join(worker.lines['err'][-15:])[-3000:]}")
+        done = done[-1]
+        client = ShardClient(ss_addr)
+        try:
+            stats = client.stats()
+        finally:
+            client.close()
+
+        # Last: the shard server killed under a train run on the text
+        # dataset. The run must fail with the source's error.
+        trainer = start(py + ["train", *ELASTIC_ARGS, "--shard-server",
+                              ss_addr, "--dataset", "text", "--steps",
+                              "1000", "--verbose", "--set",
+                              "train.log_every=1"])
+        trainer.wait_for(lambda r: len(steps(r)) >= 2,
+                         "the text run's second step line")
+        ss.stop(signal.SIGKILL)
+        t_ss_kill = time.perf_counter()
+        train_rc = trainer.wait()
+        killed_run_s = time.perf_counter() - t_ss_kill
+        train_tail = [x.strip() for x in trainer.lines["err"][-3:]]
+        train_steps = len(steps(trainer.records("err")))
+
+        events = {k: read_events(p) for k, p in logs.items()
+                  if os.path.exists(p)}
+    finally:
+        for c in children:
+            c.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+    faults = []
+    fm = formed(recs)
+    got = [(x["epoch"], (x["stripe_rank"], x["stripe_size"])) for x in fm]
+    if got != [(1, (0, 1)), (2, (0, 2)), (3, (0, 1))]:
+        faults.append(f"formations (epoch, stripe) {got}")
+    rem = [x for x in recs if x.get("event") == "remesh"]
+    for r in rem[1:]:
+        if (r["restored_step"] != r["saved_step"]
+                or r["restore_bytes"] != r["save_bytes"]):
+            faults.append(f"a restore is not its save: {r}")
+    if steps(recs) != list(range(1, ELASTIC_STEPS + 1)):
+        faults.append(f"step lines {steps(recs)}")
+    if [x["step"] for x in fm[1:]] != [r["saved_step"] for r in rem[1:]]:
+        faults.append("a formation did not go on from the saved step")
+    metric = lambda name: max(  # noqa: E731
+        (prom_value(s["/metrics"][1], name) or 0 for s in scrapes
+         if s.get("/metrics") and s["/metrics"][1]), default=None)
+    remesh_total = metric("slt_remesh_total")
+    verified = metric("slt_ckpt_verified_restores_total")
+    lease_expiries = metric("slt_lease_expiries_total")
+    hb_failures = metric("slt_heartbeat_failures_total")
+    if remesh_total != 3 or verified != 2:
+        faults.append(f"/metrics: slt_remesh_total {remesh_total}, "
+                      f"slt_ckpt_verified_restores_total {verified}")
+    # The shard server's fetches: its span records, joined by parent to
+    # the worker's client spans (which name the key), put in the window of
+    # the stripe in force when they started.
+    served = {x["parent_id"] for x in events.get("shard_server", [])
+              if x.get("span") == "rpc/fetch"}
+    wev = events.get("worker", [])
+    beats = sorted(x["t0_unix_s"] for x in wev
+                   if x.get("span") == "rpc/heartbeat")
+    beat_gap = max((b - a for a, b in zip(beats, beats[1:])), default=None)
+    stripes = sorted((x["t_unix_s"], x["rank"], x["size"]) for x in wev
+                     if x.get("event") == "stripe")
+    windows = [[] for _ in stripes]
+    for x in wev:
+        key = x.get("key", "")
+        if (x.get("span") == "rpc/fetch" and x.get("span_id") in served
+                and key.startswith("ds/shard-")):
+            k = max((i for i, s in enumerate(stripes)
+                     if s[0] <= x["t0_unix_s"]), default=0)
+            windows[k].append(int(key[len("ds/shard-"):-len(".bin")]))
+    if (len(windows) != 3 or not windows[1]
+            or any(i % 2 for i in windows[1])
+            or set(windows[2]) != set(range(n_shards))):
+        faults.append(f"shard fetches by stripe window {windows}")
+    kl = done["kernel_launches"]
+    want = ELASTIC_LAYERS * ELASTIC_STEPS
+    if (any(kl[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+            or kl["cross_entropy_fwd"] or kl["cross_entropy_bwd"]):
+        faults.append(f"kernel launches {kl}, expected {want} of K1-K3")
+    fired = [a for s in scrapes if s.get("/alerts") and s["/alerts"][1]
+             for a in json.loads(s["/alerts"][1]).get("firing", [])]
+    fired = sorted({(a["alert"], a["severity"], a["message"])
+                    for a in fired})
+    pages = [a for a in fired if a[1] == "critical"]
+    health = sorted({s["/healthz"][0] for s in scrapes if s.get("/healthz")})
+    if pages or health != [200]:
+        faults.append(f"alerts paged {pages[:3]}, /healthz {health}")
+    for r in rem[1:]:
+        peak = r["transition_peak_bytes"]
+        if peak is None or peak >= 1.5 * r["save_bytes"]:
+            faults.append(f"peak card memory across a transition "
+                          f"{r['transition_peak_bytes']} B for a "
+                          f"{r['save_bytes']} B state")
+    if train_rc == 0 or not any("Error" in x for x in train_tail):
+        faults.append(f"the run under a killed shard server exited "
+                      f"{train_rc}: {train_tail}")
+    gb = lambda b: b / 1e9 if b else None  # noqa: E731
+    transitions = [{
+        "epoch": r["epoch"], "stripe": r["stripe"], "step": r["step"],
+        "save_s": r["save_s"], "save_store_s": r["save_io_s"],
+        "save_gb": gb(r["save_bytes"]),
+        "save_gbps": gbps(r["save_bytes"], r["save_s"]),
+        "reform_s": r["reform_s"], "restore_s": r["restore_s"],
+        "restore_store_s": r["restore_io_s"],
+        "restore_gb": gb(r["restore_bytes"]),
+        "restore_gbps": gbps(r["restore_bytes"], r["restore_s"]),
+        "transition_s": sum(r[k] or 0 for k in ("save_s", "reform_s",
+                                                "restore_s")),
+        "step_peak_gb": gb(r["step_peak_bytes"]),
+        "transition_peak_gb": gb(r["transition_peak_bytes"])}
+        for r in rem]
+    breakdown = done.get("badput_breakdown", {})
+    emit("elastic_cluster_llama_1b_2_layers", card=card, root=where,
+         layers=ELASTIC_LAYERS, batch=TRAIN_B, seq_len=TRAIN_T,
+         steps=ELASTIC_STEPS, tokens_per_s=done.get("tokens_per_sec"),
+         step_time_s_median=done.get("step_time_s_median"),
+         phase_8b_16_layers=PHASE_8B or None, goodput=done.get("goodput"),
+         data_wait_share=breakdown.get("data_wait"),
+         badput_breakdown=breakdown, transitions=transitions,
+         join_to_formed_s=stripes[1][0] - t_join if len(stripes) > 1
+         else None,
+         kill_to_formed_s=stripes[2][0] - t_kill if len(stripes) > 2
+         else None,
+         shard_fetches_by_window=windows,
+         shard_server_bytes_served=stats.bytes_served,
+         shard_server_bytes_stored=stats.bytes_stored,
+         datasets={"ds": pub, "text": pub_text},
+         host_buffer_populate_s=populate_s,
+         host_buffer_other_thread_stall_s=stall_s,
+         remesh_total=remesh_total, verified_restores=verified,
+         lease_expiries=lease_expiries, heartbeat_failures=hb_failures,
+         heartbeats=len(beats), heartbeat_max_gap_s=beat_gap,
+         scrapes=len(scrapes), alerts_paged=len(pages),
+         alerts_fired=fired, healthz=health,
+         kernel_launches=kl, worker_s=worker_s,
+         killed_shard_server_run={"exit": train_rc, "steps": train_steps,
+                                  "seconds_to_exit": killed_run_s,
+                                  "last_lines": train_tail},
+         phase_s=time.perf_counter() - t_phase)
+    if faults:
+        fail("phase 13: " + "; ".join(faults))
+    return kl
+
+
 # ------------------------------------------------------------------ QLoRA --
 
 # The JAX package's single-card 8B fine-tuning rung (benchmarks/ladder.py
@@ -3987,6 +4498,11 @@ def main() -> int:
         return serve_only(torch, build, card)
     if "--ckpt-train-only" in sys.argv[1:]:
         return ckpt_train_only(torch, build, card)
+    if "--elastic-only" in sys.argv[1:]:
+        build.build(["flash_attention"])
+        build.load("flash_attention")
+        elastic_cluster(torch, card)
+        return 0
 
     t0 = time.perf_counter()
     sources = ["quant_matmul", "flash_attention", "cross_entropy"]
@@ -4033,6 +4549,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emergency_drill(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic = elastic_cluster(torch, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -4066,6 +4585,7 @@ def main() -> int:
             "source": "serverless_learn_tpu_torch/csrc/flash_attention.cu",
             "replaces": where, "launches": flash_launches[name],
             "launches_checkpoint_path": phase10[name],
+            "launches_elastic_worker": elastic[name],
             "max_abs_err": flash_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -4082,6 +4602,7 @@ def main() -> int:
             "source": "serverless_learn_tpu_torch/csrc/cross_entropy.cu",
             "replaces": where, "launches": lora_launches[name],
             "launches_checkpoint_path": phase10[name],
+            "launches_elastic_worker": elastic[name],
             "max_abs_err": ce_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

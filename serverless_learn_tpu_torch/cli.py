@@ -1,5 +1,6 @@
-"""Command line of the PyTorch port: ``train``, ``eval``, ``serve`` and
-``generate``.
+"""Command line of the PyTorch port: ``train``, ``eval``, ``serve``,
+``generate``, the cluster's ``coordinator``, ``shard-server``,
+``publish``, ``worker`` and ``stats``.
 
     python -m serverless_learn_tpu_torch train --model llama_1b \\
         --batch-size 2 --seq-len 4096 --steps 5
@@ -29,14 +30,36 @@
         --health --events-log run/events.jsonl --set train.eval_every=20
     python -m serverless_learn_tpu_torch serve --model llama_8b --quant int8 \\
         --metrics-port 9101 --profile-dir profiles
+    python -m serverless_learn_tpu_torch coordinator --port P1 &
+    python -m serverless_learn_tpu_torch shard-server --port P2 --root DIR &
+    python -m serverless_learn_tpu_torch publish --shard-server localhost:P2 \\
+        --dataset ds --format synthetic --model llama_1b --seq-len 4096
+    python -m serverless_learn_tpu_torch worker --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --coordinator localhost:P1 \\
+        --shard-server localhost:P2 --dataset ds --steps 100
+    python -m serverless_learn_tpu_torch train --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --shard-server localhost:P2 \\
+        --dataset ds --steps 100 --checkpoint-store localhost:P2
 
 The flags are those of the reference CLI (``serverless_learn_tpu/cli.py``)
 for these paths. Checkpoints are the JAX package's (``training/
 checkpoint.py``): ``train --checkpoint-dir`` writes them, ``eval`` restores
 the whole state, ``generate`` and ``serve`` the params alone. Without
 ``--checkpoint-dir`` the weights are random, made from ``--seed``; with it,
-a store that holds no checkpoint is an error, never random weights. Every
-command runs on the card; ``--device cpu`` is for tests only.
+a store that holds no checkpoint is an error, never random weights.
+``--checkpoint-store ADDR`` puts the checkpoints on a shard server
+instead. Every command that trains or serves runs on the card; ``--device
+cpu`` is for tests only.
+
+The cluster (``control/``, ``data/shard_client.py``,
+``training/elastic.py``): ``coordinator`` and ``shard-server`` run the
+port's daemons (0 picks a port; each prints its address);
+``publish`` writes a dataset (``--format synthetic | tokens | text``);
+``train`` and ``eval`` with ``--shard-server ADDR --dataset NAME`` stream
+it; ``worker`` trains as an elastic member of a coordinator's cluster,
+re-forming at every membership epoch, its checkpoints in the shard server
+(``--checkpoint-store``, default ``control.shard_server_addr``); ``stats``
+prints a daemon's RPC and load statistics.
 
 Telemetry flags of ``train``, ``eval`` and ``serve``, the reference's:
 ``--metrics-port`` serves ``/metrics``, ``/metrics.json``, ``/healthz``,
@@ -67,8 +90,6 @@ _SERVE_SECTIONS = ("model_overrides", "kv", "health", "waterfall")
 NOT_PORTED = {
     "distributed": "multi-process training (--world-size) is not yet ported "
                    "to PyTorch (ROADMAP.md queue 1 item 3, data parallel)",
-    "shard_server": "streaming data from the shard server is not yet ported "
-                    "to PyTorch (ROADMAP.md queue 1 item 5)",
 }
 
 
@@ -162,25 +183,42 @@ def _init_tracing_from_args(args):
               "flight_dir": flight_dir}, stream=sys.stdout)
 
 
-def _make_checkpointer(args, cfg=None):
-    """The store's Checkpointer, or None without ``--checkpoint-dir``;
-    ``checkpoint.keep`` / ``checkpoint.verify`` from ``cfg`` when given."""
+def _make_store(args):
+    """The checkpoint store the flags name: ``--checkpoint-store`` (a shard
+    server), else ``--checkpoint-dir``, else None."""
     from serverless_learn_tpu_torch.training.checkpoint import (
-        Checkpointer, LocalStore, ShardServerStore)
+        LocalStore, ShardServerStore)
 
     if args.checkpoint_store:
-        try:
-            ShardServerStore(args.checkpoint_store)
-        except NotImplementedError as e:
-            raise SystemExit(str(e))
-    if not args.checkpoint_dir:
+        return ShardServerStore(args.checkpoint_store)
+    if args.checkpoint_dir:
+        return LocalStore(args.checkpoint_dir)
+    return None
+
+
+def _make_checkpointer(args, cfg=None):
+    """The store's Checkpointer, or None without a store;
+    ``checkpoint.keep`` / ``checkpoint.verify`` from ``cfg`` when given."""
+    from serverless_learn_tpu_torch.training.checkpoint import Checkpointer
+
+    store = _make_store(args)
+    if store is None:
         return None
-    store = LocalStore(args.checkpoint_dir)
     if cfg is None:
         return Checkpointer(store, name=args.checkpoint_name)
     return Checkpointer(store, name=args.checkpoint_name,
                         keep=cfg.checkpoint.keep,
                         verify=cfg.checkpoint.verify)
+
+
+def _close_checkpointer(ckpt):
+    """Drain and disarm ``ckpt``, then close its store's connection (a
+    shard-server store holds one)."""
+    try:
+        ckpt.close()
+    finally:
+        if hasattr(ckpt.store, "close"):
+            ckpt.store.close()
 
 
 def _load_inference_params(args, cfg):
@@ -200,7 +238,7 @@ def _load_inference_params(args, cfg):
             raise SystemExit("no checkpoint found in the configured store")
         host = ckpt.restore_params_host(step=step)
     finally:
-        ckpt.close()
+        _close_checkpointer(ckpt)
     if "pipe_blocks" in host or "pipe_blocks" in host.get("pipeline", {}):
         raise SystemExit(str(not_ported(
             "serving a pipeline-trained checkpoint (unstacking pipe_blocks)",
@@ -300,7 +338,13 @@ def _train_config(args):
              ("optimizer", "learning_rate"): args.lr,
              ("optimizer", "name"): args.optimizer,
              ("data", "seq_len"): args.seq_len,
-             ("train", "checkpoint_every"): args.checkpoint_every}
+             ("train", "checkpoint_every"): args.checkpoint_every,
+             ("data", "dataset"): args.dataset}
+    if args.shard_server:
+        flags[("data", "shard_server_addr")] = args.shard_server
+        flags[("control", "shard_server_addr")] = args.shard_server
+    if getattr(args, "coordinator", None):
+        flags[("control", "coordinator_addr")] = args.coordinator
     if args.mesh:
         flags[("mesh",)] = {**raw.get("mesh", {}), **_parse_mesh(args.mesh)}
     for path, val in flags.items():
@@ -316,16 +360,12 @@ def _train_config(args):
 def _refuse_unported(args):
     if args.world_size:
         raise SystemExit(NOT_PORTED["distributed"])
-    if args.shard_server:
-        raise SystemExit(NOT_PORTED["shard_server"])
 
 
 def cmd_train(args) -> int:
     """Train a model on the card; with ``--checkpoint-dir`` save every
     ``train.checkpoint_every`` steps and at the end, with the emergency
     save armed. Ends with the reference's ``done`` line on stdout."""
-    from serverless_learn_tpu_torch.ops import cross_entropy as ce
-    from serverless_learn_tpu_torch.ops import flash_attention as fa
     from serverless_learn_tpu_torch.telemetry import goodput
     from serverless_learn_tpu_torch.telemetry.tracing import get_tracer
     from serverless_learn_tpu_torch.training.loop import run_training
@@ -335,9 +375,7 @@ def cmd_train(args) -> int:
     _refuse_unported(args)
     cfg = _train_config(args)
     _init_tracing_from_args(args)
-    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ce.cross_entropy_fwd,
-               ce.cross_entropy_bwd)
-    before = [k.launches for k in kernels]
+    before = _kernel_launches()
     ckpt = exporter = health = None
     try:
         exporter = _start_metrics(args)
@@ -386,12 +424,12 @@ def cmd_train(args) -> int:
                   "badput_breakdown": grep["badput_breakdown"],
                   "spans": get_tracer().summary(),
                   "losses": [round(x, 5) for x in losses],
-                  "kernel_launches": {k.__name__: k.launches - n
-                                      for k, n in zip(kernels, before)}},
+                  "kernel_launches": {k: n - before[k] for k, n in
+                                      _kernel_launches().items()}},
                  stream=sys.stdout)
     finally:
         if ckpt is not None:
-            ckpt.close()  # drain the upload in flight, disarm the save
+            _close_checkpointer(ckpt)  # drain the upload, disarm the save
         if health is not None:
             health.stop()
         if exporter is not None:
@@ -429,7 +467,7 @@ def cmd_eval(args) -> int:
                                   ckpt.restore(trainer.state_tree(state)))
                 step = state.step
             finally:
-                ckpt.close()
+                _close_checkpointer(ckpt)
         metrics = run_eval(cfg, trainer, state,
                            num_batches=args.eval_steps or cfg.train.eval_steps)
     finally:
@@ -493,6 +531,10 @@ def cmd_serve(args) -> int:
                                                    WaterfallConfig)
     from serverless_learn_tpu_torch.inference.server import GenerationServer
 
+    if args.fleet:
+        raise SystemExit(str(not_ported(
+            "serving as a fleet replica (--fleet, fleet/)",
+            "ROADMAP.md queue 1 item 5")))
     sets = _overrides(args.set, _SERVE_SECTIONS)
     kv = _kv_config(args, sets["kv"])
     try:
@@ -529,6 +571,185 @@ def cmd_serve(args) -> int:
         if health is not None:
             health.stop()
         server.stop()
+    return 0
+
+
+def _kernel_launches():
+    """{kernel wrapper: launches} of the flash and cross-entropy kernels."""
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+
+    return {k.__name__: k.launches
+            for k in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv,
+                      ce.cross_entropy_fwd, ce.cross_entropy_bwd)}
+
+
+def cmd_worker(args) -> int:
+    """An elastic worker: register with the coordinator under an exclusive
+    name, train, and re-form at every membership epoch (drain, save,
+    re-form, restore). Ends with the reference's ``worker_done`` line on
+    stdout, with the port's figures beside it."""
+    import socket
+
+    from serverless_learn_tpu_torch.models.registry import resolve_device
+    from serverless_learn_tpu_torch.telemetry import goodput
+    from serverless_learn_tpu_torch.training.checkpoint import (
+        ShardServerStore)
+    from serverless_learn_tpu_torch.training.elastic import ElasticTrainer
+    from serverless_learn_tpu_torch.utils.metrics import log_json
+
+    _refuse_unported(args)
+    if args.multihost:
+        raise SystemExit(str(not_ported(
+            "the multi-host elastic worker (--multihost, "
+            "training/elastic_multihost.py)", "ROADMAP.md queue 1 item 5")))
+    cfg = _train_config(args)
+    resolve_device(args.device)  # no card: raise before joining anyone
+    _init_tracing_from_args(args)
+    store = _make_store(args) or ShardServerStore(
+        cfg.control.shard_server_addr)
+    before = _kernel_launches()
+    exporter = health = None
+    try:
+        exporter = _start_metrics(args)
+        health = _start_health(args, cfg.health, exporter=exporter)
+        et = ElasticTrainer(
+            cfg, store, coordinator_addr=cfg.control.coordinator_addr,
+            advertise_addr=args.advertise,
+            name=args.name or f"worker-{socket.gethostname()}-{os.getpid()}",
+            device=args.device, verbose=args.verbose)
+        state, losses = et.run()
+        grep = goodput.get_ledger().report()
+        log_json({"event": "worker_done", "steps": len(losses),
+                  "final_loss": losses[-1] if losses else None,
+                  "transitions": len(et.transitions),
+                  "final_step": state.step,
+                  **et.summary(cfg.data.seq_len, cfg.train.batch_size),
+                  "goodput": grep["goodput"],
+                  "badput_breakdown": grep["badput_breakdown"],
+                  "kernel_launches": {k: n - before[k] for k, n in
+                                      _kernel_launches().items()}},
+                 stream=sys.stdout)
+    finally:
+        if health is not None:
+            health.stop()
+        if exporter is not None:
+            exporter.stop()
+    return 0
+
+
+def cmd_coordinator(args) -> int:
+    """The port's coordinator (``control/daemons.py``) in this process."""
+    from serverless_learn_tpu_torch.control.daemons import main_coordinator
+
+    if args.gossip or args.gossip_port is not None:
+        raise SystemExit(str(not_ported(
+            "the coordinator's SWIM gossip seed (--gossip, "
+            "control/gossip.py)", "ROADMAP.md queue 1 item 5")))
+    argv = ["--port", str(args.port), "--host", args.host,
+            "--lease_ttl_ms", str(args.lease_ttl_ms),
+            "--sweep_ms", str(args.sweep_ms)]
+    if args.state_file:
+        argv += ["--state_file", args.state_file]
+    if args.events_log:
+        argv += ["--events_log", args.events_log]
+    return main_coordinator(argv)
+
+
+def cmd_shard_server(args) -> int:
+    """The port's shard server (``control/daemons.py``) in this process."""
+    from serverless_learn_tpu_torch.control.daemons import main_shard_server
+
+    argv = ["--port", str(args.port), "--host", args.host]
+    if args.root:
+        argv += ["--root", args.root]
+    if args.events_log:
+        argv += ["--events_log", args.events_log]
+    return main_shard_server(argv)
+
+
+def cmd_publish(args) -> int:
+    """Publish a dataset to a shard server: ``synthetic`` (a model's batch
+    schema, sampled from ``--seed``), ``tokens`` (a token corpus file) or
+    ``text`` (a text corpus, BPE with ``--vocab``/``--merges`` or byte
+    level, packed)."""
+    from serverless_learn_tpu_torch.config import DataConfig
+    from serverless_learn_tpu_torch.data.shard_client import (
+        publish_dataset, publish_from_bundle)
+
+    per_shard = args.records_per_shard or 512
+    if args.format == "synthetic":
+        from serverless_learn_tpu_torch.models.registry import get_model
+
+        if not args.model:
+            raise SystemExit("--format synthetic requires --model")
+        bundle = get_model(args.model)
+        meta = publish_from_bundle(
+            args.shard_server, args.dataset, bundle.make_batch,
+            DataConfig(seq_len=args.seq_len), num_records=args.num_records,
+            records_per_shard=per_shard, seed=args.seed)
+    elif args.format in ("tokens", "text"):
+        if not args.path:
+            raise SystemExit(f"--format {args.format} requires --path")
+        if args.format == "tokens":
+            from serverless_learn_tpu_torch.data.raw import load_token_corpus
+
+            arrays = load_token_corpus(args.path, seq_len=args.seq_len)
+        else:
+            from serverless_learn_tpu_torch.data.tokenizer import (
+                load_text_corpus)
+
+            arrays = load_text_corpus(args.path, seq_len=args.seq_len,
+                                      vocab_file=args.vocab,
+                                      merges_file=args.merges)
+        meta = publish_dataset(args.shard_server, args.dataset, arrays,
+                               records_per_shard=per_shard)
+    else:
+        raise SystemExit(str(not_ported(
+            f"publish --format {args.format} (the image loaders of "
+            "data/raw.py)", "ROADMAP.md queue 1 item 5")))
+    print(json.dumps({"dataset": args.dataset,
+                      "num_records": meta.num_records,
+                      "num_shards": meta.num_shards,
+                      "fields": [f.name for f in meta.fields]}))
+    return 0
+
+
+def rpc_stats(rep) -> dict:
+    """``StatsReply.rpc`` as {"rpc/<name>": {count, total_s, mean_s,
+    max_s}}, the reference's ``utils/tracing.rpc_stats``."""
+    from serverless_learn_tpu_torch.control.wire import MSG_TYPE_NAMES
+
+    out = {}
+    for s in rep.rpc:
+        name = MSG_TYPE_NAMES.get(s.msg_type, f"msg_{s.msg_type}")
+        out[f"rpc/{name}"] = {
+            "count": s.count, "total_s": s.total_us / 1e6,
+            "mean_s": (s.total_us / s.count / 1e6) if s.count else 0.0,
+            "max_s": s.max_us / 1e6}
+    return out
+
+
+def cmd_stats(args) -> int:
+    """A daemon's RPC latencies and, for the shard server, its load."""
+    from serverless_learn_tpu_torch.control.client import (CoordinatorClient,
+                                                           ShardClient)
+
+    cls = CoordinatorClient if args.kind == "coordinator" else ShardClient
+    c = cls(args.addr)
+    try:
+        rep = c.stats()
+    finally:
+        c.close()
+    out = {"rpc": rpc_stats(rep)}
+    if args.kind == "shard-server":
+        for k in ("bytes_served", "bytes_stored", "active_streams",
+                  "crc_failures", "throttled_chunks",
+                  "starved_streams_served"):
+            out[k] = getattr(rep, k)
+    else:
+        out["flows"] = [f.to_dict() for f in rep.flows]
+    print(json.dumps(out, indent=2))
     return 0
 
 
@@ -583,7 +804,7 @@ def _add_checkpoint_flags(p: argparse.ArgumentParser):
     p.add_argument("--checkpoint-name", default="ckpt",
                    help="checkpoint namespace inside the store")
     p.add_argument("--checkpoint-store", metavar="ADDR", default=None,
-                   help="the shard-server store: not yet ported, raises")
+                   help="keep checkpoints on this shard server")
 
 
 def _add_train_flags(p: argparse.ArgumentParser):
@@ -608,8 +829,11 @@ def _add_train_flags(p: argparse.ArgumentParser):
     _add_checkpoint_flags(p)
     p.add_argument("--checkpoint-every", type=int, default=None,
                    help="save every N steps (config train.checkpoint_every)")
-    p.add_argument("--shard-server", default=None,
-                   help="not yet ported: raises")
+    p.add_argument("--dataset", default=None,
+                   help="the published dataset to stream (config "
+                        "data.dataset)")
+    p.add_argument("--shard-server", metavar="ADDR", default=None,
+                   help="stream data from this shard server")
     p.add_argument("--world-size", type=int, default=None,
                    help="not yet ported: raises")
     _add_telemetry_flags(p)
@@ -619,7 +843,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="serverless_learn_tpu_torch",
         description="PyTorch/CUDA port of serverless-learn-tpu: training, "
-                    "eval and serving")
+                    "eval, serving and the elastic cluster")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train", help="train a model on the card")
@@ -687,7 +911,84 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--no-prefix-cache", action="store_true",
                     help="disable shared-prefix block reuse "
                          "(config kv.prefix_cache)")
+    sv.add_argument("--fleet", action="store_true",
+                    help="not yet ported: raises")
     sv.set_defaults(fn=cmd_serve)
+
+    w = sub.add_parser("worker", help="elastic worker: join a cluster and "
+                                      "train")
+    _add_train_flags(w)
+    w.add_argument("--coordinator", metavar="ADDR", default=None,
+                   help="the coordinator (config control.coordinator_addr)")
+    w.add_argument("--advertise", default="local:0",
+                   help="address advertised to peers")
+    w.add_argument("--name", default=None,
+                   help="worker name = checkpoint namespace; default unique "
+                        "per host and process. Two live workers never share "
+                        "a name (refused at registration)")
+    w.add_argument("--multihost", metavar="RUN", default=None,
+                   help="not yet ported: raises")
+    w.set_defaults(fn=cmd_worker)
+
+    c = sub.add_parser("coordinator", help="run the membership daemon")
+    c.add_argument("--port", type=int, default=50052, help="0 picks one")
+    c.add_argument("--host", default="0.0.0.0", help="bind address")
+    c.add_argument("--lease-ttl-ms", type=int, default=5000)
+    c.add_argument("--sweep-ms", type=int, default=500)
+    c.add_argument("--state-file", default=None,
+                   help="persist membership here: a restarted coordinator "
+                        "resumes the same epoch and worker ids")
+    c.add_argument("--events-log", metavar="PATH", default=None,
+                   help="append a JSONL server-side span per traced RPC")
+    c.add_argument("--gossip", action="store_true",
+                   help="not yet ported: raises")
+    c.add_argument("--gossip-port", type=int, default=None,
+                   help="not yet ported: raises")
+    c.set_defaults(fn=cmd_coordinator)
+
+    s = sub.add_parser("shard-server", help="run the data-plane daemon")
+    s.add_argument("--port", type=int, default=50053, help="0 picks one")
+    s.add_argument("--host", default="0.0.0.0", help="bind address")
+    s.add_argument("--root", help="blob root directory")
+    s.add_argument("--events-log", metavar="PATH", default=None,
+                   help="append a JSONL server-side span per traced RPC")
+    s.set_defaults(fn=cmd_shard_server)
+
+    pub = sub.add_parser("publish",
+                         help="publish a dataset to the data plane")
+    pub.add_argument("--shard-server", required=True, metavar="ADDR")
+    pub.add_argument("--dataset", required=True)
+    pub.add_argument("--format", default="synthetic",
+                     choices=["synthetic", "mnist", "cifar10", "imagefolder",
+                              "tokens", "text"],
+                     help="synthetic: sample a model's batch schema; "
+                          "tokens: chunk a corpus file (.bin token dump or "
+                          "raw text); text: tokenize a text corpus "
+                          "(--vocab/--merges for GPT-2-format BPE, else "
+                          "byte-level) and pack documents densely; mnist, "
+                          "cifar10 and imagefolder are not yet ported")
+    pub.add_argument("--path", help="corpus file (tokens, text)")
+    pub.add_argument("--split", default="train", choices=["train", "test"])
+    pub.add_argument("--model", default=None,
+                     help="synthetic: the model whose batch schema to "
+                          "publish")
+    pub.add_argument("--num-records", type=int, default=4096,
+                     help="synthetic: how many records")
+    pub.add_argument("--records-per-shard", type=int, default=None,
+                     help="records per shard (default 512)")
+    pub.add_argument("--seq-len", type=int, default=128)
+    pub.add_argument("--seed", type=int, default=0)
+    pub.add_argument("--vocab", default=None,
+                     help="text: GPT-2-style vocab.json")
+    pub.add_argument("--merges", default=None,
+                     help="text: GPT-2-style merges.txt")
+    pub.set_defaults(fn=cmd_publish)
+
+    st = sub.add_parser("stats", help="a daemon's load and RPC stats")
+    st.add_argument("--addr", required=True)
+    st.add_argument("--kind", choices=["coordinator", "shard-server"],
+                    default="shard-server")
+    st.set_defaults(fn=cmd_stats)
     return ap
 
 

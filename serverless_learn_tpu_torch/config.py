@@ -2,16 +2,18 @@
 ``serverless_learn_tpu/config.py`` (``ExperimentConfig`` and the sections
 ``model``, ``model_overrides``, ``mesh``, ``optimizer``, ``train`` and
 ``data``, ``checkpoint``, the serving engines' ``kv``, the health
-engine's ``health`` and the request ledger's ``waterfall``) with the same
-field names and defaults, so the reference's JSON configs and ``--set
-section.key=value`` overrides mean the same here.
+engine's ``health``, the request ledger's ``waterfall``, the control
+plane's ``control``, the membership policy's ``membership`` and the
+elastic trainer's ``elastic``) with the same field names and defaults, so
+the reference's JSON configs and ``--set section.key=value`` overrides
+mean the same here.
 
 What the port does not run raises instead of being ignored: a mesh of
 more than one device, a non-f32 gradient exchange, every field of
-``_FIELDS_NOT_PORTED`` set away from its default, and any of the sections
-``control``, ``local_sgd``, ``membership``, ``fleet``, ``numerics`` and
-``elastic`` (the port keeps no copy of their defaults, so it refuses them
-when set at all).
+``_FIELDS_NOT_PORTED`` set away from its default (gossip membership and
+the quantized remesh stream among them), and any of the sections
+``local_sgd``, ``fleet`` and ``numerics`` (the port keeps no copy of
+their defaults, so it refuses them when set at all).
 """
 
 from __future__ import annotations
@@ -22,12 +24,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, Optional
 
 _SECTIONS_NOT_PORTED = {
-    "control": "the control plane (coordinator, shard server)",
     "local_sgd": "gossip / DiLoCo local SGD",
-    "membership": "gossip membership",
     "fleet": "the serving fleet",
     "numerics": "numerics telemetry (ROADMAP.md queue 1 item 3g)",
-    "elastic": "elastic training",
 }
 ROADMAP_TRAINING = "ROADMAP.md queue 1 item 3"
 _DATA_ITEM = "ROADMAP.md queue 1 item 5"
@@ -40,13 +39,8 @@ _FIELDS_NOT_PORTED = {
     ("train", "donate_state"): ("a step that keeps its input state alive "
                                 "(the port updates the state in place)",
                                 ROADMAP_TRAINING),
-    ("data", "shard_server_addr"): ("streaming from the shard server",
-                                    _DATA_ITEM),
-    ("data", "dataset"): ("named datasets (the shard server)", _DATA_ITEM),
-    ("data", "eval_dataset"): ("named datasets (the shard server)",
-                               _DATA_ITEM),
-    ("data", "augment"): ("the shard server's host transforms", _DATA_ITEM),
-    ("data", "mask_rate"): ("the shard server's host transforms", _DATA_ITEM),
+    ("data", "augment"): ("the image transforms", _DATA_ITEM),
+    ("data", "mask_rate"): ("dynamic MLM masking", _DATA_ITEM),
     ("data", "learnable"): ("mlp_mnist's learnable synthetic task",
                             _DATA_ITEM),
     ("checkpoint", "cache_dir"): _REPLICAS,
@@ -54,6 +48,10 @@ _FIELDS_NOT_PORTED = {
     ("checkpoint", "replica_fanout"): _REPLICAS,
     ("checkpoint", "serve_cache"): _REPLICAS,
     ("checkpoint", "serve_cache_port"): _REPLICAS,
+    ("membership", "mode"): ("SWIM gossip membership (control/gossip.py)",
+                             _DATA_ITEM),
+    ("elastic", "remesh_wire_dtype"): (
+        "a quantized remesh stream (training/wire_codec.py)", _DATA_ITEM),
 }
 
 
@@ -251,6 +249,56 @@ class HealthConfig:
 
 
 @dataclass(frozen=True)
+class ControlConfig:
+    """Control-plane endpoints and intervals (the reference's): the
+    coordinator and shard server a ``worker`` uses, its heartbeat period
+    and the lease it expects."""
+
+    coordinator_addr: str = "localhost:50052"
+    shard_server_addr: str = "localhost:50053"
+    heartbeat_interval_ms: int = 1000
+    lease_ttl_ms: int = 5000
+
+
+@dataclass(frozen=True)
+class MembershipConfig:
+    """Membership policy of the elastic trainer, the reference's fields
+    and defaults. ``mode`` "master" is the coordinator's leases and
+    heartbeats; "gossip" (SWIM) raises. ``remesh_debounce_s`` holds a
+    re-formation until the view has been still that long (a view equal to
+    the formed one then re-forms nothing). ``safe_pause`` and
+    ``quorum_fraction`` act on a gossip agent's quorum and do nothing in
+    master mode, as in the reference. The gossip tuning fields are read
+    only by gossip mode."""
+
+    mode: str = "master"
+    seed: str = ""
+    gossip_bind_host: str = "127.0.0.1"
+    gossip_port: int = 0
+    protocol_period_ms: int = 250
+    ping_timeout_ms: int = 80
+    indirect_probes: int = 3
+    suspicion_mult: float = 2.0
+    retransmit_mult: float = 3.0
+    max_piggyback: int = 12
+    train_through_suspicion: bool = True
+    remesh_debounce_s: float = 0.0
+    safe_pause: bool = False
+    quorum_fraction: float = 0.5
+    leader_rechallenge: bool = True
+
+
+@dataclass(frozen=True)
+class ElasticConfig:
+    """The elastic trainer's remesh stream: ``float32`` (the default) is
+    the bit-exact checkpoint save and restore of each transition; int8 and
+    fp8 streams raise."""
+
+    remesh_wire_dtype: str = "float32"
+    remesh_wire_block: int = 128
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: str = "mlp_mnist"
     model_overrides: dict = field(default_factory=dict)
@@ -262,6 +310,9 @@ class ExperimentConfig:
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     health: HealthConfig = field(default_factory=HealthConfig)
     waterfall: WaterfallConfig = field(default_factory=WaterfallConfig)
+    control: ControlConfig = field(default_factory=ControlConfig)
+    membership: MembershipConfig = field(default_factory=MembershipConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
     def __post_init__(self):
         t = self.train
@@ -273,7 +324,9 @@ class ExperimentConfig:
             raise not_ported("train.grad_reduce_dtype other than f32 (the "
                              "cross-device gradient exchange)")
         defaults = {"train": TrainConfig(), "data": DataConfig(),
-                    "checkpoint": CheckpointConfig()}
+                    "checkpoint": CheckpointConfig(),
+                    "membership": MembershipConfig(),
+                    "elastic": ElasticConfig()}
         for (section, name), (what, where) in _FIELDS_NOT_PORTED.items():
             value = getattr(getattr(self, section), name)
             if value != getattr(defaults[section], name):
@@ -303,7 +356,8 @@ class ExperimentConfig:
                                  "ROADMAP.md queue 1")
         unknown = (set(raw) - {"model", "model_overrides", "mesh",
                                "optimizer", "train", "data", "kv",
-                               "checkpoint", "health", "waterfall"}
+                               "checkpoint", "health", "waterfall",
+                               "control", "membership", "elastic"}
                    - set(_SECTIONS_NOT_PORTED))
         if unknown:
             raise ValueError(f"unknown config sections {sorted(unknown)}")
@@ -322,6 +376,9 @@ class ExperimentConfig:
             checkpoint=build(CheckpointConfig, raw.get("checkpoint")),
             health=build(HealthConfig, raw.get("health")),
             waterfall=build(WaterfallConfig, raw.get("waterfall")),
+            control=build(ControlConfig, raw.get("control")),
+            membership=build(MembershipConfig, raw.get("membership")),
+            elastic=build(ElasticConfig, raw.get("elastic")),
         )
 
     @classmethod

@@ -9,7 +9,7 @@ comes later; ``bridge.py`` loads a flax tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -25,15 +25,17 @@ class ModelBundle:
     ``loss_fn(model, batch) -> (loss, {"metrics": {...}})`` (an optional
     ``"loss_weight"`` beside ``"metrics"`` weights grad-accumulation
     microbatches), ``make_batch(rng, data_config, batch_size)`` -> a dict
-    of numpy arrays, the task name, and ``trainable_mask(names) -> {name:
+    of numpy arrays, the task name, ``trainable_mask(names) -> {name:
     bool}`` over the model's state-dict names where only part of the model
-    trains (None: all of it)."""
+    trains (None: all of it), and ``input_names``, the fields of a batch
+    (what a streamed dataset is bridged to, ``data/transforms.py``)."""
 
     cfg: TransformerConfig
     loss_fn: Callable
     make_batch: Callable
     task: str = "lm"
     trainable_mask: Optional[Callable] = None
+    input_names: Tuple[str, ...] = ("tokens",)
 
 
 def register_model(name: str):

@@ -17,8 +17,9 @@ readers (``slt top``, ``slt doctor``, dashboards) read either package.
 * ``waterfall.py``: per-request :class:`RequestWaterfall` ledgers and
   the engine's :class:`BoundaryEvents`.
 
-The reference's ``publish_rpc_stats`` is left out: it scrapes the native
-daemons, which the port does not run yet. So are the numerics auditor
+``dcn.py`` holds the store byte accounting the elastic trainer uses. The
+reference's ``publish_rpc_stats`` (the ``stats`` command's mirror of a
+daemon's RPC latencies into the registry) is left out. So are the numerics auditor
 and the reader commands (``top``, ``doctor``, ``trace``, ``goodput``,
 ``waterfall``, ``profile``, ``xray``); ``ROADMAP.md`` lists them.
 """

@@ -198,6 +198,34 @@ def span(name: str, parent: Optional[TraceContext] = None,
             emit_span(s)
 
 
+@contextlib.contextmanager
+def client_span(name: str, **meta) -> Iterator[Optional[Span]]:
+    """RPC-client scope: a child span when a trace is ambient, a fresh root
+    when tracing is initialized (so heartbeat chains exist without callers
+    opening scopes), and a no-op otherwise: bare library use (tests
+    constructing a ShardClient) allocates and emits nothing per call."""
+    parent = current_context()
+    if parent is None and not tracing_enabled():
+        yield None
+        return
+    with span(name, parent=parent, **meta) as s:
+        yield s
+
+
+def attach_context(msg) -> Optional[TraceContext]:
+    """Stamp the ambient context onto an outgoing request message's
+    optional ``trace`` field (slt.proto field 15, ``control/wire.py``);
+    returns it, or None when no trace is ambient."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    from serverless_learn_tpu_torch.control import wire
+
+    msg.trace = wire.TraceContext(trace_id=ctx.trace_id,
+                                  span_id=ctx.span_id, flags=ctx.flags)
+    return ctx
+
+
 # -- host-span tracer (``serverless_learn_tpu/utils/tracing.py``) -----------
 
 

@@ -46,9 +46,12 @@ ledger's ``checkpoint`` phase around the synchronous parts of a save and
 a restore (the copy into the blob, the wait on the previous upload; the
 upload itself overlaps training and is not charged).
 
-Not ported yet, each raising where it would be reached: the shard-server
-store and replicated restore sources (ROADMAP.md queue 1 item 5) and the
-ZeRO layouts (queue 1 item 3d).
+Two stores: :class:`LocalStore` (``--checkpoint-dir``) and
+:class:`ShardServerStore` (``--checkpoint-store ADDR``, the shard server of
+``control/daemons.py`` or the JAX package's), each moving data in bounded
+calls. Not ported yet, each raising where it would be reached: replicated
+restore sources (ROADMAP.md queue 1 item 5) and the ZeRO layouts (queue 1
+item 3d).
 """
 
 from __future__ import annotations
@@ -66,7 +69,6 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from serverless_learn_tpu_torch.config import not_ported
 from serverless_learn_tpu_torch.telemetry import flight, goodput
 from serverless_learn_tpu_torch.telemetry import tracing as ttrace
 from serverless_learn_tpu_torch.telemetry.registry import get_registry
@@ -156,6 +158,7 @@ def _pid_alive(pid: int) -> bool:
 # training step beside an upload took 5-7 s instead of 0.3 s
 # (``chip_smoke.py`` phase 10); with 64 MB calls it took 0.4 s.
 _IO_CHUNK = 64 << 20
+_STORE_RPC_S = 300.0  # a shard-server store's deadline per socket operation
 
 
 class LocalStore:
@@ -203,13 +206,16 @@ class LocalStore:
     def get(self, key: str) -> memoryview:
         return self.get_range(key, 0, None)
 
-    def get_range(self, key: str, offset: int,
-                  length: Optional[int]) -> memoryview:
+    def get_range(self, key: str, offset: int, length: Optional[int],
+                  out: Optional[memoryview] = None) -> memoryview:
+        """Bytes ``[offset, offset + length)`` of ``key`` (to its end when
+        ``length`` is None), read into ``out`` when given (a buffer the
+        caller reuses), else into a new host buffer."""
         with open(self._path(key), "rb") as f:
             size = os.fstat(f.fileno()).st_size
             n = max(0, size - offset) if length is None else max(
                 0, min(length, size - offset))
-            out = host_buffer(n)
+            out = host_buffer(n) if out is None else out[:n]
             f.seek(offset)
             got = 0
             while got < n:
@@ -243,11 +249,66 @@ class LocalStore:
 
 
 class ShardServerStore:
-    """The shard-server store of the reference (``--checkpoint-store``)."""
+    """Keys as blobs of a shard server (``--checkpoint-store``), the
+    reference's store over the port's client: ``put`` streams the buffer
+    in ``wire.CHUNK`` frames, ``get`` and ``get_range`` fetch into a host
+    buffer in ``_IO_CHUNK`` ranges, so no call holds more than a chunk
+    beyond the destination. ``exists`` is False only on the server's own
+    no-such-key answer, and ``list`` of a missing prefix is empty: a
+    transport failure raises, so an unreachable store never reads as an
+    empty one. Each socket operation may take ``_STORE_RPC_S``, the fsync
+    the server does before acknowledging a put included."""
 
     def __init__(self, addr: str):
-        raise not_ported(f"the shard-server checkpoint store ({addr})",
-                         "ROADMAP.md queue 1 item 5")
+        from serverless_learn_tpu_torch.control.client import ShardClient
+
+        self.addr = addr
+        self.client = ShardClient(addr, rpc_timeout_s=_STORE_RPC_S)
+
+    def put(self, key: str, data):
+        # The put's CRC-32 heads the stream: summed on threads (``_crc``).
+        self.client.put(key, data, crc32=_crc(data))
+
+    def get(self, key: str) -> memoryview:
+        return self.get_range(key, 0, None)
+
+    def get_range(self, key: str, offset: int, length: Optional[int],
+                  out: Optional[memoryview] = None) -> memoryview:
+        """As ``LocalStore.get_range``."""
+        if length is None:
+            length = max(0, self.client.size_of(key) - offset)
+        out = host_buffer(length) if out is None else out[:length]
+        got = 0
+        while got < length:
+            n = self.client.fetch_into(key, out[got:got + _IO_CHUNK],
+                                       offset + got,
+                                       min(_IO_CHUNK, length - got))
+            if not n:
+                break
+            got += n
+        return out[:got]
+
+    def exists(self, key: str) -> bool:
+        from serverless_learn_tpu_torch.control.client import KeyNotFound
+
+        try:
+            return self.client.size_of(key) >= 0
+        except KeyNotFound:
+            return False
+
+    def list(self, prefix: str) -> List[str]:
+        from serverless_learn_tpu_torch.control.client import KeyNotFound
+
+        try:
+            return [b.key for b in self.client.manifest(prefix)]
+        except KeyNotFound:
+            return []
+
+    def delete(self, key: str):
+        self.client.delete(key)
+
+    def close(self):
+        self.client.close()
 
 
 # -- trees ------------------------------------------------------------------
@@ -362,6 +423,9 @@ class Checkpointer:
         self.timings: Dict[str, float] = {}
         self._pending: Optional[threading.Thread] = None
         self._pending_error: Optional[BaseException] = None
+        # The sharded save's host buffer, kept for the next save of the
+        # same size (an elastic worker saves at every transition).
+        self._save_buf: Optional[memoryview] = None
         # The newest step that restored and verified: _gc never collects
         # it, since after a quarantine it is the state to fall back to.
         self._last_verified: Optional[int] = None
@@ -477,7 +541,10 @@ class Checkpointer:
                            "stop": shape, "offset": offset,
                            "nbytes": nbytes})
             offset += nbytes
-        data = host_buffer(offset)
+        if self._save_buf is None or len(self._save_buf) != offset:
+            self._save_buf = None
+            self._save_buf = host_buffer(offset)
+        data = self._save_buf
         for c, (_, leaf) in zip(chunks, leaves):
             if c["nbytes"]:
                 dst = torch.frombuffer(data, dtype=torch.uint8,
@@ -918,6 +985,7 @@ class _ShardedReader:
         self.prefix = prefix
         self.verify = verify
         self.nbytes = 0
+        self._scratch: Optional[memoryview] = None
         m = re.search(r"step-(\d+)", prefix)
         self.step = int(m.group(1)) if m else -1
         self.meta = self._json(f"{prefix}/META")
@@ -945,8 +1013,15 @@ class _ShardedReader:
             raise CheckpointCorrupt(self.step, f"unreadable {key}: {e}")
 
     def _chunk(self, c: dict, dtype: torch.dtype) -> torch.Tensor:
+        """Chunk ``c`` as a tensor over the reader's one scratch buffer
+        (the largest chunk's size, mapped once a restore): valid until
+        the next chunk is read."""
+        if self._scratch is None:
+            self._scratch = host_buffer(max(1, max(
+                x["nbytes"] for cs in self.by_leaf.values() for x in cs)))
         raw = self.store.get_range(f"{self.prefix}/proc-{c['proc']:05d}.dat",
-                                   c["offset"], c["nbytes"])
+                                   c["offset"], c["nbytes"],
+                                   out=self._scratch)
         if len(raw) != c["nbytes"]:
             raise CheckpointCorrupt(
                 self.step, f"chunk at proc-{c['proc']}+{c['offset']}: got "

@@ -1,12 +1,14 @@
 """The training loop, the port of ``serverless_learn_tpu/training/loop.py``:
-a trainer, a synthetic batch source placed on the device ahead of the
-step, the throughput meter, the forward-only eval over a held-out
-synthetic stream (the ``eval`` command, and in the loop every
+a trainer, a batch source placed on the device ahead of the step (a
+dataset streamed from the shard server when ``data.shard_server_addr`` is
+set, else synthetic batches), the throughput meter, the forward-only eval
+over a held-out stream (the ``eval`` command, and in the loop every
 ``train.eval_every`` steps), and the reference's telemetry of the loop:
 
 * the registry series (``slt_train_*``, ``slt_opt_state_bytes``);
 * the goodput ledger's phases: ``compile`` for the first step (it builds
-  the kernels), ``step`` for the rest, ``eval`` for in-loop evals. Each
+  the kernels), ``step`` for the rest, ``eval`` for in-loop evals,
+  ``data_wait`` for the time the loop waits on its source. Each
   step's phase closes after its metrics are read back to the host, which
   waits for the card, so goodput never counts queued work;
 * a ``train/run`` span around the loop and a ``train/step`` span a step
@@ -31,6 +33,9 @@ import numpy as np
 
 from serverless_learn_tpu_torch.config import ExperimentConfig
 from serverless_learn_tpu_torch.data.datasets import SyntheticSource, prefetch
+from serverless_learn_tpu_torch.data.shard_client import ShardStreamSource
+from serverless_learn_tpu_torch.data.transforms import (TransformedSource,
+                                                        auto_transform)
 from serverless_learn_tpu_torch.telemetry import flight, goodput, profiler
 from serverless_learn_tpu_torch.telemetry import tracing as ttrace
 from serverless_learn_tpu_torch.telemetry.registry import get_registry
@@ -44,28 +49,51 @@ from serverless_learn_tpu_torch.utils.metrics import (H100_BF16_PEAK,
 
 
 def make_source(config: ExperimentConfig, trainer: Trainer,
-                seed: Optional[int] = None, start_step: int = 0):
-    """The synthetic source of the reference's ``make_source`` on one
-    process: seed ``train.seed + 100_003 * start_step`` (a fresh stream per
-    resume point), so its batches are the JAX package's, bit for bit."""
+                dataset: Optional[str] = None, seed: Optional[int] = None,
+                dp_rank: int = 0, dp_size: int = 1, start_step: int = 0):
+    """The batch source of a config, as the reference's ``make_source`` on
+    one process. With ``data.shard_server_addr`` it streams ``dataset``
+    (default ``data.dataset``) from the shard server, the shards of stripe
+    ``dp_rank`` of ``dp_size`` (the elastic trainer passes its rank in the
+    live membership), bridged to the model's inputs
+    (``data/transforms.py``); else synthetic batches from the bundle's
+    ``make_batch``. ``start_step`` is folded into the seed (``seed +
+    100_003 * start_step``): a source rebuilt at a resume does not replay
+    the batches the restored model trained on. Both packages' sources give
+    the same batches for the same arguments."""
     seed = config.train.seed if seed is None else seed
-    return SyntheticSource(trainer.bundle.make_batch, config.data,
-                           config.train.batch_size,
-                           seed=seed + 100_003 * start_step)
+    seed = seed + 100_003 * start_step
+    bundle = trainer.bundle
+    if config.data.shard_server_addr:
+        source = ShardStreamSource(
+            config.data.shard_server_addr, dataset or config.data.dataset,
+            config.train.batch_size, seed=seed, dp_rank=dp_rank,
+            dp_size=dp_size)
+        try:
+            fn = auto_transform(source.meta.fields, bundle.input_names,
+                                bundle.task)
+        except Exception:
+            source.close()
+            raise
+        return TransformedSource(source, fn) if fn is not None else source
+    return SyntheticSource(bundle.make_batch, config.data,
+                           config.train.batch_size, seed=seed + dp_rank)
 
 
 def eval_uses_train_data(config: ExperimentConfig) -> bool:
-    """True when eval batches would come from the training split (a shard
-    server without ``data.eval_dataset``); the port streams no shard
-    server yet (``data.shard_server_addr`` raises), so always False here."""
+    """True when eval batches come from the training split: a shard server
+    without ``data.eval_dataset``."""
     return bool(config.data.shard_server_addr) and not config.data.eval_dataset
 
 
 def make_eval_source(config: ExperimentConfig, trainer: Trainer):
-    """The held-out source of eval passes: the training source re-seeded
-    at ``train.seed + 995_801``, as the reference's, so both packages eval
-    on the same batches."""
-    return make_source(config, trainer, seed=config.train.seed + 995_801)
+    """The held-out source of eval passes: ``data.eval_dataset`` from the
+    shard server when published, else the training source re-seeded at
+    ``train.seed + 995_801``, as the reference's, so both packages eval on
+    the same batches."""
+    return make_source(config, trainer,
+                       dataset=config.data.eval_dataset or None,
+                       seed=config.train.seed + 995_801)
 
 
 def run_eval(config: ExperimentConfig, trainer: Trainer, state,
@@ -75,15 +103,20 @@ def run_eval(config: ExperimentConfig, trainer: Trainer, state,
     ``eval_<name>``; ``eval_perplexity`` is the exp of the mean loss, not a
     mean of exps. The state is not touched."""
     num_batches = num_batches or config.train.eval_steps
-    eval_on_train = source is None and eval_uses_train_data(config)
-    if source is None:
+    created = source is None
+    eval_on_train = created and eval_uses_train_data(config)
+    if created:
         source = make_eval_source(config, trainer)
     sums: dict = {}
-    it = iter(source)
-    for _ in range(num_batches):
-        metrics = trainer.eval_step(state, trainer.place(next(it)))
-        for k, v in metrics.items():
-            sums[k] = sums.get(k, 0.0) + float(v)
+    try:
+        it = iter(source)
+        for _ in range(num_batches):
+            metrics = trainer.eval_step(state, trainer.place(next(it)))
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+    finally:
+        if created and hasattr(source, "close"):
+            source.close()
     out = {f"eval_{k}": v / max(num_batches, 1) for k, v in sums.items()}
     if "eval_perplexity" in out:
         out["eval_perplexity"] = float(np.exp(out["eval_loss"]))
@@ -115,13 +148,19 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
     (state, meter). ``step_callback(step, state, stats)`` runs after each
     step. Each step's metrics are read back to the host (which waits for
     the card), so step times are honest. ``registry`` and ``ledger``
-    default to the process's (``get_registry``, ``goodput.get_ledger``)."""
+    default to the process's (``get_registry``, ``goodput.get_ledger``).
+    A source this call makes is closed at the end; a source's error (a
+    lost shard server) raises out of the loop."""
     trainer = trainer or build_trainer(config, device)
     if state is None:
         state = trainer.init()
-    if source is None:
+    created_source = source is None
+    if created_source:
         source = make_source(config, trainer, start_step=state.step)
-    batches = prefetch(source, trainer.place, config.data.prefetch)
+    led = ledger or goodput.get_ledger()
+    led.ensure_started()
+    batches = prefetch(source, trainer.place, config.data.prefetch,
+                       ledger=led)
     meter = ThroughputMeter(
         batch_size=config.train.batch_size,
         flops_per_step=step_flops(config, trainer, state),
@@ -146,8 +185,6 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
     reg.gauge("slt_train_zero_stage").set(config.train.zero_stage)
     publish_opt_state_gauge(trainer.state_tree(state)["opt_state"],
                             registry=reg)
-    led = ledger or goodput.get_ledger()
-    led.ensure_started()
     tracer = ttrace.get_tracer()
     start_step = state.step
     meter.start()
@@ -162,6 +199,9 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
                                       metrics_of, step_callback, verbose)
         finally:
             run_span.meta["last_step"] = state.step
+            batches.close()
+            if created_source and hasattr(source, "close"):
+                source.close()
     summary = meter.steady_state()
     if "mfu" in summary:
         reg.gauge("slt_train_mfu", "model FLOPs utilization").set(

@@ -53,17 +53,30 @@ _BY_NAME = {name: dt for dt, name in _TORCH_NAMES.items()}
 Array = Union[torch.Tensor, np.ndarray]
 
 
+# Bytes of a mapping populated at a time by ``host_buffer``.
+_POPULATE_STEP = 256 << 20
+_PAGE = mmap.PAGESIZE
+
+
 def host_buffer(nbytes: int) -> memoryview:
     """A writable host buffer for a blob: above 1 MB an anonymous mapping
-    populated up front (``MAP_POPULATE``), so the copies into it do not
+    whose pages are all faulted in up front, so the copies into it do not
     fault page by page. On an H100 host (``chip_smoke.py`` phase 10) an
-    18 GB save's copies from the card took 5.1 s into such a mapping and
-    14.8 s into pages faulted on first write."""
+    18 GB save's copies from the card took 5.1 s into a populated mapping
+    and 14.8 s into pages faulted on first write. The pages are touched
+    ``_POPULATE_STEP`` bytes at a time rather than by one ``MAP_POPULATE``,
+    which on that host holds every other thread's allocations for as long
+    as it runs (seconds for a checkpoint's buffer): an elastic worker's
+    heartbeat thread stalled past its lease (``chip_smoke.py`` phase 13,
+    which checks the stall of this function)."""
     if nbytes < 1 << 20:
         return memoryview(bytearray(nbytes))
-    flags = (mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
-             | getattr(mmap, "MAP_POPULATE", 0))
-    return memoryview(mmap.mmap(-1, nbytes, flags=flags))
+    m = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
+    pages = np.frombuffer(m, np.uint8)
+    for i in range(0, nbytes, _POPULATE_STEP):
+        pages[i:i + _POPULATE_STEP:_PAGE] = 0
+    del pages
+    return memoryview(m)
 
 
 def dtype_name(dtype: torch.dtype) -> str:

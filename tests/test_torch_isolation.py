@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor flax nor
 anything of the JAX package, nor msgpack (it carries its own codec of
-flax's checkpoint form), so it runs where none of them is installed."""
+flax's checkpoint form), nor google.protobuf (it carries its own codec of
+the control plane's wire, ``control/wire.py``), so it runs where none of
+them is installed."""
 
 import ast
 import os
@@ -12,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "serverless_learn_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "google",
              "serverless_learn_tpu"}
 
 

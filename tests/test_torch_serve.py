@@ -109,7 +109,7 @@ def test_cli_serve_needs_the_card_by_default():
 
 @pytest.mark.parametrize("argv, needle", [
     (["--set", "fleet.drain_grace_s=1"], "model_overrides.<field>"),
-    (["--checkpoint-store", "localhost:50053"], "queue 1 item 5"),
+    (["--fleet"], "queue 1 item 5"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, needle):
     with pytest.raises(SystemExit, match=needle):

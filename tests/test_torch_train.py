@@ -9,6 +9,7 @@ block); the port's run their plain versions on the CPU.
 """
 
 import json
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -175,13 +176,12 @@ def test_unported_options_raise():
 # run.
 UNPORTED_VALUES = {
     ("train", "zero_stage"): 1, ("train", "donate_state"): False,
-    ("data", "shard_server_addr"): "shards:50053",
-    ("data", "dataset"): "sft_corpus", ("data", "eval_dataset"): "held_out",
     ("data", "augment"): True, ("data", "mask_rate"): 0.3,
     ("data", "learnable"): True,
     ("checkpoint", "cache_dir"): "ckpt-cache", ("checkpoint", "peers"): "a:1",
     ("checkpoint", "replica_fanout"): 3, ("checkpoint", "serve_cache"): True,
     ("checkpoint", "serve_cache_port"): 50070,
+    ("membership", "mode"): "gossip", ("elastic", "remesh_wire_dtype"): "int8",
 }
 
 
@@ -235,12 +235,17 @@ def test_train_cli_on_cpu():
                                        "flash_dkv": 0, "cross_entropy_fwd": 0,
                                        "cross_entropy_bwd": 0}
     assert all(np.isfinite(x) for x in done["losses"])
+    # A checkpoint store that cannot be reached fails the run: it never
+    # trains on without checkpoints.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = "127.0.0.1:%d" % s.getsockname()[1]
     bad = subprocess.run(
         [sys.executable, "-m", "serverless_learn_tpu_torch", "train",
          "--model", "llama_tiny", "--steps", "1", "--device", "cpu",
-         "--checkpoint-store", "localhost:50053"],
+         "--checkpoint-store", closed],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0 and "not yet ported" in bad.stderr
+    assert bad.returncode != 0 and f"cannot connect to {closed}" in bad.stderr
 
 
 # -- the loop's telemetry ---------------------------------------------------
