@@ -7,7 +7,7 @@ Drives ``serverless_learn_tpu_torch`` (never JAX) on one card, in phases;
 any failing phase exits non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the port from ``csrc/`` (three sources) with
+2. builds every CUDA kernel of the port from ``csrc/`` (four sources) with
    nvcc, one process per source, all at once, prints each kernel's
    registers and spills (the saved report where a kernel was built
    before), and fails unless the report shows each tensor-core flash
@@ -49,7 +49,9 @@ any failing phase exits non-zero:
     loss cotangents; and shows the check fails a K5 that zeroes the
     non-label columns and a K4 that drops the last 256 columns;
 7b. times them at the 8B loss shape beside their bounds, their plain
-    versions and ``F.cross_entropy``;
+    versions and ``F.cross_entropy``: each the median of 25 launches timed
+    one by one, with the SM clock, temperature, power and active throttle
+    reasons sampled through nvidia-smi every 0.2 s while they run;
 8. trains llama_tiny with flash attention for three adamw steps on the card
    (kernels) and on the CPU (plain) from the same weights and batches and
    compares losses and params (8c: the same with rank-4 LoRA and the fused
@@ -170,11 +172,34 @@ any failing phase exits non-zero:
     ``train --shard-server`` run on the text dataset must fail when the
     shard server is SIGKILLed under it. Prints the worker's tokens/s and
     step time beside phase 8b's, the data-wait share of goodput, each
-    transition's save, re-form and restore, and the shard server's bytes;
-14. prints one JSON line of kernels (with each kernel's launches on phase
-    10's path, K6's on phase 11's and K1-K3's on phase 13's worker), then
-    the card's name and power limit, then the result line ``{"ok": true,
-    "device": {...}}``.
+    transition's save, re-form and restore, and the shard server's bytes.
+    The worker runs with ``--numerics``: each formation's
+    ``remesh_restore`` fingerprint must equal the ``remesh_save``
+    fingerprint of the state its restore read;
+14. the numerics layer: (a) every kernel (K1-K6 and the stats kernels)
+    and its plain version fed the same small bf16 and f32 inputs carrying
+    NaN and +-inf (K1-K3: a NaN in q, k and v, an inf in q, a NaN in dO;
+    K4/K5: a NaN and a +inf in a non-label logit and in the label's; K6: a
+    NaN in x): every output position that depends on the poisoned value
+    (found by perturbing it in the plain version) must be non-finite in
+    both, and the kernel must be non-finite nowhere the plain version is
+    finite; (b) llama_1b at full width (B=2, T=4096, adamw, clip 1.0), 12
+    steps with numerics off and 12 from the same seed with numerics at
+    cadence 4 through ``run_training``: the losses bit for bit equal, the
+    step-time ratio at most 1.03, peak memory at most 1.05 GB more, the
+    ``numerics`` goodput phase under 2 % of the run, exactly 3 fetches,
+    K1-K3's and the stats kernels' launches; (c) the drill: ``train
+    --numerics --health`` through the CLI, no clipping, NaN injected into
+    ``layer_5``'s gradients at step 6 of 8: one ``numerics_nonfinite``
+    record at step 6 naming ``params:layer_5`` with ``grad:layer_5`` among
+    the bad subtrees, ``slt_numerics_nonfinite_total`` on /metrics, a
+    critical ``numerics.nonfinite`` on /alerts, /healthz at 503,
+    ``/numerics`` serving JSON, a flight dump naming ``layer_5``, and the
+    provenance sweep's forward through K1;
+15. prints one JSON line of kernels (with each kernel's launches on phase
+    10's path, K6's on phase 11's, K1-K3's on phase 13's worker and the
+    stats kernels' on phase 14b), then the card's name and power limit,
+    then the result line ``{"ok": true, "device": {...}}``.
 
 Every profiler session (phases 8b, 8f, 9b, 9c, 11e) goes through the
 port's shared profiler lock (``telemetry/profiler.py``).
@@ -214,6 +239,17 @@ included, between commits.
 
 builds the flash kernels and runs only phase 13 (the cluster), with no
 result line.
+
+    python3 chip_smoke.py --numerics-only
+
+builds every kernel and runs only phase 14 (the numerics layer), with no
+result line.
+
+    python3 chip_smoke.py --nonfinite-only
+
+builds the kernels and runs only phase 14a, printing its faults instead of
+failing: copied into a checkout of another commit, it shows how that
+commit's kernels carry NaN and +-inf.
 """
 
 from __future__ import annotations
@@ -2090,21 +2126,127 @@ def ce_bounds(N: int, V: int, esize: int = 2):
     return out
 
 
+SMI_CLOCKS = ("clocks.sm,clocks.max.sm,temperature.gpu,power.draw,"
+              "clocks_throttle_reasons.active")
+
+
+class ClockSampler:
+    """The card's SM clock, its maximum, temperature, power draw and active
+    throttle reasons (a bit mask) through nvidia-smi, sampled every
+    ``period`` seconds on a thread while the block runs."""
+
+    def __init__(self, period: float = 0.2):
+        self.period = period
+        self.rows = []
+        self._stop = threading.Event()
+
+    @staticmethod
+    def query():
+        for fields in (SMI_CLOCKS, SMI_CLOCKS.replace(
+                "clocks_throttle_reasons", "clocks_event_reasons")):
+            out = subprocess.run(
+                ["nvidia-smi", f"--query-gpu={fields}",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30)
+            if out.returncode == 0 and out.stdout.strip():
+                return [v.strip() for v in
+                        out.stdout.strip().splitlines()[0].split(",")]
+        return None
+
+    def _run(self):
+        while True:
+            row = self.query()
+            if row is not None:
+                self.rows.append(row)
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def summary(self) -> dict:
+        def num(i):
+            vals = []
+            for r in self.rows:
+                try:
+                    vals.append(float(r[i]))
+                except (ValueError, IndexError):
+                    pass
+            return ([min(vals), statistics.median(vals), max(vals)]
+                    if vals else None)
+
+        return {"samples": len(self.rows), "sm_mhz_min_median_max": num(0),
+                "max_sm_mhz": num(1), "temperature_c_min_median_max": num(2),
+                "power_w_min_median_max": num(3),
+                "throttle_reasons_active": sorted({r[4] for r in self.rows
+                                                   if len(r) > 4})}
+
+
+def launch_ms(torch, fn, n: int = 25, warmup: int = 3) -> dict:
+    """Each of ``n`` calls of ``fn(i)`` timed alone between its own CUDA
+    events (back to back, so each is the call's device time): the median
+    and quartiles in ms."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    gc.collect()
+    gc.disable()
+    try:
+        for i, (a, b) in enumerate(evs):
+            a.record()
+            fn(i)
+            b.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    ms = [a.elapsed_time(b) for a, b in evs]
+    q = statistics.quantiles(ms, n=4)
+    return {"median": statistics.median(ms), "q1": q[0], "q3": q[2],
+            "launches": n}
+
+
 def time_ce(torch, card):
     """Phase 7b: K4 and K5 at the 8B loss shape (the strided view, as the
     main path reads it), beside their bounds, their plain versions and
     F.cross_entropy(x_bf16, labels, reduction="none") on a contiguous
-    [N, V] copy: its forward for K4, its backward alone for K5."""
+    [N, V] copy: its forward for K4, its backward alone for K5. The kernels
+    and the library call are each the median of 25 launches timed one by
+    one, with the card's clocks sampled beside them."""
     from serverless_learn_tpu_torch.ops import cross_entropy as ce
 
     g = torch.Generator(device="cuda").manual_seed(8)
     x, labels, gg = ce_inputs(torch, g, (CE_B, CE_T - 1), CE_V, "bfloat16",
                               True, "expanded")
     loss, lse = ce.cross_entropy_fwd(x, labels)
-    ms = {"cross_entropy_fwd": time_ms(
-              torch, lambda i: ce.cross_entropy_fwd(x, labels), 20),
-          "cross_entropy_bwd": time_ms(
-              torch, lambda i: ce.cross_entropy_bwd(x, labels, lse, gg), 20)}
+    N = CE_B * (CE_T - 1)
+    F = torch.nn.functional
+    x2, lab2 = x.reshape(N, CE_V), labels.reshape(N).long()
+    xg = x2.detach().requires_grad_()
+    lo = F.cross_entropy(xg, lab2, reduction="none")
+    gv = gg.reshape(N).to(lo.dtype)
+    with ClockSampler() as clocks:
+        per = {"cross_entropy_fwd": launch_ms(
+                   torch, lambda i: ce.cross_entropy_fwd(x, labels)),
+               "cross_entropy_bwd": launch_ms(
+                   torch, lambda i: ce.cross_entropy_bwd(x, labels, lse,
+                                                         gg))}
+        lib = {"cross_entropy_fwd": launch_ms(
+                   torch, lambda i: F.cross_entropy(x2, lab2,
+                                                    reduction="none")),
+               "cross_entropy_bwd": launch_ms(
+                   torch, lambda i: torch.autograd.grad(
+                       lo, xg, gv, retain_graph=True))}
+    ms = {k: v["median"] for k, v in per.items()}
+    emit("time_ce_clocks", card=card, kernels=per, library=lib,
+         clocks=clocks.summary(), fields=SMI_CLOCKS)
     plain = {"cross_entropy_fwd": time_ms(
                  torch, lambda i: ce.cross_entropy_fwd_reference(x, labels),
                  3, warmup=1),
@@ -2112,17 +2254,7 @@ def time_ce(torch, card):
                  torch, lambda i: ce.cross_entropy_bwd_reference(
                      x, labels, lse, gg), 3, warmup=1)}
     torch.cuda.empty_cache()
-    N = CE_B * (CE_T - 1)
-    F = torch.nn.functional
-    x2, lab2 = x.reshape(N, CE_V), labels.reshape(N).long()
-    lib_fwd = time_ms(torch, lambda i: F.cross_entropy(
-        x2, lab2, reduction="none"), 20)
-    xg = x2.detach().requires_grad_()
-    lo = F.cross_entropy(xg, lab2, reduction="none")
-    gv = gg.reshape(N).to(lo.dtype)
-    lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
-        lo, xg, gv, retain_graph=True), 10)
-    library = {"cross_entropy_fwd": lib_fwd, "cross_entropy_bwd": lib_bwd}
+    library = {k: v["median"] for k, v in lib.items()}
     rows = {}
     for name, (b_ms, by) in ce_bounds(N, CE_V).items():
         rows[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=b_ms,
@@ -2134,7 +2266,8 @@ def time_ce(torch, card):
          library_call="torch.nn.functional.cross_entropy(x_bf16 [N, V], "
                       "labels, reduction='none'): forward for K4, its "
                       "backward alone (autograd.grad with retain_graph) "
-                      "for K5; timed here only, never called by the port")
+                      "for K5; timed here only, never called by the port",
+         timing="median of 25 launches, each between its own CUDA events")
     del x, x2, xg, lo, labels, gg, loss, lse
     torch.cuda.empty_cache()
     return rows
@@ -3576,7 +3709,7 @@ def elastic_cluster(torch, card):
             "train.log_every=1", "--set",
             f"control.heartbeat_interval_ms={ELASTIC_HEARTBEAT_MS}",
             "--set", "checkpoint.keep=1", "--metrics-port", "0", "--health",
-            "--events-log", logs["worker"], "--flight-dir",
+            "--numerics", "--events-log", logs["worker"], "--flight-dir",
             os.path.join(root, "flight")])
         up = worker.wait_for(
             lambda r: any(x.get("event") == "metrics" for x in r),
@@ -3672,6 +3805,25 @@ def elastic_cluster(torch, card):
         faults.append(f"step lines {steps(recs)}")
     if [x["step"] for x in fm[1:]] != [r["saved_step"] for r in rem[1:]]:
         faults.append("a formation did not go on from the saved step")
+    # --numerics: each formation's restored fingerprint is its save's.
+    fps = [x for x in events.get("worker", [])
+           if x.get("event") == "numerics_fingerprint"]
+    saved_fp = {x["step"]: x["fp"] for x in fps
+                if x.get("reason") == "remesh_save"}
+    fp_checks = []
+    for r in rem[1:]:
+        got = [x for x in fps if x.get("reason") == "remesh_restore"
+               and x["step"] == r["restored_step"]
+               and x.get("epoch") == r["epoch"]]
+        same = len(got) == 1 and got[0]["fp"] == saved_fp.get(
+            r["saved_step"])
+        fp_checks.append({"epoch": r["epoch"], "step": r["restored_step"],
+                          "restore_records": len(got),
+                          "equals_saved": same})
+        if not same:
+            faults.append(f"epoch {r['epoch']}: {len(got)} remesh_restore "
+                          f"fingerprints at step {r['restored_step']}, "
+                          f"equal to the saved one: {same}")
     metric = lambda name: max(  # noqa: E731
         (prom_value(s["/metrics"][1], name) or 0 for s in scrapes
          if s.get("/metrics") and s["/metrics"][1]), default=None)
@@ -3766,6 +3918,7 @@ def elastic_cluster(torch, card):
          scrapes=len(scrapes), alerts_paged=len(pages),
          alerts_fired=fired, healthz=health,
          kernel_launches=kl, worker_s=worker_s,
+         remesh_fingerprints=fp_checks,
          killed_shard_server_run={"exit": train_rc, "steps": train_steps,
                                   "seconds_to_exit": killed_run_s,
                                   "last_lines": train_tail},
@@ -4474,6 +4627,631 @@ def serve_only(torch, build, card) -> int:
     return 0
 
 
+# ------------------------------------------------------------ numerics --
+
+# Phase 14a's inputs: small, so the whole check takes seconds. Flash: three
+# 64-row tiles, causal, two q heads a K/V head.
+NF_FLASH = dict(B=1, T=192, H=4, KH=2, D=64)
+NF_FLASH_CASES = [  # name, input, index, value
+    ("q_nan", "q", (0, 100, 1, 5), math.nan),
+    ("k_nan", "k", (0, 70, 0, 3), math.nan),
+    ("v_nan", "v", (0, 70, 1, 7), math.nan),
+    ("q_inf", "q", (0, 130, 2, 0), math.inf),
+    ("dout_nan", "dout", (0, 150, 3, 9), math.nan),
+]
+NF_CE_V = 1000
+NF_CE_CASES = [  # name, row, column (None: the label's), value
+    ("other_nan", 1, 5, math.nan), ("other_inf", 2, 6, math.inf),
+    ("label_nan", 3, None, math.nan), ("label_inf", 4, None, math.inf),
+]
+NF_QM = dict(I=512, O=384)
+NF_QM_ROWS = (8, 40)  # K6's decode (split-K) and prefill paths
+
+
+def _poisoned(inputs, key, idx, value):
+    out = dict(inputs)
+    out[key] = inputs[key].clone()
+    out[key][idx] = value
+    return out
+
+
+def nonfinite_case(torch, kern, plain, inputs, key, idx, value):
+    """One poisoned input through a kernel and its plain version. An
+    output position depends on the poisoned element where the plain
+    version's output moves when the element takes two other finite values.
+    Per output: the dependent positions, the non-finite positions of each
+    side, whether they are the same positions, and the faults: a dependent
+    position finite on one side and not on the other, or a kernel
+    non-finite where the plain version is finite. Outside the dependent
+    positions the plain version may also be non-finite where the kernel is
+    not: a masked (zero) weight times a NaN is NaN, and the plain versions
+    multiply every masked pair, the kernels only the pairs of the tiles
+    they visit."""
+    bad = _poisoned(inputs, key, idx, value)
+    got, ref = kern(bad), plain(bad)
+    base = float(inputs[key][idx])
+    lo = plain(_poisoned(inputs, key, idx, base - 1.5))
+    hi = plain(_poisoned(inputs, key, idx, base + 2.5))
+    torch.cuda.synchronize()
+    rows, faults = {}, []
+    for name, r in ref.items():
+        g = got[name]
+        kn, pn = ~torch.isfinite(g.float()), ~torch.isfinite(r.float())
+        dep = lo[name].float() != hi[name].float()
+        mismatch = int((dep & (kn != pn)).sum())
+        spurious = int((~dep & kn & ~pn).sum())
+        rows[name] = {"dependent": int(dep.sum()),
+                      "dependent_finite": int((dep & ~pn).sum()),
+                      "plain_nonfinite": int(pn.sum()),
+                      "kernel_nonfinite": int(kn.sum()),
+                      "same_positions": bool(torch.equal(kn, pn)),
+                      "plain_only_outside_dependence": int(
+                          (~dep & pn & ~kn).sum())}
+        if mismatch or spurious:
+            faults.append(f"{name}: {mismatch} dependent positions differ, "
+                          f"{spurious} kernel-only non-finite")
+    return rows, faults
+
+
+def nonfinite_check(torch, card, keep_going: bool = False):
+    """Phase 14a: every kernel against its plain version on inputs carrying
+    NaN and +-inf, bf16 and f32 (``nonfinite_case``). ``keep_going``:
+    print the faults and return (an A/B against another checkout)."""
+    from serverless_learn_tpu_torch.ops import cross_entropy as ce
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.ops import quant_matmul as qm
+    try:
+        from serverless_learn_tpu_torch.ops import tensor_stats as ts
+    except ImportError:  # a checkout from before the stats kernels
+        ts = None
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    faults, results = [], []
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        B, T, H, KH, D = (NF_FLASH[k] for k in ("B", "T", "H", "KH", "D"))
+        mk = lambda *shape: torch.randn(  # noqa: E731
+            *shape, device="cuda", generator=g).to(dtype)
+        inputs = {"q": mk(B, T, H, D), "k": mk(B, T, KH, D),
+                  "v": mk(B, T, KH, D), "dout": mk(B, T, H, D)}
+
+        def plain_fwd_bwd(x):
+            out, lse = fa.flash_fwd_reference(x["q"], x["k"], x["v"],
+                                              causal=True)
+            delta = (x["dout"].float() * out.float()).sum(-1) \
+                .permute(0, 2, 1).contiguous()
+            return out, lse, delta
+
+        def plain(x):
+            out, lse, delta = plain_fwd_bwd(x)
+            dq = fa.flash_dq_reference(x["q"], x["k"], x["v"], x["dout"],
+                                       lse, delta, causal=True)
+            dk, dv = fa.flash_dkv_reference(x["q"], x["k"], x["v"],
+                                            x["dout"], lse, delta,
+                                            causal=True)
+            return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+        def kern(x):
+            # K2/K3 take the plain forward's lse and delta: the same inputs
+            # as their plain versions.
+            _, lse, delta = plain_fwd_bwd(x)
+            out, klse = fa.flash_fwd(x["q"], x["k"], x["v"], causal=True)
+            dq = fa.flash_dq(x["q"], x["k"], x["v"], x["dout"], lse, delta,
+                             causal=True)
+            dk, dv = fa.flash_dkv(x["q"], x["k"], x["v"], x["dout"], lse,
+                                  delta, causal=True)
+            return {"out": out, "lse": klse, "dq": dq, "dk": dk, "dv": dv}
+
+        for name, key, idx, value in NF_FLASH_CASES:
+            rows, f = nonfinite_case(torch, kern, plain, inputs, key, idx,
+                                     value)
+            results.append({"kernels": "K1-K3", "dtype": dt, "case": name,
+                            "outputs": rows})
+            faults += [f"K1-K3 {dt} {name}: {x}" for x in f]
+
+        A, Tc = 1, 6
+        ce_in = {"x": mk(A, Tc, NF_CE_V) * 3}
+        labels = torch.randint(0, NF_CE_V, (A, Tc), device="cuda",
+                               generator=g)
+        ones = torch.ones(A, Tc, device="cuda")
+
+        def ce_plain(x):
+            loss, lse = ce.cross_entropy_fwd_reference(x["x"], labels)
+            dx = ce.cross_entropy_bwd_reference(x["x"], labels, lse, ones)
+            return {"loss": loss, "lse": lse, "dx": dx}
+
+        def ce_kern(x):
+            _, lse = ce.cross_entropy_fwd_reference(x["x"], labels)
+            loss, klse = ce.cross_entropy_fwd(x["x"], labels)
+            dx = ce.cross_entropy_bwd(x["x"], labels, lse, ones)
+            return {"loss": loss, "lse": klse, "dx": dx}
+
+        for name, row, col, value in NF_CE_CASES:
+            col = int(labels[0, row]) if col is None else col
+            if col == int(labels[0, row]) and "other" in name:
+                col += 1
+            rows, f = nonfinite_case(torch, ce_kern, ce_plain, ce_in, "x",
+                                     (0, row, col), value)
+            results.append({"kernels": "K4/K5", "dtype": dt, "case": name,
+                            "outputs": rows})
+            faults += [f"K4/K5 {dt} {name}: {x}" for x in f]
+
+        wq = torch.randint(-127, 128, (NF_QM["I"], NF_QM["O"]),
+                           device="cuda", generator=g).to(torch.int8)
+        scale = torch.rand(NF_QM["O"], device="cuda", generator=g) * 0.02
+        for R in NF_QM_ROWS:
+            qm_in = {"x": mk(R, NF_QM["I"])}
+            rows, f = nonfinite_case(
+                torch, lambda x: {"y": qm.quant_matmul(x["x"], wq, scale)},
+                lambda x: {"y": qm.quant_matmul_reference(x["x"], wq, scale,
+                                                          x["x"].dtype)},
+                qm_in, "x", (3, 100), math.nan)
+            results.append({"kernels": "K6", "dtype": dt, "case": f"x_nan "
+                            f"rows={R}", "outputs": rows})
+            faults += [f"K6 {dt} rows={R}: {x}" for x in f]
+
+        if ts is None:
+            continue
+        x = mk(300_001)
+        x[11], x[150_000], x[299_999] = math.nan, math.inf, -math.inf
+
+        def stats(t, fn):
+            rows = torch.empty(ts.grid_for(t.numel()), ts.KCOLS,
+                               dtype=torch.float64, device="cuda")
+            fn(t, rows, base=7, chunk=100_000, chunks=4, scale=0.5)
+            return ts.stats_reduce_reference(rows, [0, rows.shape[0]],
+                                             torch.empty_like(rows[:1]))[0]
+
+        def many(t, rows, **kw):
+            # the same tensor as the second of two in one launch
+            head = mk(5000)
+            buf = torch.empty(ts.grid_for(5000) + rows.shape[0], ts.KCOLS,
+                              dtype=torch.float64, device="cuda")
+            ts.tensor_stats_many([head, t], buf, [0, ts.grid_for(5000)],
+                                 [0, kw["base"]], [kw["chunk"]] * 2,
+                                 chunks=kw["chunks"], scale=kw["scale"])
+            rows.copy_(buf[ts.grid_for(5000):])
+
+        ref = stats(x, ts.tensor_stats_reference)
+        lim = ts.kernel_tolerance(ref, x.numel())
+        finite = [c for c in range(ts.KCOLS) if c != ts.SUMSQ_ALL]
+        ok = True
+        for fn in (ts.tensor_stats, many):
+            got = stats(x, fn)
+            ok = ok and math.isnan(float(got[ts.SUMSQ_ALL])) and \
+                math.isnan(float(ref[ts.SUMSQ_ALL])) and bool(
+                    ((got - ref).abs() <= lim)[finite].all())
+        results.append({"kernels": "tensor_stats", "dtype": dt,
+                        "case": "nan_inf", "counts": [float(got[ts.NAN]),
+                                                      float(got[ts.INF])],
+                        "same": ok})
+        if not ok:
+            faults.append(f"tensor_stats {dt}: {got.tolist()} vs "
+                          f"{ref.tolist()}")
+    for r in results:
+        emit("numerics_nonfinite_check", card=card, **r)
+    emit("numerics_nonfinite_summary", card=card, cases=len(results),
+         faults=faults)
+    if faults and not keep_going:
+        fail("phase 14a: " + "; ".join(faults))
+    return len(results)
+
+
+NUMERICS_STEPS, NUMERICS_CADENCE = 12, 4
+
+
+def numerics_run(torch, enabled: bool):
+    """llama_1b at full width, 12 adamw steps (lr 1e-3, clip 1.0, seed 0)
+    through run_training, with or without numerics at cadence 4, on a
+    fresh registry and goodput ledger; counters read around the run."""
+    from serverless_learn_tpu_torch.config import (DataConfig,
+                                                   ExperimentConfig,
+                                                   NumericsConfig,
+                                                   OptimizerConfig,
+                                                   TrainConfig)
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.ops import tensor_stats as ts
+    from serverless_learn_tpu_torch.telemetry.goodput import PhaseLedger
+    from serverless_learn_tpu_torch.telemetry.registry import MetricsRegistry
+    from serverless_learn_tpu_torch.training.loop import run_training
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    cfg = ExperimentConfig(
+        model="llama_1b",
+        optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                  grad_clip_norm=1.0),
+        train=TrainConfig(batch_size=TRAIN_B, num_steps=NUMERICS_STEPS,
+                          seed=0),
+        data=DataConfig(seq_len=TRAIN_T),
+        numerics=NumericsConfig(enabled=enabled, cadence=NUMERICS_CADENCE))
+    from serverless_learn_tpu_torch.telemetry import numerics
+    from serverless_learn_tpu_torch.training import optimizer
+
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.init()
+    n_tensors = sum(1 for p in state.model.parameters() if p.requires_grad)
+    reg, led = MetricsRegistry(), PhaseLedger()
+    # The host's time in the optimizer and in the step's numerics calls.
+    host_s = {}
+
+    def timed(name):
+        def wrap(real):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    host_s[name] = host_s.get(name, 0.0) + (
+                        time.perf_counter() - t0)
+            return run
+        return wrap
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, ts.tensor_stats,
+               ts.tensor_stats_many, ts.stats_reduce)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Patched((optimizer.Optimizer, "update", timed("optimizer")),
+                 (numerics.StepNumerics, "grads", timed("numerics_grads")),
+                 (numerics.StepNumerics, "update", timed("numerics_update")),
+                 (numerics.StepNumerics, "summary",
+                  timed("numerics_summary"))):
+        state, meter = run_training(cfg, trainer=trainer, state=state,
+                                    registry=reg, ledger=led)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    # One more step under the profiler: where the numerics' time goes.
+    from serverless_learn_tpu_torch.training.loop import make_source
+
+    batch = trainer.place(next(iter(make_source(cfg, trainer,
+                                                start_step=state.step))))
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        state, m = trainer.step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    split = kernel_split(torch, prof, ["tensor_stats", "tensor_stats_many",
+                                       "stats_reduce", "flash_fwd",
+                                       "flash_dq", "flash_dkv"])
+    del batch, prof, m
+    rep = led.report()
+    out = {"losses": [s.metrics["loss"] for s in meter.history],
+           "step_times_s": [s.step_time_s for s in meter.history],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "trainable_tensors": n_tensors,
+           "numerics_share": rep["phases"].get(
+               "numerics", {}).get("fraction", 0.0),
+           "numerics_s": rep["phases"].get("numerics", {}).get("seconds",
+                                                               0.0),
+           "run_s": rep["total_s"],
+           "fetches": reg.counter("slt_numerics_fetches_total").value,
+           "profile": split,
+           "host_ms_a_step": {k: v * 1e3 / NUMERICS_STEPS
+                              for k, v in host_s.items()}}
+    del state, trainer, meter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def numerics_overhead(torch, card):
+    """Phase 14b: 12 steps of llama_1b without numerics, then 12 from the
+    same seed with numerics at cadence 4."""
+    off = numerics_run(torch, False)
+    on = numerics_run(torch, True)
+    med = lambda r: statistics.median(r["step_times_s"][2:])  # noqa: E731
+    ratio = med(on) / med(off)
+    n = on["trainable_tensors"]
+    layers = 16
+    want = {"flash_fwd": NUMERICS_STEPS * layers,
+            "flash_dq": NUMERICS_STEPS * layers,
+            "flash_dkv": NUMERICS_STEPS * layers,
+            # a step: each trainable tensor's update alone, the gradients
+            # and the parameters in one launch each, one reduction of each
+            # of the three
+            "tensor_stats": NUMERICS_STEPS * n,
+            "tensor_stats_many": NUMERICS_STEPS * 2,
+            "stats_reduce": NUMERICS_STEPS * 3}
+    emit("numerics_overhead", card=card, model="llama_1b", batch=TRAIN_B,
+         seq_len=TRAIN_T, steps=NUMERICS_STEPS, cadence=NUMERICS_CADENCE,
+         median_step_s_off=med(off), median_step_s_on=med(on),
+         step_time_ratio=ratio, step_times_s_off=off["step_times_s"],
+         step_times_s_on=on["step_times_s"], peak_gb_off=off["peak_gb"],
+         peak_gb_on=on["peak_gb"],
+         peak_gb_difference=on["peak_gb"] - off["peak_gb"],
+         numerics_phase_share=on["numerics_share"],
+         numerics_phase_s=on["numerics_s"], run_s=on["run_s"],
+         fetches=on["fetches"], losses_off=off["losses"],
+         losses_on=on["losses"],
+         losses_bit_equal=on["losses"] == off["losses"],
+         launches_off=off["launches"], launches_on=on["launches"],
+         trainable_tensors=n, profile_off=off["profile"],
+         profile_on=on["profile"], host_ms_a_step_off=off["host_ms_a_step"],
+         host_ms_a_step_on=on["host_ms_a_step"])
+    faults = []
+    if on["losses"] != off["losses"]:
+        faults.append("the losses with numerics on differ from off")
+    if ratio > 1.03:
+        faults.append(f"step-time ratio {ratio:.4f} > 1.03")
+    if on["peak_gb"] - off["peak_gb"] > 1.05:
+        faults.append(f"peak memory +{on['peak_gb'] - off['peak_gb']:.3f} "
+                      f"GB > 1.05")
+    if not on["numerics_share"] < 0.02:
+        faults.append(f"numerics phase {on['numerics_share']:.4f} of the "
+                      f"run, not under 2 %")
+    if on["fetches"] != 3:
+        faults.append(f"{on['fetches']} fetches, expected 3")
+    if on["launches"] != want or off["launches"] != dict(
+            want, tensor_stats=0, tensor_stats_many=0, stats_reduce=0):
+        faults.append(f"launches on {on['launches']}, off "
+                      f"{off['launches']}, expected {want}")
+    if faults:
+        fail("phase 14b: " + "; ".join(faults))
+    return on["launches"]
+
+
+DRILL_NUMERICS = ["--model", "llama_1b", "--batch-size", str(TRAIN_B),
+                  "--seq-len", str(TRAIN_T), "--steps", "8", "--numerics",
+                  "--health", "--metrics-port", "0",
+                  "--set", "optimizer.grad_clip_norm=0",
+                  "--set", f"numerics.cadence={NUMERICS_CADENCE}",
+                  "--set", "numerics.inject_nan_step=6",
+                  "--set", "numerics.inject_nan_subtree=layer_5",
+                  "--set", "health.sample_interval_s=0.2"]
+
+
+def numerics_drill(torch, card):
+    """Phase 14c: ``train --numerics --health`` through the CLI in this
+    process with a NaN injected into layer_5's gradients at step 6 of 8 (no
+    clipping): the incident record, the counter, the critical alert,
+    /healthz at 503, /numerics, the flight dump and the sweep's K1
+    launches. A thread scrapes the endpoints while it trains."""
+    import os
+    import shutil
+    import tempfile
+    from urllib.error import HTTPError
+    from urllib.request import urlopen
+
+    from serverless_learn_tpu_torch import cli
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.telemetry import numerics, tracing
+
+    root = tempfile.mkdtemp(prefix="slt-phase14-")
+    events_path = os.path.join(root, "events.jsonl")
+    kept, scrapes, scraping = {}, [], threading.Event()
+
+    def keep_exporter(real):
+        def start(*a, **k):
+            kept["exporter"] = real(*a, **k)
+            return kept["exporter"]
+        return start
+
+    def scrape():
+        while not scraping.wait(0.2):
+            exp = kept.get("exporter")
+            if exp is None:
+                continue
+            row = {}
+            for path in ("/metrics", "/alerts", "/healthz", "/numerics"):
+                try:
+                    with urlopen(f"http://{exp.addr}{path}",
+                                 timeout=10) as r:
+                        row[path] = (r.status, r.read().decode())
+                except HTTPError as e:
+                    row[path] = (e.code, e.read().decode())
+                except OSError:
+                    row[path] = None
+            scrapes.append(row)
+
+    for k in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv):
+        k.launches = 0
+    # The numerics step ring is the process's: 14b's records (steps up to
+    # 12) would hide this run's steps 4-8 from its new health engine.
+    numerics.clear_steps()
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    t0 = time.perf_counter()
+    try:
+        with Patched((cli, "_start_metrics", keep_exporter)):
+            done = run_cli(["train", *DRILL_NUMERICS, "--events-log",
+                            events_path, "--flight-dir", root])
+        drill_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches
+                    for k in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
+        events = read_events(events_path)
+        dumps = []
+        for name in sorted(os.listdir(root)):
+            if name.startswith("flight-") and name.endswith(".json"):
+                with open(os.path.join(root, name)) as f:
+                    dumps.append(json.load(f).get("reason"))
+    finally:
+        scraping.set()
+        scraper.join(timeout=30)
+        tracing.reset_tracing()
+        numerics.clear_steps()
+        shutil.rmtree(root, ignore_errors=True)
+    incidents = [x for x in events if x.get("event") == "numerics_nonfinite"]
+    at6 = [x for x in incidents if x.get("step") == 6]
+    nonfinite_total = max((prom_value(s["/metrics"][1],
+                                      "slt_numerics_nonfinite_total") or 0
+                           for s in scrapes if s.get("/metrics")),
+                          default=0)
+    critical = sorted({a["alert"] for s in scrapes if s.get("/alerts")
+                       for a in json.loads(s["/alerts"][1]).get("firing", [])
+                       if a["severity"] == "critical"})
+    healthz = sorted({s["/healthz"][0] for s in scrapes if s.get("/healthz")})
+    served = [json.loads(s["/numerics"][1]) for s in scrapes
+              if s.get("/numerics") and s["/numerics"][0] == 200]
+    steps = 8
+    want = {"flash_fwd": steps * 16 + 16, "flash_dq": steps * 16,
+            "flash_dkv": steps * 16}
+    emit("numerics_drill", card=card, seconds=drill_s,
+         incidents=[{k: x.get(k) for k in ("step", "first", "bad_subtrees",
+                                           "nonfinite")} for x in incidents],
+         provenance=at6[0].get("provenance") if at6 else None,
+         slt_numerics_nonfinite_total=nonfinite_total,
+         critical_alerts=critical, healthz_codes=healthz,
+         numerics_endpoint_last_step=max(
+             ((x.get("last") or {}).get("step", 0) for x in served),
+             default=None),
+         flight_dump_reasons=dumps, launches=launches,
+         losses=done.get("losses"), scrapes=len(scrapes))
+    faults = []
+    if (len(at6) != 1 or at6[0].get("first") != "params:layer_5"
+            or "grad:layer_5" not in at6[0].get("bad_subtrees", [])):
+        faults.append(f"incident records at step 6: {at6}")
+    if not nonfinite_total >= 1:
+        faults.append("slt_numerics_nonfinite_total never reached 1")
+    if "numerics.nonfinite" not in critical:
+        faults.append(f"no critical numerics.nonfinite, fired {critical}")
+    if 503 not in healthz:
+        faults.append(f"/healthz answered {healthz}, never 503")
+    if not any(x.get("enabled") for x in served):
+        faults.append("/numerics served no summary")
+    if not any("layer_5" in (r or "") for r in dumps):
+        faults.append(f"no flight dump names layer_5: {dumps}")
+    if launches != want:
+        faults.append(f"launches {launches}, expected {want} (the sweep's "
+                      f"forward through K1 included)")
+    if faults:
+        fail("phase 14c: " + "; ".join(faults))
+
+
+def numerics_phase(torch, card):
+    """Phase 14: the non-finite check, the overhead of numerics on the
+    llama_1b step and the NaN drill."""
+    t0 = time.perf_counter()
+    cases = nonfinite_check(torch, card)
+    t1 = time.perf_counter()
+    launches = numerics_overhead(torch, card)
+    t2 = time.perf_counter()
+    numerics_drill(torch, card)
+    emit("numerics_phase", card=card, nonfinite_cases=cases,
+         nonfinite_s=t1 - t0, overhead_s=t2 - t1,
+         drill_s=time.perf_counter() - t2, phase_s=time.perf_counter() - t0)
+    return launches
+
+
+def time_stats(torch, card):
+    """The stats kernels at llama_1b, on its f32 parameters: the
+    many-tensor kernel over all of them in one launch (with the
+    fingerprint's chunks: the step's parameter pass), the single-tensor
+    kernel once a tensor (the step's update pass) and the reduction, each
+    against its plain version on the card and its byte bound (each
+    parameter read once; the rows written once and read once)."""
+    from serverless_learn_tpu_torch.models.registry import get_model
+    from serverless_learn_tpu_torch.models.transformer import (Transformer,
+                                                               init_params)
+    from serverless_learn_tpu_torch.ops import tensor_stats as ts
+    from serverless_learn_tpu_torch.telemetry import numerics
+
+    cfg = get_model("llama_1b").cfg
+    model = Transformer(cfg, device="cuda")
+    init_params(model, 0)
+    named = sorted(((n, p.detach()) for n, p in model.named_parameters()),
+                   key=lambda x: tuple(x[0].split(".")))
+    groups = {}
+    for n, p in named:
+        groups.setdefault(n.split(".")[0], []).append(p)
+    plan = numerics.StatsPlan([(g, [p.numel() for p in ps])
+                               for g, ps in groups.items()], chunks=4)
+    leaves = [p for ps in groups.values() for p in ps]
+    rows = plan.new_rows("cuda")
+    bounds = torch.tensor(plan.bounds, device="cuda")
+    out = torch.empty(len(plan.names), ts.KCOLS, dtype=torch.float64,
+                      device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    before = {k.__name__: k.launches for k in (
+        ts.tensor_stats, ts.tensor_stats_many, ts.stats_reduce)}
+    plan.collect_all(rows, leaves)  # the descriptors, built once
+    ms = {"tensor_stats_many": time_ms(
+              torch, lambda i: plan.collect_all(rows, leaves), 5, reps=3),
+          "tensor_stats": time_ms(
+              torch, lambda i: [plan.collect(rows, j, x, stream=stream)
+                                for j, x in enumerate(leaves)], 5, reps=3),
+          "stats_reduce": time_ms(
+              torch, lambda i: ts.stats_reduce(rows, bounds, out), 20,
+              reps=3)}
+    got = {}
+    plan.collect_all(rows, leaves)
+    got["tensor_stats_many"] = ts.stats_reduce(rows, bounds, out).clone()
+    for j, x in enumerate(leaves):
+        plan.collect(rows, j, x, stream=stream)
+    got["tensor_stats"] = ts.stats_reduce(rows, bounds, out).clone()
+    got["stats_reduce"] = got["tensor_stats"]
+    plain_rows = rows.clone()
+
+    def plain_collect(i):
+        for j, x in enumerate(leaves):
+            g, r0, base, n = plan.leaves[j]
+            ts.tensor_stats_reference(
+                x, plain_rows[r0:r0 + ts.grid_for(n)], base=base,
+                chunk=plan.chunk[g], chunks=4)
+
+    plain_ms = time_ms(torch, plain_collect, 1, warmup=1)
+    plain = {"tensor_stats_many": plain_ms, "tensor_stats": plain_ms,
+             "stats_reduce": time_ms(
+                 torch, lambda i: ts.stats_reduce_reference(
+                     rows, plan.bounds, out.clone()), 1, warmup=1)}
+    ref = ts.stats_reduce_reference(plain_rows, plan.bounds, out.clone())
+    lim = torch.stack([ts.kernel_tolerance(ref[g], n)
+                       for g, n in enumerate(plan.counts)])
+    # launches made for the timing and the comparison are not the path's
+    for k in (ts.tensor_stats, ts.tensor_stats_many, ts.stats_reduce):
+        k.launches = before[k.__name__]
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    row_bytes = plan.rows * ts.KCOLS * 8
+    bound = {"tensor_stats_many": (param_bytes + row_bytes) / HBM_BYTES_PER_S,
+             "tensor_stats": (param_bytes + row_bytes) / HBM_BYTES_PER_S,
+             "stats_reduce": (row_bytes + out.numel() * 8 + bounds.numel()
+                              * 8) / HBM_BYTES_PER_S}
+    rows_out = {}
+    for name in ms:
+        err = (got[name] - ref).abs()
+        over = torch.where(lim > 0, err / lim.clamp_min(1e-300),
+                           torch.where(err > 0, math.inf, 0.0)).max().item()
+        rows_out[name] = {"ms": ms[name], "plain_ms": plain[name],
+                          "bound_ms": bound[name] * 1e3, "bound_by": "bytes",
+                          "library_ms": None,
+                          "max_abs_err": err.max().item(),
+                          "worst_err_over_limit": over}
+    emit("time_stats", card=card, model="llama_1b", tensors=len(leaves),
+         param_gb=param_bytes / 1e9, rows=plan.rows,
+         kernels=rows_out, library_call=None,
+         note="no single PyTorch call computes the finite-masked norms, "
+              "counts, maxima and chunk sums; tensor_stats is timed once a "
+              "tensor over the same parameters",
+         tolerance="ops.tensor_stats.kernel_tolerance: counts and max "
+                   "exact; sums 7 n 2^-24 absmax (squares absmax^2)")
+    worst = max(r["worst_err_over_limit"] for r in rows_out.values())
+    if not worst <= 1:
+        fail(f"stats kernels disagree with their plain versions at "
+             f"llama_1b: worst error / limit {worst:.3g}")
+    del model, leaves, named, groups, rows, plain_rows
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def numerics_only(torch, build, card) -> int:
+    sources = ["quant_matmul", "flash_attention", "cross_entropy",
+               "tensor_stats"]
+    reports = build.build(sources)
+    for name in sources:
+        build.load(name)
+    faults = {name: spill_faults(reports.get(name, ""), kernels)
+              for name, kernels in NO_SPILL.items()}
+    emit("build", card=card, spill_faults=faults,
+         ptxas={name: [ln.split("ptxas info    : ")[-1].strip()
+                       for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+                for name, log in reports.items()})
+    if any(faults.values()):
+        fail(f"tensor-core kernels spill registers: {faults}")
+    numerics_phase(torch, card)
+    time_stats(torch, card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4499,13 +5277,23 @@ def main() -> int:
     if "--ckpt-train-only" in sys.argv[1:]:
         return ckpt_train_only(torch, build, card)
     if "--elastic-only" in sys.argv[1:]:
-        build.build(["flash_attention"])
+        build.build(["flash_attention", "tensor_stats"])
         build.load("flash_attention")
         elastic_cluster(torch, card)
         return 0
+    if "--numerics-only" in sys.argv[1:]:
+        return numerics_only(torch, build, card)
+    if "--nonfinite-only" in sys.argv[1:]:
+        sources = ["quant_matmul", "flash_attention", "cross_entropy"]
+        build.build(sources)
+        for name in sources:
+            build.load(name)
+        nonfinite_check(torch, card, keep_going=True)
+        return 0
 
     t0 = time.perf_counter()
-    sources = ["quant_matmul", "flash_attention", "cross_entropy"]
+    sources = ["quant_matmul", "flash_attention", "cross_entropy",
+               "tensor_stats"]
     reports = build.build(sources)  # one nvcc per source, started together
     for name in sources:
         build.load(name)
@@ -4552,6 +5340,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     elastic = elastic_cluster(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats_launches = numerics_phase(torch, card)
+    stats_time = time_stats(torch, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -4604,6 +5396,21 @@ def main() -> int:
             "launches_checkpoint_path": phase10[name],
             "launches_elastic_worker": elastic[name],
             "max_abs_err": ce_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    stats_source = "serverless_learn_tpu_torch/csrc/tensor_stats.cu"
+    stats_replaces = {
+        # Not TPU kernels: the jnp reductions XLA fuses into the reference's
+        # step (_sub_stats, fingerprint) and their per-subtree sums.
+        "tensor_stats": "serverless_learn_tpu/telemetry/numerics.py:109",
+        "tensor_stats_many": "serverless_learn_tpu/telemetry/numerics.py:139",
+        "stats_reduce": "serverless_learn_tpu/telemetry/numerics.py:132"}
+    for name, where in stats_replaces.items():
+        row = stats_time[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": stats_source,
+            "replaces": where, "launches": stats_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))

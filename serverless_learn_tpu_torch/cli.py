@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: ``train``, ``eval``, ``serve``,
 ``generate``, the cluster's ``coordinator``, ``shard-server``,
-``publish``, ``worker`` and ``stats``.
+``publish``, ``worker``, ``stats`` and ``numerics``.
 
     python -m serverless_learn_tpu_torch train --model llama_1b \\
         --batch-size 2 --seq-len 4096 --steps 5
@@ -40,6 +40,12 @@
     python -m serverless_learn_tpu_torch train --model llama_1b \\
         --batch-size 2 --seq-len 4096 --shard-server localhost:P2 \\
         --dataset ds --steps 100 --checkpoint-store localhost:P2
+    python -m serverless_learn_tpu_torch train --model llama_1b \\
+        --batch-size 2 --seq-len 4096 --steps 100 --numerics --health \\
+        --events-log run/events.jsonl --set numerics.cadence=10
+    python -m serverless_learn_tpu_torch numerics diff A.jsonl B.jsonl
+    python -m serverless_learn_tpu_torch numerics summary run/events.jsonl
+    python -m serverless_learn_tpu_torch numerics --self-check
 
 The flags are those of the reference CLI (``serverless_learn_tpu/cli.py``)
 for these paths. Checkpoints are the JAX package's (``training/
@@ -71,6 +77,16 @@ health engine behind ``/alerts`` and ``/healthz``; ``--events-log``,
 profiles the whole run). ``train`` with a checkpoint store arms the
 emergency save (``checkpoint.emergency_save``), and its ``done`` line
 carries ``goodput``, ``badput_breakdown`` and ``spans``.
+
+``train --numerics`` (and ``worker --numerics``; config
+``numerics.enabled``) turns on the numerics layer: the step's per-subtree
+statistics and fingerprints on the card, fetched every
+``numerics.cadence`` steps into ``numerics_stats`` records and
+``/numerics``, NaN/Inf provenance at the first non-finite step, the
+loss-health alerts with ``--health``. ``numerics diff A B`` bisects two
+fingerprint trails (this package's or the JAX package's) to the first step
+and subtree that diverged (exit 1 when they did), ``numerics summary
+LOG...`` digests a run's trail, ``numerics --self-check`` checks the math.
 """
 
 from __future__ import annotations
@@ -339,7 +355,8 @@ def _train_config(args):
              ("optimizer", "name"): args.optimizer,
              ("data", "seq_len"): args.seq_len,
              ("train", "checkpoint_every"): args.checkpoint_every,
-             ("data", "dataset"): args.dataset}
+             ("data", "dataset"): args.dataset,
+             ("numerics", "enabled"): True if args.numerics else None}
     if args.shard_server:
         flags[("data", "shard_server_addr")] = args.shard_server
         flags[("control", "shard_server_addr")] = args.shard_server
@@ -389,9 +406,19 @@ def cmd_train(args) -> int:
 
             bracket = capture_session(args.profile_dir)
         ckpt = _make_checkpointer(args, cfg)
-        trainer = callback = None
-        if ckpt is not None:
+        trainer = callback = auditor = None
+        if ckpt is not None or cfg.numerics.enabled:
             trainer = build_trainer(cfg, args.device)
+        if cfg.numerics.enabled:
+            # The checkpointer's host shadow is the provenance sweep's
+            # first source.
+            from serverless_learn_tpu_torch.training.audit import (
+                NumericsAuditor)
+
+            auditor = NumericsAuditor(
+                cfg, bundle=trainer.bundle,
+                shadow_fn=ckpt.host_shadow if ckpt is not None else None)
+        if ckpt is not None:
             every = cfg.train.checkpoint_every
             if cfg.checkpoint.emergency_save:
                 # A SIGTERM'd or crashing run commits its newest shadow,
@@ -411,7 +438,9 @@ def cmd_train(args) -> int:
             state, meter = run_training(cfg, trainer=trainer,
                                         step_callback=callback,
                                         verbose=args.verbose,
-                                        device=args.device)
+                                        device=args.device, auditor=auditor)
+        if auditor is not None:
+            auditor.close()
         if ckpt is not None:
             ckpt.save(trainer.state_tree(state))
             ckpt.wait()
@@ -753,6 +782,71 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def cmd_numerics(args) -> int:
+    """Training-quality trails (``telemetry/numerics.py``): ``diff A B``
+    bisects two fingerprint trails (event logs, ``numerics.fingerprint_log``
+    files or flight dumps) to the first step and subtree that diverged,
+    exit 1 when they did; ``summary LOG...`` digests audited steps, grad
+    norm and update-ratio ranges and non-finite incidents, exit 1 when
+    there was one; ``--self-check`` checks the math."""
+    from serverless_learn_tpu_torch.telemetry import numerics
+
+    if args.self_check:
+        rep = numerics.self_check()
+        print(json.dumps(rep, indent=None if args.compact else 2))
+        return 0 if rep["ok"] else 1
+    if args.action == "diff":
+        if len(args.paths) != 2:
+            print("numerics diff needs exactly two fingerprint trails",
+                  file=sys.stderr)
+            return 2
+        rep = numerics.diff_fingerprint_logs(
+            numerics.load_records(args.paths[0]),
+            numerics.load_records(args.paths[1]),
+            rtol=args.rtol, atol=args.atol)
+        rep = {"log_a": args.paths[0], "log_b": args.paths[1], **rep}
+        print(json.dumps(rep, indent=None if args.compact else 2))
+        return 1 if rep.get("diverged") else 0
+    if args.action == "summary":
+        if not args.paths:
+            print("numerics summary needs JSONL event logs",
+                  file=sys.stderr)
+            return 2
+        records = []
+        for path in args.paths:
+            records.extend(numerics.load_records(path))
+        stats = [r for r in records if r.get("event") == "numerics_stats"]
+        bad = [r for r in records
+               if r.get("event") == "numerics_nonfinite"]
+        out = {"records": len(records), "audited_steps": len(stats),
+               "steps": [r.get("step") for r in stats[:3]]
+               + (["..."] if len(stats) > 6 else [])
+               + [r.get("step") for r in stats[-3:]]
+               if stats else [],
+               "nonfinite_incidents": [
+                   {"step": r.get("step"), "first": r.get("first"),
+                    "bad_subtrees": r.get("bad_subtrees")}
+                   for r in bad]}
+        if stats:
+            gnorms = [r["grad_norm"] for r in stats
+                      if isinstance(r.get("grad_norm"), (int, float))]
+            ratios = [r["update_ratio"] for r in stats
+                      if isinstance(r.get("update_ratio"), (int, float))]
+            if gnorms:
+                out["grad_norm"] = {"min": round(min(gnorms), 6),
+                                    "max": round(max(gnorms), 6),
+                                    "last": round(gnorms[-1], 6)}
+            if ratios:
+                out["update_ratio"] = {"min": round(min(ratios), 9),
+                                       "max": round(max(ratios), 9),
+                                       "last": round(ratios[-1], 9)}
+        print(json.dumps(out, indent=None if args.compact else 2))
+        return 1 if bad else 0
+    print("numerics needs an action (diff | summary) or --self-check",
+          file=sys.stderr)
+    return 2
+
+
 def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--model", required=True,
                    help="registered model name (llama_tiny, llama_1b, "
@@ -836,6 +930,13 @@ def _add_train_flags(p: argparse.ArgumentParser):
                    help="stream data from this shard server")
     p.add_argument("--world-size", type=int, default=None,
                    help="not yet ported: raises")
+    p.add_argument("--numerics", action="store_true",
+                   help="training-quality observability: per-subtree "
+                        "tensor stats and fingerprints in the step, fetched "
+                        "every numerics.cadence steps, NaN/Inf provenance "
+                        "at the first non-finite step, loss-health alerts "
+                        "with --health (config numerics.enabled=true does "
+                        "the same)")
     _add_telemetry_flags(p)
 
 
@@ -989,6 +1090,31 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--kind", choices=["coordinator", "shard-server"],
                     default="shard-server")
     st.set_defaults(fn=cmd_stats)
+
+    nm = sub.add_parser(
+        "numerics",
+        help="training-quality trails: fingerprint diff, run summaries, "
+             "self-check",
+        description="Bisect two recorded fingerprint trails to the first "
+                    "divergent step and parameter subtree (diff), digest a "
+                    "run's numerics trail (summary), or check the math "
+                    "(--self-check). train --numerics writes "
+                    "numerics_stats and numerics_nonfinite records into "
+                    "--events-log, and numerics_fingerprint records into "
+                    "numerics.fingerprint_log.")
+    nm.add_argument("action", nargs="?", choices=["diff", "summary"],
+                    help="diff: bisect two trails; summary: digest logs")
+    nm.add_argument("paths", nargs="*",
+                    help="JSONL trails (event logs, fingerprint logs, "
+                         "flight dumps)")
+    nm.add_argument("--rtol", type=float, default=1e-5,
+                    help="relative tolerance for digest agreement")
+    nm.add_argument("--atol", type=float, default=1e-6,
+                    help="absolute tolerance for digest agreement")
+    nm.add_argument("--self-check", action="store_true",
+                    help="run the numerics self-check")
+    nm.add_argument("--compact", action="store_true")
+    nm.set_defaults(fn=cmd_numerics)
     return ap
 
 

@@ -3,17 +3,18 @@
 ``model``, ``model_overrides``, ``mesh``, ``optimizer``, ``train`` and
 ``data``, ``checkpoint``, the serving engines' ``kv``, the health
 engine's ``health``, the request ledger's ``waterfall``, the control
-plane's ``control``, the membership policy's ``membership`` and the
-elastic trainer's ``elastic``) with the same field names and defaults, so
+plane's ``control``, the membership policy's ``membership``, the
+elastic trainer's ``elastic`` and the numerics layer's ``numerics``) with
+the same field names and defaults, so
 the reference's JSON configs and ``--set section.key=value`` overrides
 mean the same here.
 
 What the port does not run raises instead of being ignored: a mesh of
 more than one device, a non-f32 gradient exchange, every field of
 ``_FIELDS_NOT_PORTED`` set away from its default (gossip membership and
-the quantized remesh stream among them), and any of the sections
-``local_sgd``, ``fleet`` and ``numerics`` (the port keeps no copy of
-their defaults, so it refuses them when set at all).
+the quantized remesh stream among them), and the sections ``local_sgd``
+and ``fleet`` (the port keeps no copy of their defaults, so it refuses
+them when set at all).
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from typing import Any, Dict, Iterable, Optional
 _SECTIONS_NOT_PORTED = {
     "local_sgd": "gossip / DiLoCo local SGD",
     "fleet": "the serving fleet",
-    "numerics": "numerics telemetry (ROADMAP.md queue 1 item 3g)",
 }
 ROADMAP_TRAINING = "ROADMAP.md queue 1 item 3"
 _DATA_ITEM = "ROADMAP.md queue 1 item 5"
@@ -216,9 +216,9 @@ class HealthConfig:
            "metric": "slt_request_ttft_seconds",
            "threshold_s": 0.5, "objective": 0.95}]}
 
-    The ``numerics_*`` fields tune the reference's numerics detectors,
-    which wait for the port of ``telemetry/numerics.py``: they are
-    accepted and unused."""
+    The ``numerics_*`` fields tune the loss-health detectors
+    (``telemetry.numerics.LossHealth``) the engine runs over the numerics
+    auditor's step records."""
 
     enabled: bool = False           # CLI --health also turns the engine on
     sample_interval_s: float = 2.0  # registry sampling period
@@ -299,6 +299,33 @@ class ElasticConfig:
 
 
 @dataclass(frozen=True)
+class NumericsConfig:
+    """The numerics layer (``telemetry/numerics.py``,
+    ``training/audit.py``), the reference's fields and defaults.
+
+    ``enabled`` adds per-subtree grad, param and update norms,
+    update-to-param ratios, non-finite counts and parameter fingerprints to
+    the train step (on the card, no host sync) and fetches them to the host
+    every ``cadence`` steps, charged to the ``numerics`` goodput phase. At
+    the first non-finite step the auditor names the first bad layer (the
+    checkpointer's host shadow, else the live state) and the health engine
+    raises the critical ``numerics.nonfinite``. ``chunks`` is at most 16.
+
+    ``inject_nan_step`` / ``inject_nan_subtree`` poison the named subtree's
+    gradient (every gradient when empty) with NaN at exactly that step."""
+
+    enabled: bool = False
+    cadence: int = 20             # host-fetch/emit every N steps
+    depth: int = 1                # subtree grouping depth (top-level=1)
+    fingerprint: bool = True      # per-step parameter fingerprints
+    fingerprint_log: str = ""     # JSONL path for fingerprint records
+    chunks: int = 4               # positional chunk sums per subtree
+    provenance: str = "sweep"     # "sweep" | "off" (NaN/Inf root-causing)
+    inject_nan_step: int = 0      # 0 = off; else poison grads at this step
+    inject_nan_subtree: str = ""  # "" = whole grad tree
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: str = "mlp_mnist"
     model_overrides: dict = field(default_factory=dict)
@@ -313,6 +340,7 @@ class ExperimentConfig:
     control: ControlConfig = field(default_factory=ControlConfig)
     membership: MembershipConfig = field(default_factory=MembershipConfig)
     elastic: ElasticConfig = field(default_factory=ElasticConfig)
+    numerics: NumericsConfig = field(default_factory=NumericsConfig)
 
     def __post_init__(self):
         t = self.train
@@ -344,6 +372,9 @@ class ExperimentConfig:
         if self.checkpoint.emergency_min_interval_s < 0:
             raise ValueError("emergency_min_interval_s must be >= 0, got "
                              f"{self.checkpoint.emergency_min_interval_s}")
+        if not 1 <= max(self.numerics.chunks, 1) <= 16:
+            raise ValueError(f"numerics.chunks must be at most 16, got "
+                             f"{self.numerics.chunks}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
@@ -357,7 +388,8 @@ class ExperimentConfig:
         unknown = (set(raw) - {"model", "model_overrides", "mesh",
                                "optimizer", "train", "data", "kv",
                                "checkpoint", "health", "waterfall",
-                               "control", "membership", "elastic"}
+                               "control", "membership", "elastic",
+                               "numerics"}
                    - set(_SECTIONS_NOT_PORTED))
         if unknown:
             raise ValueError(f"unknown config sections {sorted(unknown)}")
@@ -379,6 +411,7 @@ class ExperimentConfig:
             control=build(ControlConfig, raw.get("control")),
             membership=build(MembershipConfig, raw.get("membership")),
             elastic=build(ElasticConfig, raw.get("elastic")),
+            numerics=build(NumericsConfig, raw.get("numerics")),
         )
 
     @classmethod

@@ -8,7 +8,9 @@
 //     and loss = lse - x[label], both f32. The running max starts at -1e30
 //     (`_NEG`), lse = m + log(max(l, 1e-30)), and the label's logit is read
 //     from the f32-upcast x; a label outside [0, V) picks nothing, so the
-//     loss is lse.
+//     loss is lse. The floor of l propagates a NaN, as jnp.maximum does: a
+//     NaN or a +inf logit makes the row's lse and loss NaN, as in the plain
+//     version (fmaxf would turn the NaN sum into 1e-30, a finite loss).
 //   * K5 `_ce_bwd_call` (kernel `_bwd_kernel`, call at :129):
 //     dx = (exp(x - lse) - onehot(label)) * g, in f32, cast once to x's type.
 // Every exp is of x minus a running or final maximum, so logits of +-80 in
@@ -175,7 +177,7 @@ cross_entropy_fwd_kernel(const T* __restrict__ x,
     const int lab = labels[n];
     const float picked =
         (lab >= 0 && lab < r.V) ? to_f32(row[lab]) : 0.f;
-    const float s = m + logf(fmaxf(l, 1e-30f));
+    const float s = m + logf(l != l || l > 1e-30f ? l : 1e-30f);
     lse[n] = s;
     loss[n] = s - picked;
   }

@@ -14,7 +14,10 @@
 // Scores are (q . k) * D^-0.5 in f32; masked scores sit at -1e30 and give
 // p = 0 (`_masked_exp`); a row with no valid key gets out = 0 (l clamped at
 // 1e-30). As in the reference, p is rounded to the input type before p v and
-// p^T dO, and ds before ds k and ds^T q; every sum is f32.
+// p^T dO, and ds before ds k and ds^T q; every sum is f32. The floors of l
+// and of the rescale exponent propagate a NaN, as the reference's
+// jnp.maximum does (fmaxf would drop it): a NaN or an inf in a row's
+// scores makes that row's out and lse NaN, as in the plain version.
 //
 // Layouts: q, out, dO, dq [B, T, H, D]; k, v, dk, dv [B, S, KH, D]; all
 // contiguous; lse and delta [B, H, T] f32. Grouped-query heads read K/V head
@@ -67,6 +70,25 @@ constexpr int kBK = 64;                 // key rows per tile
 constexpr int kThreads = 256;           // 16 x 16
 constexpr int kPad = kBQ + 4;           // row stride of the p / ds tile
 constexpr float kNeg = -1e30f;          // the mask floor (`_NEG`)
+
+// max(a, b) that returns NaN when either is NaN (jnp.maximum); the same
+// value as fmaxf otherwise.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// The raw score q . k at or below which the scaled score is at the mask
+// floor: the reference's `_masked_exp` gives it p = 0 exactly, masked or
+// not, a -inf score included, whose exp against a NaN lse would be NaN.
+// K3 sums p^T dO over the rows, so a NaN row must leave p = 0 at such a
+// key; it compares on the raw score, so the exp's own arithmetic stays as
+// it was, and the bf16 K3 only on its masked path, which a tile with a NaN
+// lse takes (elsewhere the exp of such a score is 0 already). K2 needs no
+// compare: a row with a NaN lse has a NaN or +inf score, whose p makes its
+// whole dq row NaN under either rule.
+__device__ __forceinline__ float raw_floor(float scale) {
+  return kNeg * 0.5f / scale;
+}
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 enum MaskMode : int { kNone = 0, kLen = 1, kRows = 2 };
@@ -262,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
         s[r][c] = Elem<T>::round(p);
       }
       sum = half_warp_sum(sum);
-      const float alpha = expf(fmaxf(m[r] - m_new, kNeg));
+      const float alpha = expf(max_nan(m[r] - m_new, kNeg));
       l[r] = l[r] * alpha + sum;
       m[r] = m_new;
 #pragma unroll
@@ -290,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty * 4 + r;
     if (row >= a.T) continue;
-    const float ll = fmaxf(l[r], 1e-30f);
+    const float ll = max_nan(l[r], 1e-30f);
     T* orow = static_cast<T*>(a.out) + (static_cast<int64_t>(b) * a.T + row) * qs + h * D;
 #pragma unroll
     for (int n = 0; n < N; ++n) Elem<T>::store(orow + C::col(tx, n), acc[r][n] / ll);
@@ -474,13 +496,14 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
           }
       }
       float ds[4][4];
+      const float fl = raw_floor(a.scale);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int key = k0 + ty * 4 + r;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int qi = tx * 4 + c;
-          const bool ok = valid(a, b, q0 + qi, key, vlen);
+          const bool ok = valid(a, b, q0 + qi, key, vlen) && !(s[r][c] <= fl);
           const float p = ok ? expf(s[r][c] * a.scale - sL[qi]) : 0.f;
           ds[r][c] = Elem<T>::round(p * (dp[r][c] - sDl[qi]) * a.scale);
           s[r][c] = Elem<T>::round(p);
@@ -674,6 +697,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
   const bf16* qbase = static_cast<const bf16*>(a.q) + static_cast<int64_t>(b) * a.T * qs;
   const bf16* gbase = static_cast<const bf16*>(a.dout) + static_cast<int64_t>(b) * a.T * qs;
   const float scale2 = a.scale * kLog2e;
+  const float fl = raw_floor(a.scale);
 
   // Issues the copies of iteration `it` (q head, q tile) into stage it % 2.
   auto issue = [&](int it) {
@@ -705,8 +729,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
     if (it + 1 < n_iter) issue(it + 1);
     cp_commit();
     cp_wait<1>();
-    __syncthreads();  // stage it % 2 (and K, V) landed for every thread
+    // Stage it % 2 (and K, V) landed for every thread; and whether a row of
+    // this q tile has a NaN lse (each of the first kTile threads reads the
+    // one it copied), which sends the tile down the masked path.
     const int st = it & 1, q0 = (i0 + it % n_i) * kTile;
+    const bool nan_lse = __syncthreads_or(
+        threadIdx.x < kTile && isnan(sL[st * kTile + threadIdx.x]));
     const uint32_t uQ = smem_u32(sQ + st * Tile<D>::kElems);
     const uint32_t uG = smem_u32(sG + st * Tile<D>::kElems);
     const float* L = sL + st * kTile;
@@ -716,7 +744,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
       const int qa = q0 + qc;  // first query of the chunk
       if (kw >= a.S || (a.causal && kw > qa + QC - 1)) continue;  // all masked
       const bool masked = a.mask_mode != kNone || qa + QC > a.T || kw + 16 > a.S ||
-                          (a.causal && kw + 15 > qa);
+                          (a.causal && kw + 15 > qa) || nan_lse;
       float s[NQ][4], dp[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -748,7 +776,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
           const int qi = qc + 8 * n + 2 * t + (e & 1);  // query within the tile
           const float x = exp2f(fmaf(s[n][e], scale2, -L[qi] * kLog2e));
           bool ok = true;
-          if (masked) ok = valid(a, b, q0 + qi, kw + g + 8 * (e >> 1), vlen);
+          if (masked)
+            ok = valid(a, b, q0 + qi, kw + g + 8 * (e >> 1), vlen) && !(s[n][e] <= fl);
           p[e] = ok ? x : 0.f;
           ds[e] = p[e] * (dp[n][e] - Dl[qi]) * a.scale;
         }
@@ -1070,7 +1099,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
   }
   // A row with no valid key: l = 0, so out = 0 and lse = the floor.
-  const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  const float inv0 = 1.f / max_nan(l[0], 1e-30f), inv1 = 1.f / max_nan(l[1], 1e-30f);
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     acc[n][0] *= inv0;
@@ -1085,7 +1114,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
       const int row = qw + g + 8 * hf;
       if (row < a.T) {
         a.lse[(static_cast<int64_t>(b) * a.H + h) * a.T + row] =
-            l[hf] > 0.f ? m2[hf] * (1.f / kLog2e) + logf(l[hf]) : kNeg;
+            !(l[hf] <= 0.f) ? m2[hf] * (1.f / kLog2e) + logf(l[hf]) : kNeg;
       }
     }
   }

@@ -16,12 +16,15 @@ readers (``slt top``, ``slt doctor``, dashboards) read either package.
   ``/alerts``, ``/goodput``, ``/debug/profile``.
 * ``waterfall.py``: per-request :class:`RequestWaterfall` ledgers and
   the engine's :class:`BoundaryEvents`.
+* ``numerics.py``: training-quality statistics, fingerprints, NaN/Inf
+  provenance and the loss-health detectors (imports torch, so it is not
+  imported here; its auditor is ``training/audit.py``).
 
 ``dcn.py`` holds the store byte accounting the elastic trainer uses. The
 reference's ``publish_rpc_stats`` (the ``stats`` command's mirror of a
-daemon's RPC latencies into the registry) is left out. So are the numerics auditor
-and the reader commands (``top``, ``doctor``, ``trace``, ``goodput``,
-``waterfall``, ``profile``, ``xray``); ``ROADMAP.md`` lists them.
+daemon's RPC latencies into the registry) is left out. So are the reader
+commands (``top``, ``doctor``, ``trace``, ``goodput``, ``waterfall``,
+``profile``, ``xray``); ``ROADMAP.md`` lists them.
 """
 
 from serverless_learn_tpu_torch.telemetry.exporter import (MetricsExporter,

@@ -9,13 +9,15 @@
                                    alerts ({"enabled": false} without one)
     GET /goodput                   the run ledger's goodput/badput report,
                                    MFU-weighted when ``slt_train_mfu`` is set
+    GET /numerics                  training-quality stats: the numerics
+                                   auditor's newest fetched summary and its
+                                   recent step records
     GET /debug/profile?seconds=N   a ``torch.profiler`` capture
                                    (armed by ``--profile-dir``)
 
 Unknown paths get a JSON 404 naming these endpoints, a handler that
-raises a JSON 500. The reference's ``/stalls``, ``/numerics``,
-``/fleetscope`` and ``/canary`` wait for the port of their readers and
-producers.
+raises a JSON 500. The reference's ``/stalls``, ``/fleetscope`` and
+``/canary`` wait for the port of their readers and producers.
 
 One ``ThreadingHTTPServer`` on a daemon thread: scrapes read the
 registry under its lock and never touch the card.
@@ -39,7 +41,7 @@ PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 # Every path do_GET serves, in docstring order — the 404 body names them
 # so a typo'd scrape is self-correcting.
 ENDPOINTS = ("/metrics", "/metrics.json", "/healthz", "/alerts",
-             "/goodput", "/debug/profile")
+             "/goodput", "/numerics", "/debug/profile")
 
 
 class MetricsExporter:
@@ -90,6 +92,8 @@ class MetricsExporter:
                         self._reply_json(200, exporter._alerts())
                     elif path == "/goodput":
                         self._reply_json(200, exporter._goodput())
+                    elif path == "/numerics":
+                        self._reply_json(200, exporter._numerics())
                     elif path == "/debug/profile":
                         code, obj = exporter._profile(
                             parse_qs(url.query),
@@ -163,6 +167,23 @@ class MetricsExporter:
             return dict(goodput.get_ledger().report(mfu=mfu), enabled=True)
         except Exception as e:
             return {"enabled": True,
+                    "error": f"{type(e).__name__}: {e}"}
+
+    # -- numerics ----------------------------------------------------------
+
+    def _numerics(self) -> dict:
+        """The /numerics body: the auditor's newest host-fetched summary
+        and the recent step records (floats only)."""
+        import sys
+
+        # Only a process that imported the numerics module has records.
+        mod = sys.modules.get("serverless_learn_tpu_torch.telemetry.numerics")
+        if mod is None:
+            return {"enabled": False, "last": None, "recent_steps": []}
+        try:
+            return mod.endpoint_payload()
+        except Exception as e:
+            return {"enabled": False,
                     "error": f"{type(e).__name__}: {e}"}
 
     # -- on-demand device profiling ---------------------------------------

@@ -5,7 +5,8 @@ A bounded ring holds the process's last span and lifecycle events (every
 ``tracing.emit_span``/``emit_event`` feeds it, and the loops record their
 steps). On SIGTERM or an unhandled exception (main thread or any other)
 the ring is dumped, with a registry snapshot and the card's memory
-statistics, to ``flight-<node>-<timestamp>.json``. Death hooks run first:
+statistics, to ``flight-<node>-<timestamp>.json`` (``-<k>`` added for a
+later dump in the same second). Death hooks run first:
 the checkpointer's emergency save is one (``training/checkpoint.py``
 ``arm_emergency``).
 
@@ -169,6 +170,17 @@ def dump(reason: str, dir: Optional[str] = None) -> Optional[str]:
         if mem is not None:
             payload["device_memory"] = mem
         os.makedirs(out_dir, exist_ok=True)
+        # A second dump within the same second (an incident's own dump and
+        # the alert's that follows it, from another thread) must not
+        # overwrite the first: the name is reserved before it is written.
+        stem, k = path[:-len(".json")], 0
+        while True:
+            try:
+                os.close(os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+                break
+            except FileExistsError:
+                k += 1
+                path = f"{stem}-{k}.json"
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(payload, f)

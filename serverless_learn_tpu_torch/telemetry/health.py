@@ -21,9 +21,11 @@ injectable clock. Three detector families:
 Alerts go to the event log and the flight ring
 (``tracing.emit_event``), are served at ``/alerts``, turn ``/healthz``
 to 503 while a critical one fires, and trigger a rate-limited flight
-dump. The reference's numerics detectors (loss spike, plateau, gradient
-explosion) wait for the port of ``telemetry/numerics.py``; the
-``health.numerics_*`` fields are accepted and unused.
+dump. The training-quality detectors (``telemetry.numerics.LossHealth``:
+loss spike, plateau, gradient explosion, a non-finite step) run over the
+numerics auditor's step records, tuned by the ``health.numerics_*``
+fields; every increment of ``slt_numerics_nonfinite_total`` is also a
+critical ``event.numerics_nonfinite``.
 """
 
 from __future__ import annotations
@@ -485,6 +487,9 @@ _EVENT_RULES = (
     # island's registry (/alerts, slt top).
     ("diloco_delta_quarantined", "slt_diloco_quarantined_total",
      "warning"),
+    # The numerics auditor's non-finite incidents (training/audit.py):
+    # each is a step whose weights or gradients hold a NaN or an inf.
+    ("numerics_nonfinite", "slt_numerics_nonfinite_total", "critical"),
 )
 
 
@@ -536,6 +541,11 @@ class HealthEngine:
         self._event_last: Dict[str, Optional[float]] = {
             key: None for key, *_ in _EVENT_RULES}
         self._anchor_lag_prev: Optional[float] = None
+        # Training-quality detectors: a LossHealth fed from the numerics
+        # step ring (telemetry/numerics.note_step), made on the first tick
+        # that finds the numerics module loaded.
+        self._loss_health = None
+        self._numerics_seen: Optional[int] = None
         self._alerts: Dict[tuple, Alert] = {}
         self._prev: Optional[dict] = None  # last flattened sample
         self._prev_t: Optional[float] = None
@@ -852,6 +862,9 @@ class HealthEngine:
             else:
                 self._calm(now, "diloco.anchor_lag")
 
+        # ---- numerics: training-quality detectors ----
+        self._numerics_tick_locked(now)
+
         # ---- structural: DiLoCo stragglers ----
         scores = score_stragglers(
             recent_rounds(self.config.straggler_window_rounds),
@@ -873,6 +886,55 @@ class HealthEngine:
         self._prev, self._prev_t = sample, now
         self._last_sample = sample
         self.ticks += 1
+
+    def _numerics_tick_locked(self, now: float):
+        """Caller holds ``_lock``. Feed the new numerics step records (the
+        auditor publishes them through ``numerics.note_step``) through the
+        loss-health detectors and turn the findings into alerts. Records
+        are read once, in step order; a tick with no new record leaves the
+        alerts as they are (idle is not calm)."""
+        import sys
+
+        # Only a process whose auditor imported the numerics module has
+        # records; the engine itself stays free of torch.
+        mod = "serverless_learn_tpu_torch.telemetry.numerics"
+        if mod not in sys.modules:
+            return
+        _numerics = sys.modules[mod]
+        if self._loss_health is None:
+            self._loss_health = _numerics.LossHealth(
+                spike_z=self.config.numerics_spike_z,
+                plateau_window=self.config.numerics_plateau_window,
+                plateau_min_rel=self.config.numerics_plateau_min_rel,
+                explode_z=self.config.numerics_explode_z)
+        recs = [r for r in _numerics.recent_steps(128)
+                if isinstance(r.get("step"), int)
+                and (self._numerics_seen is None
+                     or r["step"] > self._numerics_seen)]
+        if not recs:
+            return
+        latest: Dict[str, Optional[dict]] = {}
+        for rec in sorted(recs, key=lambda r: r["step"]):
+            self._numerics_seen = rec["step"]
+            verdicts = self._loss_health.update(
+                rec["step"], rec.get("loss"), rec.get("grad_norm"))
+            if rec.get("nonfinite"):
+                first = rec.get("first")
+                verdicts["nonfinite"] = {
+                    "severity": "critical",
+                    "value": float(rec["nonfinite"]), "threshold": 0.0,
+                    "message": f"non-finite values at step {rec['step']}"
+                               + (f" — first bad layer: {first}"
+                                  if first else "")}
+            latest.update(verdicts)
+        for det, finding in latest.items():
+            name = f"numerics.{det}"
+            if finding is None:
+                self._calm(now, name)
+            else:
+                self._fire(now, name, finding["severity"], "numerics",
+                           finding["message"], value=finding["value"],
+                           threshold=finding["threshold"])
 
     def _extract(self, kind: str, metric: str, sample: dict,
                  prev: Optional[dict], dt: Optional[float],

@@ -31,7 +31,12 @@ records and log lines; the store's traffic is counted under the DCN
 consumer ``remesh`` (``telemetry/dcn.py``). The port adds a ``remesh``
 event per formation with the save, re-form and restore seconds and bytes
 (``*_io_s``: the store's share of them) and the card's peak memory, and
-``step`` lines every ``train.log_every`` steps when verbose.
+``step`` lines every ``train.log_every`` steps when verbose. With
+``numerics.enabled`` every formation emits the restored parameters'
+``numerics_fingerprint`` with ``reason=remesh_restore``, as the reference
+does, and every drain's save the saved ones' with ``reason=remesh_save``:
+``numerics diff`` of the two, or their equality, shows a transition kept
+the values.
 
 Off their defaults these raise "not yet ported" (``config.py``): the
 quantized remesh stream (``elastic.remesh_wire_dtype``), gossip membership
@@ -208,6 +213,21 @@ class ElasticTrainer:
         torch.cuda.synchronize(self.device)
         return int(torch.cuda.max_memory_allocated(self.device))
 
+    def _fingerprint(self, trainer, state, epoch: int, reason: str):
+        """The parameters' fingerprint as a ``numerics_fingerprint`` event
+        (with ``numerics.enabled``)."""
+        ncfg = self.config.numerics
+        if not ncfg.enabled:
+            return
+        from serverless_learn_tpu_torch.telemetry import numerics
+
+        fp = numerics.fingerprint_record(
+            trainer.state_tree(state)["params"], depth=max(1, ncfg.depth),
+            chunks=ncfg.chunks)
+        ttrace.emit_event({"event": "numerics_fingerprint",
+                           "step": state.step, "epoch": epoch,
+                           "reason": reason, "fp": fp})
+
     # -- main loop ---------------------------------------------------------
 
     def run(self, num_steps: Optional[int] = None):
@@ -287,6 +307,8 @@ class ElasticTrainer:
                     t2 = time.perf_counter()
                     self.ckpt.note_state(lambda: trainer.state_tree(state))
                     step = state.step
+                    self._fingerprint(trainer, state, epoch,
+                                      "remesh_restore")
                     self.transitions.append(EpochTransition(
                         epoch=epoch, step=step, n_devices=len(devices),
                         stripe=(rank, size)))
@@ -372,6 +394,7 @@ class ElasticTrainer:
                 t_save = time.perf_counter()
                 moved = self._store_seconds()
                 self.ckpt.save(trainer.state_tree(state))
+                self._fingerprint(trainer, state, epoch, "remesh_save")
                 saved = (step, round(time.perf_counter() - t_save, 6),
                          self.ckpt.timings.get("save_bytes"),
                          round(self._store_seconds() - moved, 6))

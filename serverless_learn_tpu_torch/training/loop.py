@@ -14,14 +14,15 @@ over a held-out stream (the ``eval`` command, and in the loop every
 * a ``train/run`` span around the loop and a ``train/step`` span a step
   (emitted to the event log when tracing has a sink), the host tracer's
   ``train/step`` aggregate and a flight record a step;
-* ``slt_train_mfu`` from the analytic step FLOPs at the end.
+* ``slt_train_mfu`` from the analytic step FLOPs at the end;
+* with ``numerics.enabled`` (or an ``auditor``), the numerics auditor
+  (``training/audit.py``): the step's ``metrics["numerics"]`` stays on the
+  card, out of the per-step readback, and the auditor fetches it at its
+  cadence in its own ``numerics`` phase.
 
 Each iteration (step, eval, callback) runs inside
 ``profiler.device_work()``, so a profiler session started from another
 thread starts and stops between iterations.
-
-The numerics auditor (``training/audit.py``) waits for ROADMAP.md queue 1
-item 3g.
 """
 
 from __future__ import annotations
@@ -143,21 +144,28 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
                  state=None, source=None,
                  step_callback: Optional[Callable] = None,
                  verbose: bool = False, device="cuda", registry=None,
-                 ledger=None):
+                 ledger=None, auditor=None):
     """Run ``config.train.num_steps`` steps from ``state.step``; returns
     (state, meter). ``step_callback(step, state, stats)`` runs after each
     step. Each step's metrics are read back to the host (which waits for
     the card), so step times are honest. ``registry`` and ``ledger``
     default to the process's (``get_registry``, ``goodput.get_ledger``).
-    A source this call makes is closed at the end; a source's error (a
-    lost shard server) raises out of the loop."""
+    ``auditor`` (built here when ``numerics.enabled``) sees each step's
+    numerics. A source this call makes is closed at the end; a source's
+    error (a lost shard server) raises out of the loop."""
     trainer = trainer or build_trainer(config, device)
+    led = ledger or goodput.get_ledger()
+    own_auditor = auditor is None and config.numerics.enabled
+    if own_auditor:
+        from serverless_learn_tpu_torch.training.audit import NumericsAuditor
+
+        auditor = NumericsAuditor(config, registry=registry,
+                                  bundle=trainer.bundle, ledger=led)
     if state is None:
         state = trainer.init()
     created_source = source is None
     if created_source:
         source = make_source(config, trainer, start_step=state.step)
-    led = ledger or goodput.get_ledger()
     led.ensure_started()
     batches = prefetch(source, trainer.place, config.data.prefetch,
                        ledger=led)
@@ -196,10 +204,13 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
                 with profiler.device_work():
                     state = _one_step(config, trainer, state, batch, i,
                                       i == start_step, meter, led, tracer,
-                                      metrics_of, step_callback, verbose)
+                                      metrics_of, step_callback, verbose,
+                                      auditor)
         finally:
             run_span.meta["last_step"] = state.step
             batches.close()
+            if own_auditor:
+                auditor.close()
             if created_source and hasattr(source, "close"):
                 source.close()
     summary = meter.steady_state()
@@ -213,10 +224,10 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
 
 
 def _one_step(config, trainer, state, batch, i: int, first: bool, meter,
-              led, tracer, m, step_callback, verbose):
+              led, tracer, m, step_callback, verbose, auditor=None):
     """Step ``i + 1`` of :func:`run_training`: the step and its readback,
-    its telemetry (``m``: the registry series), the in-loop eval when due,
-    then the callback. Returns the state."""
+    the auditor, its telemetry (``m``: the registry series), the in-loop
+    eval when due, then the callback. Returns the state."""
     # The first step builds the kernels: "compile", so it poisons neither
     # goodput nor the step-time baseline.
     with ttrace.step_annotation(i + 1), \
@@ -224,7 +235,14 @@ def _one_step(config, trainer, state, batch, i: int, first: bool, meter,
             tracer.span("train/step", annotate_device=False), \
             led.phase("compile" if first else "step"):
         state, metrics = trainer.step(state, batch)
+        # The numerics stay on the card: the auditor fetches them at its
+        # cadence, in its own phase, never in the per-step readback.
+        num_tree = metrics.pop("numerics", None)
         metrics = {k: float(v) for k, v in metrics.items()}
+    if auditor is not None:
+        auditor.on_step(i + 1, num_tree, metrics, state=state, batch=batch,
+                        final=i + 1 == config.train.num_steps)
+    del num_tree
     stats = meter.record(i + 1, metrics)
     flight.record({"event": "train_step", "step": i + 1,
                    "step_time_s": round(stats.step_time_s, 5),

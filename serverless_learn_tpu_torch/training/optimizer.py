@@ -19,7 +19,11 @@ What is kept from optax, step for step:
   uses lr 0, as optax's does;
 * ``linear_schedule`` and ``warmup_cosine_decay_schedule`` in f32.
 
-Updates are in place: the reference's optax chain returns new trees.
+Updates are in place: the reference's optax chain returns new trees. A
+``stats`` object given to :meth:`Optimizer.update` (the train step's
+``telemetry.numerics.StepNumerics``) sees each parameter's update, the
+signed, lr-scaled tensor optax would return, as ``stats.update(i, u,
+scale)`` where the optimizer forms it (``scale * u``; no copy is kept).
 
 :meth:`Optimizer.state_tree` describes, as data, the nesting that flax's
 ``to_state_dict`` gives the optax state of the same chain, so checkpoints
@@ -167,6 +171,14 @@ def _add_scaled(t: torch.Tensor, c: float, x: torch.Tensor,
     return t.add_(x * c if y is None else (x * y).mul_(c))
 
 
+class _NoStats:
+    def update(self, i, u, scale):
+        pass
+
+
+_NO_STATS = _NoStats()
+
+
 class Optimizer:
     """The reference's ``make_optimizer`` chain: optional global-norm clip,
     then the core optimizer, then ``-lr``. :meth:`init` makes the state,
@@ -227,9 +239,12 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: Dict, norm: Optional[torch.Tensor] = None) -> None:
+               state: Dict, norm: Optional[torch.Tensor] = None,
+               stats=None) -> None:
         """One step. ``grads`` are clipped in place; ``norm`` is their
-        global norm if the caller has it."""
+        global norm if the caller has it; ``stats`` sees the updates (the
+        module docstring)."""
+        stats = stats or _NO_STATS
         cfg = self.cfg
         if cfg.grad_clip_norm > 0:
             if any(g.dtype != torch.float32 for g in grads):
@@ -259,23 +274,25 @@ class Optimizer:
                 if "trace" in state:
                     g = state["trace"][i].mul_(_consts(
                         p.dtype, cfg.momentum)[0]).add_(g)
+                stats.update(i, g, nlr)
                 _add_scaled(p, nlr, g)
             return
         if cfg.name == "adafactor":
-            self._adafactor(params, grads, state, count, lr)
+            self._adafactor(params, grads, state, count, lr, stats)
             return
         if cfg.name == "lion":
-            self._lion(params, grads, state, lr)
+            self._lion(params, grads, state, lr, stats)
             return
         if cfg.name == "rmsprop":
-            self._rmsprop(params, grads, state, lr)
+            self._rmsprop(params, grads, state, lr, stats)
             return
         # optax's bias corrections, 1 - b^count, in f32
         n = np.float32(state["count"])
         bc1 = np.float32(1) - np.float32(cfg.b1) ** n
         bc2 = np.float32(1) - np.float32(cfg.b2) ** n
         decay = cfg.weight_decay if cfg.name == "adamw" else 0.0
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+        for i, (p, g, mu, nu) in enumerate(zip(params, grads, state["mu"],
+                                               state["nu"])):
             b1, c1, b2, c2, r1, r2, eps, wd, nlr = _consts(
                 p.dtype, cfg.b1, 1.0 - cfg.b1, cfg.b2, 1.0 - cfg.b2,
                 float(bc1), float(bc2), EPS, decay, -lr)
@@ -284,6 +301,7 @@ class Optimizer:
             u = (mu / r1).div_((nu / r2).sqrt_().add_(eps))
             if decay and self._decays(p):
                 _add_scaled(u, wd, p)
+            stats.update(i, u, nlr)
             _add_scaled(p, nlr, u)
 
     def _decays(self, p: torch.Tensor) -> bool:
@@ -292,7 +310,8 @@ class Optimizer:
         mask)."""
         return p.ndim >= 2 or not self.cfg.decay_exclude_1d
 
-    def _adafactor(self, params, grads, state, count: int, lr: float):
+    def _adafactor(self, params, grads, state, count: int, lr: float,
+                   stats):
         """optax.adafactor at its defaults: ``scale_by_factored_rms``
         (decay rate ``1 - (count + 1)^-0.8`` in f32, epsilon 1e-30 added to
         g^2, a parameter's second moment factored into row and column means
@@ -327,13 +346,14 @@ class Optimizer:
             u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP, min=1.0)
             u = u * lr_
             u = u * _safe_rms(pv, floor)
+            stats.update(i, u, -1.0)
             p.sub_(u.view(p.shape))
 
-    def _lion(self, params, grads, state, lr: float):
+    def _lion(self, params, grads, state, lr: float, stats):
         """optax.lion: ``sign((1 - b1) g + b1 mu)``, then ``mu = (1 - b2) g
         + b2 mu``; decayed weights added (under the 1-D mask), then -lr."""
         cfg = self.cfg
-        for p, g, mu in zip(params, grads, state["mu"]):
+        for i, (p, g, mu) in enumerate(zip(params, grads, state["mu"])):
             c1, b1, c2, b2, wd, nlr = _consts(
                 p.dtype, 1.0 - cfg.b1, cfg.b1, 1.0 - cfg.b2, cfg.b2,
                 cfg.weight_decay, -lr)
@@ -341,16 +361,18 @@ class Optimizer:
             _add_scaled(mu.mul_(b2), c2, g)
             if self._decays(p):
                 _add_scaled(u, wd, p)
+            stats.update(i, u, nlr)
             _add_scaled(p, nlr, u)
 
-    def _rmsprop(self, params, grads, state, lr: float):
+    def _rmsprop(self, params, grads, state, lr: float, stats):
         """optax.rmsprop at its defaults (decay 0.9, eps 1e-8 inside the
         root, no centering, no bias correction): ``nu = 0.1 g^2 + 0.9 nu``,
         ``u = g / sqrt(nu + eps)``, -lr, then with ``momentum`` optax's
         ``trace`` of the scaled updates (``t = u + momentum t``)."""
         cfg = self.cfg
         traces = state.get("trace", [None] * len(params))
-        for p, g, nu, t in zip(params, grads, state["nu"], traces):
+        for i, (p, g, nu, t) in enumerate(zip(params, grads, state["nu"],
+                                              traces)):
             c, d, eps, nlr, m = _consts(
                 p.dtype, 1.0 - RMSPROP_DECAY, RMSPROP_DECAY, RMSPROP_EPS,
                 -lr, cfg.momentum or 0.0)
@@ -358,6 +380,7 @@ class Optimizer:
             u = torch.rsqrt(nu + eps).mul_(g).mul_(nlr)
             if t is not None:
                 u = t.mul_(m).add_(u)
+            stats.update(i, u, 1.0)
             p.add_(u)
 
     def state_tree(self, state: Dict, nest: Callable[..., dict]) -> Seq:

@@ -18,6 +18,15 @@ dtype (``mu_dtype=None``). Metrics are those of the reference:
 at the state's step) and ``grad_norm`` (the global norm of the averaged
 gradients, before clipping), returned as 0-dim tensors on the device so
 the step itself never waits for the card.
+
+With ``numerics.enabled`` the step also returns ``metrics["numerics"]``,
+the reference's in-step statistics (``telemetry.numerics.StepNumerics``:
+the gradients before the clipping, each update where the optimizer forms
+it, the updated parameters, all read on the card), and
+``numerics.inject_nan_step`` poisons the named subtree's gradients with NaN
+at that step, after the backward and before the global norm and the
+clipping, where the reference's step does (``training/audit.inject_nan``).
+Neither changes what the step computes otherwise.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from serverless_learn_tpu_torch.models.registry import (ModelBundle, get_model,
                                                         resolve_device)
 from serverless_learn_tpu_torch.models.transformer import (Transformer,
                                                            init_params)
+from serverless_learn_tpu_torch.telemetry.numerics import StepNumerics
+from serverless_learn_tpu_torch.training.audit import inject_nan
 from serverless_learn_tpu_torch.training.optimizer import (
     Optimizer, global_norm, lr_at, make_optimizer)
 from serverless_learn_tpu_torch.training.partition import set_trainable
@@ -111,17 +122,48 @@ class Trainer:
         else:
             loss, metrics = self._accumulate(model, params, batch, accum)
         grads = [p.grad for p in params]
+        ncfg = self.config.numerics
+        if ncfg.inject_nan_step:
+            inject_nan(self._named_grads(model), state.step + 1,
+                       ncfg.inject_nan_step, ncfg.inject_nan_subtree,
+                       ncfg.depth)
         norm = global_norm(grads)
         lr = lr_at(self.optimizer.schedule, state.step)
-        self.optimizer.update(params, grads, state.opt_state, norm=norm)
+        stats = self._step_numerics(model) if ncfg.enabled else None
+        if stats is not None:
+            stats.grads(grads)
+        self.optimizer.update(params, grads, state.opt_state, norm=norm,
+                              stats=stats)
         for p in params:
             p.grad = None
         if "perplexity" in metrics:
             # exp of the averaged loss, not an average of exps.
             metrics["perplexity"] = torch.exp(loss)
         metrics.update(loss=loss, lr=torch.tensor(lr), grad_norm=norm)
+        if stats is not None:
+            metrics["numerics"] = stats.summary(loss, norm, params)
         state.step += 1
         return state, metrics
+
+    @staticmethod
+    def _named_grads(model) -> Dict[str, torch.Tensor]:
+        return {n: p.grad for n, p in model.named_parameters()
+                if p.requires_grad}
+
+    def _step_numerics(self, model) -> StepNumerics:
+        """The step's numerics over ``model``'s trainable parameters, kept
+        while the trained set stays the same."""
+        named = [(n, p.numel()) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        cached = getattr(self, "_numerics", None)
+        if cached is None or cached[0] != named:
+            ncfg = self.config.numerics
+            cached = (named, StepNumerics(
+                [n for n, _ in named], [k for _, k in named],
+                depth=max(1, ncfg.depth), chunks=ncfg.chunks,
+                with_fingerprint=ncfg.fingerprint))
+            self._numerics = cached
+        return cached[1]
 
     def _accumulate(self, model, params, batch, accum: int):
         """Backward over ``accum`` microbatches (consecutive row blocks),
