@@ -175,7 +175,16 @@ any failing phase exits non-zero:
     transition's save, re-form and restore, and the shard server's bytes.
     The worker runs with ``--numerics``: each formation's
     ``remesh_restore`` fingerprint must equal the ``remesh_save``
-    fingerprint of the state its restore read;
+    fingerprint of the state its restore read. It also runs with a
+    worker-local checkpoint cache (``--ckpt-cache-dir``; on the disk under
+    ``--elastic-only``, in tmpfs in the full run, whose earlier phases
+    have used the run's disk writes; the filesystem is printed) and a
+    peer, a CPU-only ``serve_cache`` process each commit is pushed to
+    (``--ckpt-peers``, fanout 1): both transitions must restore from the
+    cache. The peer drill: the worker's cache is deleted and the shard
+    server's copy of its last step corrupted; a restarted worker must
+    restore that step from the peer (the primary's copy failing its CRC),
+    its fingerprint equal to the save's, and train 2 more steps;
 14. the numerics layer: (a) every kernel (K1-K6 and the stats kernels)
     and its plain version fed the same small bf16 and f32 inputs carrying
     NaN and +-inf (K1-K3: a NaN in q, k and v, an inf in q, a NaN in dO;
@@ -196,10 +205,27 @@ any failing phase exits non-zero:
     critical ``numerics.nonfinite`` on /alerts, /healthz at 503,
     ``/numerics`` serving JSON, a flight dump naming ``layer_5``, and the
     provenance sweep's forward through K1;
-15. prints one JSON line of kernels (with each kernel's launches on phase
-    10's path, K6's on phase 11's, K1-K3's on phase 13's worker and the
-    stats kernels' on phase 14b), then the card's name and power limit,
-    then the result line ``{"ok": true, "device": {...}}``.
+15. the MoE family: (a) K6 at Mixtral-8x7B's projection shapes (q/o,
+    k/v, each expert's gate/up [4096, 14336] and down [14336, 4096],
+    lm_head [4096, 32000]) at 1, 2, 8, 16, 128 and 512 rows against its
+    plain version, and one full-width int8 MoE layer with expert 7 routed
+    no row, in the gathered and the dense form, against the same layer
+    through K6's plain version (3 launches a routed expert, none for the
+    unrouted one); K6 timed over a Mixtral decode forward and a 512-row
+    prefill forward; (b) full-depth ``moe_mixtral_8x7b`` int8 (46.6 GB)
+    served through ``GenerationServer``'s defaults over the wire: greedy
+    replies held to ``generate``'s, 897 K6 launches an eager decode
+    forward and in each captured decode graph, a 512-row prefill's
+    launches, ms a token, new tokens/s, peak memory and a profiled
+    replayed step; (c) one static-engine round; (d) ``train --model
+    moe_mixtral_8x7b`` at full width and 2 of 32 layers, B = 1, T =
+    4,096, 3 adamw steps: losses and aux losses finite, K1-K3 2 launches
+    a step each;
+16. prints one JSON line of kernels (with each kernel's launches on phase
+    10's path, K6's on phase 11's and on phase 15's serving, K1-K3's on
+    phase 13's worker and phase 15d, and the stats kernels' on phase
+    14b), then the card's name and power limit, then the result line
+    ``{"ok": true, "device": {...}}``.
 
 Every profiler session (phases 8b, 8f, 9b, 9c, 11e) goes through the
 port's shared profiler lock (``telemetry/profiler.py``).
@@ -237,8 +263,13 @@ included, between commits.
 
     python3 chip_smoke.py --elastic-only
 
-builds the flash kernels and runs only phase 13 (the cluster), with no
-result line.
+builds the flash kernels and runs only phase 13 (the cluster), its
+worker's checkpoint cache on the disk, with no result line.
+
+    python3 chip_smoke.py --moe-only
+
+builds the int8 matmul and flash kernels and runs only phase 15 (the MoE
+family), with no result line.
 
     python3 chip_smoke.py --numerics-only
 
@@ -522,7 +553,7 @@ def check_dx(torch, qm, card):
     return worst
 
 
-def time_kernel(torch, qm, card, R=DECODE_ROWS):
+def time_kernel(torch, qm, card, R=DECODE_ROWS, shapes=None, label=None):
     """Phase 4: the llama_8b projections at R rows (a decode forward at 8,
     a prefill at 512, QLoRA's training forward at 4,096); weights cycled
     over copies worth >= 256 MB so each launch reads them from device
@@ -531,15 +562,20 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
     the host's), and replayed from a CUDA graph (``graph_ms``: device time
     alone); the plain version and the two library forms, slower by far,
     run eagerly. At QLoRA's rows a launch takes milliseconds, so the host's
-    time does not show: no graph, fewer runs, and of the library forms only
-    convert-then-matmul (``torch._weight_int8pack_mm`` would take minutes
-    there)."""
+    time does not show: no graph, fewer runs, and ``torch.
+    _weight_int8pack_mm`` timed once a shape (one call after one at 8 rows:
+    tens of seconds a forward). ``shapes``: {(I, O): (sites, launches a
+    forward[, rows])} in place of llama_8b's (phase 15a: Mixtral's, each
+    expert of a prefill at its share of the rows); ``label`` names the
+    forward's line."""
     g = torch.Generator(device="cuda").manual_seed(1)
     qlora = R == QLORA_ROWS
     rows = []
-    for (I, O), (sites, per_fwd) in LLAMA8B_SHAPES.items():
+    for (I, O), spec in (shapes or LLAMA8B_SHAPES).items():
+        sites, per_fwd = spec[:2]
+        Rs = spec[2] if len(spec) > 2 else R
         n = max(2, math.ceil(256e6 / (I * O)))
-        x = torch.randn(R, I, generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn(Rs, I, generator=g, device="cuda").to(torch.bfloat16)
         wqs = [torch.randint(-127, 128, (I, O), generator=g, device="cuda",
                              dtype=torch.int8) for _ in range(n)]
         scale = torch.rand(O, generator=g, device="cuda") * 4e-4
@@ -557,19 +593,21 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
                        * scale, iters if qlora else 10, warmup=1,
                        reps=reps if qlora else 1)
         lib, lib_error = None, None
-        if qlora:
-            lib_error = "not timed at QLoRA's rows"
-        else:
-            try:
-                wts = [w.t().contiguous() for w in wqs]
-                s16 = scale.to(torch.bfloat16)
+        try:
+            wts = [w.t().contiguous() for w in wqs[:1 if qlora else n]]
+            s16 = scale.to(torch.bfloat16)
+            if qlora:
+                torch._weight_int8pack_mm(x[:8], wts[0], s16)
+                lib = time_ms(torch, lambda i: torch._weight_int8pack_mm(
+                    x, wts[0], s16), 1, warmup=0)
+            else:
                 lib = time_ms(torch, lambda i: torch._weight_int8pack_mm(
                     x, wts[i % n], s16), iters)
-                del wts
-            except (RuntimeError, NotImplementedError, AttributeError) as e:
-                lib_error = f"{type(e).__name__}: {str(e)[:120]}"
-        b, by = bound(R, I, O)
-        rows.append(dict(I=I, O=O, R=R, sites=sites, per_forward=per_fwd,
+            del wts
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            lib_error = f"{type(e).__name__}: {str(e)[:120]}"
+        b, by = bound(Rs, I, O)
+        rows.append(dict(I=I, O=O, R=Rs, sites=sites, per_forward=per_fwd,
                          ms=ms, graph_ms=graph_ms,
                          plain_ms=plain, library_ms=lib,
                          convert_matmul_ms=conv, bound_ms=b, bound_by=by,
@@ -586,11 +624,13 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS):
                convert_matmul_ms=total("convert_matmul_ms"),
                bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                          else "operations"))
-    emit("time_per_qlora_forward" if qlora else "time_per_decode_forward"
-         if R == DECODE_ROWS else "time_per_prefill_forward", card=card,
+    name = ("time_per_qlora_forward" if qlora else "time_per_decode_forward"
+            if R == DECODE_ROWS else "time_per_prefill_forward")
+    emit(f"{name}_{label}" if label else name, card=card,
          rows=R, launches=sum(r["per_forward"] for r in rows), **fwd,
          fraction_of_bound=fwd["bound_ms"] / fwd["ms"],
-         library_call="torch._weight_int8pack_mm (bf16 scales, one call)",
+         library_call="torch._weight_int8pack_mm (bf16 scales, one call"
+                      + (", timed once a shape" if qlora else "") + ")",
          convert_matmul="x @ wq.to(bf16) then * scale: three calls, the "
                         "reference package's default form")
     return fwd
@@ -3444,10 +3484,20 @@ ELASTIC_JOIN_AT = 3       # the worker's step line after which a member joins
 ELASTIC_CRASH_AFTER = 4   # step lines on the (r, 2) stripe before its SIGKILL
 ELASTIC_TEXT_ROWS = 24    # byte-level rows of 4,096 in the text dataset
 ELASTIC_WAIT_S = 600      # the longest any line or exit is waited for
-# Host memory the phase needs: the shard server's root in tmpfs (at most
-# two 7.8 GB checkpoints with checkpoint.keep=1) and the worker's emergency
-# shadow and save buffer.
-ELASTIC_HOST_BYTES = 40e9
+# Host memory the phase needs: the shard server's root and the peer cache
+# in tmpfs (at most two 7.8 GB checkpoints each with checkpoint.keep=1) and
+# the worker's emergency shadow and save buffers.
+ELASTIC_HOST_BYTES = 60e9
+# The worker's checkpoint cache (--ckpt-cache-dir) takes ~24 GB of writes:
+# on the disk under --elastic-only, in tmpfs in the full run, where phases
+# 10 to 12a have already written ~44 GB to the disk and the card's machine
+# allows 45 GiB a run, deleted files included (``elastic_cluster`` prints
+# the filesystem).
+# The peer drill: after the worker's last save, its cache is deleted and
+# the shard server's copy of that step corrupted; a restarted worker
+# restores from the peer cache (a CPU-only serve_cache process that every
+# commit was pushed to) and trains ELASTIC_DRILL_STEPS more steps.
+ELASTIC_DRILL_STEPS = 2
 # The joining member: a process that only holds a lease.
 JOINER = """
 import signal, sys
@@ -3464,10 +3514,11 @@ class Child:
     so neither a silent child nor a full pipe blocks the phase; every wait
     has a timeout."""
 
-    def __init__(self, argv, cwd):
+    def __init__(self, argv, cwd, env=None):
         self.argv = argv
         self.proc = subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
+                                     stderr=subprocess.PIPE, text=True,
+                                     env=env)
         self.lines = {"out": [], "err": []}
         self._cv = threading.Condition()
         self._readers = [threading.Thread(target=self._read, args=(k, s),
@@ -3612,7 +3663,39 @@ def text_corpus(path, rows, seed=0):
         f.write("\n\n".join(docs))
 
 
-def elastic_cluster(torch, card):
+def fs_type(path):
+    """The type of the filesystem that holds ``path``, from /proc/mounts
+    (the longest mount point above it)."""
+    import os
+
+    path = os.path.realpath(path)
+    best, kind = "", None
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1].replace("\\040", " ")
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return {"mount": best, "type": kind}
+
+
+def flip_middle_byte(path):
+    """Corrupt a file in place: its middle byte inverted."""
+    import os
+
+    off = os.path.getsize(path) // 2
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return off
+
+
+def elastic_cluster(torch, card, cache_on_disk=False):
     """Phase 13: the reference's cluster demo on the card, through the
     CLI: the port's ``coordinator`` (lease 2 s, sweep 100 ms) and
     ``shard-server`` as child processes, ``publish`` of a synthetic
@@ -3641,8 +3724,22 @@ def elastic_cluster(torch, card):
     run on the text dataset, which must exit non-zero with the source's
     error. Prints the worker's tokens/s and step time beside phase 8b's,
     the ``data_wait`` share of goodput, each transition's save, re-form
-    and restore (s, GB, GB/s), the shard server's bytes served and the
-    peak memory. Returns the worker's kernel launches."""
+    and restore (s, GB, GB/s, the restore's source), the shard server's
+    bytes served and the peak memory. Returns the worker's kernel
+    launches.
+
+    Checkpoint replicas: the worker runs with ``--ckpt-cache-dir`` (on the
+    disk with ``cache_on_disk``, else in tmpfs; the filesystem's type from
+    /proc/mounts is printed) and ``--ckpt-peers`` naming a CPU-only
+    ``serve_cache`` process (``training/replicate.py``) with fanout 1;
+    both transitions must restore from ``cache``. The peer drill, before
+    the shard server is killed: the worker's cache is deleted and the
+    shard server's copy of the final step corrupted (a byte of its data
+    file inverted); a restarted worker of the same name must restore that
+    step from ``peer:<addr>`` after the primary's copy fails its CRC (a
+    ``ckpt_corrupt`` event naming ``primary``), its ``remesh_restore``
+    fingerprint equal to the first worker's ``remesh_save`` one, and train
+    ELASTIC_DRILL_STEPS more steps."""
     import os
     import shutil
     import signal
@@ -3659,11 +3756,11 @@ def elastic_cluster(torch, card):
     root, where = elastic_root()
     logs = {k: os.path.join(root, f"{k}.jsonl")
             for k in ("coordinator", "shard_server", "worker")}
-    children = []
+    children, cache = [], None
     t_phase = time.perf_counter()
 
-    def start(argv):
-        children.append(Child(argv, here))
+    def start(argv, env=None):
+        children.append(Child(argv, here, env=env))
         return children[-1]
 
     def addr_of(c, what):
@@ -3686,8 +3783,21 @@ def elastic_cluster(torch, card):
         ss = start(py + ["shard-server", "--port", "0", "--host",
                          "127.0.0.1", "--root", os.path.join(root, "store"),
                          "--events-log", logs["shard_server"]])
+        # The peer: a worker's cache served to the others, on the CPU.
+        peer = start([sys.executable, "-m",
+                      "serverless_learn_tpu_torch.training.replicate",
+                      "--root", os.path.join(root, "peer")],
+                     env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        cache = (checkpoint_dir(free_bytes=ELASTIC_HOST_BYTES,
+                                prefix="slt-phase13-cache-")
+                 if cache_on_disk else os.path.join(root, "cache"))
+        cache_fs = fs_type(os.path.dirname(cache) if not
+                           os.path.exists(cache) else cache)
         co_addr = addr_of(co, "the coordinator's address")
         ss_addr = addr_of(ss, "the shard server's address")
+        peer_addr = addr_of(peer, "the peer cache's address")
+        replicas = ["--ckpt-cache-dir", cache, "--ckpt-peers", peer_addr,
+                    "--set", "checkpoint.replica_fanout=1"]
         pub = run_cli(["publish", "--shard-server", ss_addr, "--dataset",
                        "ds", "--format", "synthetic", "--model", ELASTIC_MODEL,
                        "--seq-len", str(TRAIN_T), "--num-records",
@@ -3710,7 +3820,7 @@ def elastic_cluster(torch, card):
             f"control.heartbeat_interval_ms={ELASTIC_HEARTBEAT_MS}",
             "--set", "checkpoint.keep=1", "--metrics-port", "0", "--health",
             "--numerics", "--events-log", logs["worker"], "--flight-dir",
-            os.path.join(root, "flight")])
+            os.path.join(root, "flight"), *replicas])
         up = worker.wait_for(
             lambda r: any(x.get("event") == "metrics" for x in r),
             "the worker's metrics line", key="out", timeout=300)
@@ -3769,6 +3879,34 @@ def elastic_cluster(torch, card):
         finally:
             client.close()
 
+        # The peer drill: the worker's cache gone, the primary's copy of
+        # its last step corrupt; a restarted worker restores from the peer.
+        shutil.rmtree(cache)
+        flipped = flip_middle_byte(os.path.join(
+            root, "store", "phase13", f"step-{ELASTIC_STEPS:010d}",
+            "proc-00000.dat"))
+        logs["drill"] = os.path.join(root, "drill.jsonl")
+        t_drill = time.perf_counter()
+        drill = start(py + [
+            "worker", *ELASTIC_ARGS, "--coordinator", co_addr,
+            "--shard-server", ss_addr, "--dataset", "ds", "--steps",
+            str(ELASTIC_STEPS + ELASTIC_DRILL_STEPS), "--name", "phase13",
+            "--verbose", "--set", "train.log_every=1", "--set",
+            f"control.heartbeat_interval_ms={ELASTIC_HEARTBEAT_MS}",
+            "--set", "checkpoint.keep=1", "--numerics", "--events-log",
+            logs["drill"], *replicas,
+            # The peer stays a restore source; the drill pushes nothing
+            # more to it (its exit would wait ~25 s for a 7.8 GB push).
+            "--set", "checkpoint.replica_fanout=0"])
+        drill_rc = drill.wait()
+        drill_s = time.perf_counter() - t_drill
+        drill_recs = drill.records("err")
+        drill_done = [x for x in drill.records("out")
+                      if x.get("event") == "worker_done"]
+        if drill_rc != 0 or not drill_done:
+            fail(f"phase 13: the restarted worker exited {drill_rc}: "
+                 f"{''.join(drill.lines['err'][-15:])[-3000:]}")
+
         # Last: the shard server killed under a train run on the text
         # dataset. The run must fail with the source's error.
         trainer = start(py + ["train", *ELASTIC_ARGS, "--shard-server",
@@ -3790,6 +3928,8 @@ def elastic_cluster(torch, card):
         for c in children:
             c.stop()
         shutil.rmtree(root, ignore_errors=True)
+        if cache_on_disk and cache:
+            shutil.rmtree(cache, ignore_errors=True)
 
     faults = []
     fm = formed(recs)
@@ -3824,9 +3964,47 @@ def elastic_cluster(torch, card):
             faults.append(f"epoch {r['epoch']}: {len(got)} remesh_restore "
                           f"fingerprints at step {r['restored_step']}, "
                           f"equal to the saved one: {same}")
+    # Replicas: each transition read the worker's cache; the drill's
+    # restore read the peer after the primary's copy failed its CRC, and
+    # gave the saved state's fingerprint.
+    sources = [r.get("restore_source") for r in rem[1:]]
+    if sources != ["cache"] * len(rem[1:]):
+        faults.append(f"transition restore sources {sources}")
+    drem = [x for x in drill_recs if x.get("event") == "remesh"]
+    dev = events.get("drill", [])
+    corrupt = [(x.get("step"), x.get("source")) for x in dev
+               if x.get("event") == "ckpt_corrupt"]
+    drill_fp = [x["fp"] for x in dev
+                if x.get("event") == "numerics_fingerprint"
+                and x.get("reason") == "remesh_restore"
+                and x.get("step") == ELASTIC_STEPS]
+    first = drem[0] if drem else {}
+    drill = {
+        "restored_step": first.get("restored_step"),
+        "restore_source": first.get("restore_source"),
+        "restore_s": first.get("restore_s"),
+        "restore_gb": (first.get("restore_bytes") or 0) / 1e9,
+        "restore_gbps": gbps(first.get("restore_bytes") or 0,
+                             first.get("restore_s")),
+        "corrupt_events": corrupt, "flipped_offset": flipped,
+        "fingerprint_equals_saved": (len(drill_fp) == 1 and drill_fp[0]
+                                     == saved_fp.get(ELASTIC_STEPS)),
+        "steps": drill_done[-1].get("steps"), "seconds": drill_s}
+    if (drill["restored_step"] != ELASTIC_STEPS
+            or not str(drill["restore_source"]).startswith("peer:")
+            or first.get("restore_bytes") != rem[-1]["save_bytes"]
+            or corrupt != [(ELASTIC_STEPS, "primary")]
+            or not drill["fingerprint_equals_saved"]
+            or drill["steps"] != ELASTIC_DRILL_STEPS):
+        faults.append(f"the peer drill: {drill}")
     metric = lambda name: max(  # noqa: E731
         (prom_value(s["/metrics"][1], name) or 0 for s in scrapes
          if s.get("/metrics") and s["/metrics"][1]), default=None)
+    pushes = metric("slt_ckpt_replica_pushes_total")
+    push_failures = metric("slt_ckpt_replica_push_failures_total")
+    if not pushes or push_failures:
+        faults.append(f"peer pushes {pushes}, failed or dropped "
+                      f"{push_failures}")
     remesh_total = metric("slt_remesh_total")
     verified = metric("slt_ckpt_verified_restores_total")
     lease_expiries = metric("slt_lease_expiries_total")
@@ -3887,6 +4065,7 @@ def elastic_cluster(torch, card):
         "save_gbps": gbps(r["save_bytes"], r["save_s"]),
         "reform_s": r["reform_s"], "restore_s": r["restore_s"],
         "restore_store_s": r["restore_io_s"],
+        "restore_source": r.get("restore_source"),
         "restore_gb": gb(r["restore_bytes"]),
         "restore_gbps": gbps(r["restore_bytes"], r["restore_s"]),
         "transition_s": sum(r[k] or 0 for k in ("save_s", "reform_s",
@@ -3918,7 +4097,9 @@ def elastic_cluster(torch, card):
          scrapes=len(scrapes), alerts_paged=len(pages),
          alerts_fired=fired, healthz=health,
          kernel_launches=kl, worker_s=worker_s,
-         remesh_fingerprints=fp_checks,
+         remesh_fingerprints=fp_checks, cache_filesystem=cache_fs,
+         replica_pushes=pushes, replica_push_failures=push_failures,
+         peer_drill=drill,
          killed_shard_server_run={"exit": train_rc, "steps": train_steps,
                                   "seconds_to_exit": killed_run_s,
                                   "last_lines": train_tail},
@@ -4386,7 +4567,7 @@ def qlora_block_grads(torch, card, model, batch, split_reference):
 
     def grads():
         x = x0.detach().clone().requires_grad_()
-        block(x, sin, cos).backward(dy)
+        block(x, sin, cos)[0].backward(dy)  # (x, no MoE aux)
         out = ([x.grad.float() - dy.float()]
                + [p.grad.detach().float() for p in lora])
         for p in lora:
@@ -5232,6 +5413,769 @@ def time_stats(torch, card):
     return rows_out
 
 
+# -------------------------------------------------------------- MoE (15) --
+
+# Mixtral-8x7B in int8 (46.6 B weights, 46.6 GB): (I, O) -> (sites, K6
+# launches a decode forward). Each layer runs its 4 attention projections
+# and, in the decode (dense) form, each of its 8 experts' gate, up and down
+# over every row: 32 * (4 + 8 * 3) + 1 = 897 launches a forward.
+MIXTRAL = "moe_mixtral_8x7b"
+MIXTRAL_SHAPES = {
+    (4096, 4096): ("q_proj, o_proj", 64),
+    (4096, 1024): ("k_proj, v_proj", 64),
+    (4096, 14336): ("expert gate, up", 512),
+    (14336, 4096): ("expert down", 256),
+    (4096, 32000): ("lm_head", 1),
+}
+MIXTRAL_K6_PER_FWD = 897
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+# Phase 15a's rows: decode buckets, K6's decode/prefill edge, an expert's
+# share of a 512-row prefill (512 * 2 / 8) and the prefill itself.
+MOE_CHECK_ROWS = (1, 2, 8, 16, 128, 512)
+MOE_PREFILL_ROWS = 512
+MOE_EXPERT_PREFILL_ROWS = MOE_PREFILL_ROWS * MOE_TOP_K // MOE_EXPERTS
+# A 512-row prefill forward: attention and lm_head at 512 rows, each expert
+# at its uniform share, 128 (the gathered form).
+MIXTRAL_PREFILL_SHAPES = {
+    (4096, 4096): ("q_proj, o_proj", 64, MOE_PREFILL_ROWS),
+    (4096, 1024): ("k_proj, v_proj", 64, MOE_PREFILL_ROWS),
+    (4096, 14336): ("expert gate, up", 512, MOE_EXPERT_PREFILL_ROWS),
+    (14336, 4096): ("expert down", 256, MOE_EXPERT_PREFILL_ROWS),
+    (4096, 32000): ("lm_head", 1, MOE_PREFILL_ROWS),
+}
+# An MoE layer's output against the same layer with K6's plain version,
+# per element: each expert product rounds to bf16 after f32 sums in
+# another order (2^-8 of a value), three products a SwiGLU expert and two
+# experts a token, so 2^-6 of |y| plus 1 % of the largest |y| for the
+# errors carried through the down projection's 14,336-term sums.
+MOE_LAYER_LIMIT = (2 ** -6, 1e-2)
+# Phase 15a times the two inference forms of one layer at these rows.
+MOE_FORM_ROWS = (8, 16, 32, 64, 128, 192, 256, 384, 512)
+MOE_NEW = 32         # new tokens of each greedy request in phase 15b
+MOE_ROUND = 128      # new tokens a request in phase 15b's decode round
+# Phase 15b's limit, in logits, on how far two paths' teacher-forced logits
+# may part, and a greedy reply's chosen logit may lie below the static
+# path's largest, where routing cannot flip (TokenRouting). Measured on
+# an H100: the paths part by up to 1.36 so, and the engine's chosen
+# tokens lie up to 0.66 below (llama_8b's dense paths: 0.76, phase 9c);
+# as the model routes they part by 11.7, and the logits reach 10.6.
+MOE_FORCED_LIMIT = 2.0
+# Phase 15d: Mixtral at full width, 2 of 32 layers, B = 1, T = 4,096, bf16
+# compute over f32 parameters, adamw; 3 steps.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+MOE_TRAIN_ARGS = ["train", "--model", MIXTRAL, "--set",
+                  f"model_overrides.n_layers={MOE_TRAIN_LAYERS}",
+                  "--batch-size", "1", "--seq-len", str(TRAIN_T),
+                  "--steps", str(MOE_TRAIN_STEPS), "--verbose", "--set",
+                  "train.log_every=1"]
+
+
+def fill_int8_moe(torch, layer, g):
+    """A Mixtral int8 MoE layer's weights from ``g``, as
+    ``random_quantized_params`` fills them."""
+    with torch.no_grad():
+        for name, t in layer.state_dict().items():
+            if t.dtype == torch.int8:
+                t.random_(-127, 128, generator=g)
+            elif name.endswith("_scale"):
+                t.fill_(2.5 * 0.02 / 127.0)
+            else:
+                t.normal_(0.0, 0.02, generator=g)
+
+
+class PlainQuantMatmul:
+    """``ops.moe``'s K6 entry replaced by K6's plain version."""
+
+    @staticmethod
+    def apply(x, wq, scale):
+        from serverless_learn_tpu_torch.ops.quant_matmul import (
+            quant_matmul_reference)
+
+        return quant_matmul_reference(x, wq, scale)
+
+
+def moe_form(torch, layer, x, form):
+    """The per-token MoE layer over the rows ``x [R, D]`` in the inference
+    form ``form`` ("dense" or "gathered"), f32 [R, D]."""
+    with torch.no_grad():
+        w, idx = layer._route(x)
+        return getattr(layer, "_" + form)(x, idx, w)
+
+
+def moe_layer_case(torch, qm, layer, x, form, per_expert):
+    """One MoE layer forward on the card (K6) against the same with K6's
+    plain version: (worst |err| / limit, K6 launches, experts with rows).
+    ``per_expert``: the launches a routed expert costs (3)."""
+    from serverless_learn_tpu_torch.ops import moe as moe_ops
+
+    with torch.no_grad():
+        top = (x.float() @ layer.router.float()).softmax(-1).topk(
+            MOE_TOP_K, dim=-1).indices
+        hit = int(torch.bincount(top.reshape(-1), minlength=MOE_EXPERTS)
+                  .gt(0).sum())
+    n0 = qm.quant_matmul.launches
+    got = moe_form(torch, layer, x, form)
+    launched = qm.quant_matmul.launches - n0
+    with Patched((moe_ops, "QuantMatmul", lambda real: PlainQuantMatmul)):
+        want = moe_form(torch, layer, x, form)
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    limit = MOE_LAYER_LIMIT[0] * ref + MOE_LAYER_LIMIT[1] * ref.max()
+    ratio = (err / limit.clamp_min(1e-30)).max().item()
+    if not bool(torch.isfinite(got.float()).all()) or not ratio <= 1:
+        fail(f"phase 15a: the {form} MoE layer at {x.shape[0]} rows "
+             f"disagrees with its plain version: worst error / limit "
+             f"{ratio:.3g}")
+    want_launches = (per_expert * MOE_EXPERTS if form == "dense"
+                     else per_expert * hit)
+    if launched != want_launches:
+        fail(f"phase 15a: the {form} MoE layer at {x.shape[0]} rows "
+             f"launched K6 {launched} times, not {want_launches}")
+    return ratio, launched, hit
+
+
+def moe_form_times(torch, layer, g, reps=5):
+    """{rows: {"dense": ms, "gathered": ms}}: the host's time of one call of
+    each inference form of ``layer`` over random rows, synchronised, the
+    median of ``reps`` after a warm-up call (the gathered form's one host
+    sync for its row counts included)."""
+    out = {}
+    for form in ("dense", "gathered"):  # the clocks up before the first
+        for _ in range(reps):
+            moe_form(torch, layer, torch.randn(
+                MOE_FORM_ROWS[0], layer.cfg.d_model, generator=g,
+                device="cuda").to(torch.bfloat16), form)
+    for R in MOE_FORM_ROWS:
+        x = torch.randn(R, layer.cfg.d_model, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        out[R] = {}
+        for form in ("dense", "gathered"):
+            times = []
+            for _ in range(reps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                moe_form(torch, layer, x, form)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[R][form] = statistics.median(times[1:])
+    return out
+
+
+def moe_kernel_check(torch, qm, card):
+    """Phase 15a: K6 against its plain version at each of Mixtral's
+    projection shapes at MOE_CHECK_ROWS rows (each case twice, bit for
+    bit); then one full-width int8 MoE layer with expert 7 routed no row,
+    on the card against the same layer through K6's plain version: the
+    gathered form at 16, 128 and 512 rows (3 launches for each routed
+    expert, none for expert 7) and the dense decode form at 1 and 8 rows
+    (3 for every expert); the two forms against each other at 16 rows;
+    the two forms' times at MOE_FORM_ROWS rows, beside the row count up
+    to which ``ops.moe`` takes the dense form (``DENSE_MAX_ROWS``). Then
+    times K6 over a Mixtral decode forward (8 rows) and a 512-row
+    prefill forward. Returns (max abs err, the two timings)."""
+    from serverless_learn_tpu_torch.models.registry import get_model_config
+    from serverless_learn_tpu_torch.ops import moe as moe_ops
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {}
+    for I, O in MIXTRAL_SHAPES:
+        wq = torch.randint(-127, 128, (I, O), generator=g, device="cuda",
+                           dtype=torch.int8)
+        scale = (torch.rand(O, generator=g, device="cuda") + 0.5) * 4e-4
+        for R in MOE_CHECK_ROWS:
+            check_case(torch, qm, g, R, wq, scale, torch.bfloat16, worst)
+        del wq
+    torch.cuda.empty_cache()
+    max_err = max(a for a, _, _ in worst.values())
+    cfg = get_model_config(MIXTRAL, quant="int8")
+    layer = moe_ops.MoELayer(cfg, device="cuda")
+    fill_int8_moe(torch, layer, g)
+    cases = []
+    for R, form in ((16, "gathered"), (128, "gathered"), (512, "gathered"),
+                    (1, "dense"), (8, "dense")):
+        # Rows whose top-2 leave out expert 7: the gathered form must skip
+        # it (K6 takes no zero-row launch) and still agree.
+        pool = torch.randn(8 * R, cfg.d_model, generator=g,
+                           device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            top = (pool.float() @ layer.router.float()).topk(
+                MOE_TOP_K, dim=-1).indices
+        x = pool[(top != MOE_EXPERTS - 1).all(-1)][:R].contiguous()
+        if x.shape[0] != R:
+            fail(f"phase 15a: {x.shape[0]} of {8 * R} rows leave out "
+                 "expert 7")
+        ratio, launched, hit = moe_layer_case(torch, qm, layer, x, form, 3)
+        if form == "gathered" and hit != MOE_EXPERTS - 1:
+            fail(f"phase 15a: {hit} experts routed at {R} rows, not "
+                 f"{MOE_EXPERTS - 1}")
+        cases.append(dict(rows=R, form=form, experts_routed=hit,
+                          k6_launches=launched, worst_err_over_limit=ratio))
+    x = torch.randn(16, cfg.d_model, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    dense = moe_form(torch, layer, x, "dense")
+    gathered = moe_form(torch, layer, x, "gathered")
+    d = (dense.float() - gathered.float()).abs()
+    forms_ratio = (d / (MOE_LAYER_LIMIT[0] * dense.float().abs()
+                        + MOE_LAYER_LIMIT[1] * dense.float().abs().max())
+                   ).max().item()
+    if not forms_ratio <= 1:
+        fail(f"phase 15a: the dense and gathered forms part by "
+             f"{forms_ratio:.3g} of the limit")
+    del dense, gathered
+    forms = moe_form_times(torch, layer, g)
+    del layer, x
+    torch.cuda.empty_cache()
+    emit("moe_forms", card=card, layer="one Mixtral-8x7B int8 MoE layer, "
+         "per-token routing, random rows", ms=forms,
+         dense_max_rows=moe_ops.DENSE_MAX_ROWS,
+         dense_no_slower_at=[R for R, t in forms.items()
+                             if t["dense"] <= t["gathered"]])
+    emit("moe_check", card=card, shapes=[list(k) for k in MIXTRAL_SHAPES],
+         rows=list(MOE_CHECK_ROWS), k6_max_abs_err=max_err,
+         k6_cases=sum(n for _, _, n in worst.values()),
+         layer_cases=cases, dense_vs_gathered_over_limit=forms_ratio,
+         tolerance=f"K6: phase 3's; a layer: |err| <= "
+                   f"{MOE_LAYER_LIMIT[0]:.4g} |ref| + "
+                   f"{MOE_LAYER_LIMIT[1]:.4g} max|ref|")
+    decode = time_kernel(torch, qm, card, R=DECODE_ROWS,
+                         shapes=MIXTRAL_SHAPES, label="mixtral_decode")
+    prefill = time_kernel(torch, qm, card, R=MOE_PREFILL_ROWS,
+                          shapes=MIXTRAL_PREFILL_SHAPES,
+                          label="mixtral_prefill")
+    return max_err, decode, prefill
+
+
+class TokenRouting:
+    """Within the block, every MoE layer of ``model`` routes each token by
+    its id and the layer's index alone, to experts ``a = (7 t + 3 l) mod E``
+    and ``(a + 1 + (5 t + l) mod (E - 1)) mod E``, with the router's own
+    probabilities of the two, renormalised, as gate weights. Rounding then
+    changes a gate weight by rounding, and never which experts a token
+    takes, so two paths' logits part by their arithmetic alone. A pre-hook
+    keeps the model's token tensor (a decode graph's captured one too),
+    row for row the MoE layer's rows. Top-2."""
+
+    def __init__(self, torch, model):
+        from serverless_learn_tpu_torch.ops.moe import MoELayer
+
+        self.torch, self.model = torch, model
+        self.layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+
+    def _route(self, i, layer):
+        torch = self.torch
+        E = layer.cfg.n_experts
+
+        def route(x2):
+            t = self.tokens.reshape(-1).to(torch.int64)
+            a = (7 * t + 3 * i) % E
+            idx = torch.stack([a, (a + 1 + (5 * t + i) % (E - 1)) % E], -1)
+            probs = torch.softmax(x2.to(torch.float32)
+                                  @ layer.router.to(torch.float32), dim=-1)
+            w = probs.gather(1, idx)
+            return w / w.sum(-1, keepdim=True), idx
+        return route
+
+    def _keep(self, mod, args, kwargs):
+        self.tokens = args[0] if args else kwargs["tokens"]
+
+    def __enter__(self):
+        self.hook = self.model.register_forward_pre_hook(self._keep,
+                                                         with_kwargs=True)
+        for i, layer in enumerate(self.layers):
+            layer._route = self._route(i, layer)
+        return self
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+        for layer in self.layers:
+            del layer._route
+
+
+def logit_parts(static, other) -> dict:
+    """How far ``other``'s teacher-forced logits [B, N, V] part from
+    ``static``'s: max, mean and the first step's max."""
+    d = (other - static).abs()
+    return dict(max=d.max().item(), mean=d.mean().item(),
+                first_step_max=d[:, 0].max().item())
+
+
+def routing_witness(torch, model, prompts, replies):
+    """Why phase 15b's engine cannot repeat ``generate``'s replies on this
+    model: the static path over the group of four against each prompt
+    alone and against the paged path (chunks of 32, windows of 16 pages),
+    all fed ``replies``, (a) as the model routes; (b) the first step
+    again with K6's plain version (cuBLAS in f32) in every int8 product:
+    whether K6's row-count-dependent split alone seeds the flips; (c)
+    under :class:`TokenRouting`. Returns the parts and the faults: (c)
+    must part by no more than MOE_FORCED_LIMIT."""
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.ops import moe as moe_ops
+
+    def parts(tokens):
+        static = forced_logits(torch, model, prompts, tokens)
+        out = {"static_alone": logit_parts(static, torch.cat([
+            forced_logits(torch, model, [p], [r])
+            for p, r in zip(prompts, tokens)]))}
+        if len(tokens[0]) > 1:
+            out["paged_chunk32_w16"] = logit_parts(static, forced_logits(
+                torch, model, prompts, tokens, 16))
+        out["logit_absmax"] = static.abs().max().item()
+        return out
+
+    found = {"model_routing": parts(replies)}
+    plain = lambda real: PlainQuantMatmul  # noqa: E731
+    with Patched((transformer, "QuantMatmul", plain),
+                 (moe_ops, "QuantMatmul", plain)):
+        found["plain_k6_first_step"] = parts([r[:1] for r in replies])
+    with TokenRouting(torch, model):
+        found["token_routing"] = parts(replies)
+    worst = max(v["max"] for k, v in found["token_routing"].items()
+                if k != "logit_absmax")
+    faults = [] if worst <= MOE_FORCED_LIMIT else [
+        f"under token routing the paths' logits part by {worst:.4g}, "
+        f"beyond the limit {MOE_FORCED_LIMIT}"]
+    torch.cuda.empty_cache()
+    return found, faults
+
+
+def serve_greedy(server, prompts, greedy, timeout=900):
+    """Phase 15b's greedy requests over the wire, MOE_NEW new tokens each:
+    the first SERVE_BATCH together, the rest once those prompts are
+    published (a prefix hit for the one sharing prompt 0's). Returns (the
+    replies, the wall time)."""
+    from serverless_learn_tpu_torch.inference.server import request
+
+    eng = server.engine
+    replies = [None] * len(greedy)
+
+    def client(i):
+        replies[i] = request(server.addr, {"prompt": greedy[i],
+                                           "max_new_tokens": MOE_NEW},
+                             timeout=timeout)
+
+    t1 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_BATCH)]
+    for th in threads:
+        th.start()
+    while not all(published(eng._trie, p) for p in prompts):
+        if time.perf_counter() - t1 > 600:
+            fail("phase 15b: the prompts were never published")
+        time.sleep(0.002)
+    for i in range(SERVE_BATCH, len(greedy)):
+        threads.append(threading.Thread(target=client, args=(i,)))
+        threads[-1].start()
+    for th in threads:
+        th.join(timeout=timeout)
+    if any(r is None or "error" in r or len(r["new_tokens"]) != MOE_NEW
+           for r in replies):
+        fail(f"phase 15b: malformed replies {str(replies)[:400]}")
+    return [r["new_tokens"] for r in replies], time.perf_counter() - t1
+
+
+def moe_serve(torch, card):
+    """Phase 15b and 15c: full-depth Mixtral-8x7B int8 (``serve --model
+    moe_mixtral_8x7b --quant int8``'s model, random weights from seed 0)
+    served through ``GenerationServer``'s defaults, the continuous engine
+    over the paged pool with its decode buckets replayed from CUDA graphs:
+    four greedy prompts of 101-128 tokens, then one sharing prompt 0's
+    first 100 tokens (prefix pages) and a 1,500-token prompt (chunked
+    prefill), 32 new tokens each, over the wire; then a decode round of 4
+    x 128 new tokens, timed by the host clock at each decode harvest.
+    The greedy replies are set beside ``generate``'s (each alone, the
+    static path); on this model top-2 routing flips at near ties part the
+    two paths (``routing_witness``), so the check holds them where routing
+    cannot flip: the same requests through a fresh engine under
+    :class:`TokenRouting`, every token it chose within MOE_FORCED_LIMIT of
+    the static path's largest logit, the static path fed the reply's own
+    tokens, and the witness's paths within that limit. Checks also: an
+    eager decode
+    forward launches K6 897 times (3 an expert of every layer, 4 an
+    attention, 1 lm_head), and so does the captured step of every decode
+    graph (the wrapper's count while it is captured: the replays run
+    those launches); a replayed chunk equals the eager one bit for bit; a
+    512-row prefill forward (4 x 128)
+    launches 3 for every routed expert of every layer beside its 129. 15c:
+    the same four prompts through the static engine (``--serve-engine
+    static``), held the same way to ``generate`` of the padded batch.
+    Prints the weights' size, the pool, peak memory, ms a token, new
+    tokens/s, the prefill's time and a profiled replayed step by kernel.
+    Returns (K6 launches eagerly, in the graph replays: each bucket's
+    captured count times its replays)."""
+    from serverless_learn_tpu_torch.config import KVCacheConfig
+    from serverless_learn_tpu_torch.inference.generate import (generate,
+                                                               init_cache)
+    from serverless_learn_tpu_torch.inference.server import (GenerationServer,
+                                                            request)
+    from serverless_learn_tpu_torch.models.registry import build_model
+    from serverless_learn_tpu_torch.ops.moe import MoELayer
+    from serverless_learn_tpu_torch.ops.quant_matmul import quant_matmul
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(MIXTRAL, quant="int8", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    V = cfg.vocab_size
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    prompts = serve_prompts(torch, V)
+    g = torch.Generator().manual_seed(4)
+    fifth = prompts[0][:SHARED] + torch.randint(0, V, (5,),
+                                                generator=g).tolist()
+    long_p = torch.randint(0, V, (LONG_PROMPT,), generator=g).tolist()
+    greedy = prompts + [fifth, long_p]
+    faults = []
+
+    # One eager decode forward: 897 launches.
+    with torch.inference_mode():
+        cache = init_cache(model, 1)
+        tok = torch.tensor([prompts[0][:8]], device="cuda")
+        model(tok, cache=cache, prefill=True)
+        torch.cuda.synchronize()
+        n0 = quant_matmul.launches
+        model(tok[:, :1], cache=cache, decode=True)
+        decode_launches = quant_matmul.launches - n0
+        del cache
+    if decode_launches != MIXTRAL_K6_PER_FWD:
+        faults.append(f"an eager decode forward launched K6 "
+                      f"{decode_launches} times, not {MIXTRAL_K6_PER_FWD}")
+    # A 512-row prefill forward (4 x 128): 129 + 3 a routed expert.
+    routed = [0]
+
+    def count_routed(mod, args):
+        x = args[0].reshape(-1, args[0].shape[-1])
+        top = (x.float() @ mod.router.float()).topk(MOE_TOP_K, -1).indices
+        routed[0] += int(torch.bincount(top.reshape(-1),
+                                        minlength=MOE_EXPERTS).gt(0).sum())
+
+    hooks = [m.register_forward_pre_hook(count_routed)
+             for m in model.modules() if isinstance(m, MoELayer)]
+    batch = torch.tensor([p[:PROMPT_LEN] for p in
+                          (prompts[0], prompts[3], prompts[0][::-1],
+                           prompts[3][::-1])], device="cuda")
+    with torch.inference_mode():
+        cache = init_cache(model, len(batch))
+        model(batch, cache=cache, prefill=True)  # the first-seen shapes
+        torch.cuda.synchronize()
+        routed[0] = 0
+        n0 = quant_matmul.launches
+        t1 = time.perf_counter()
+        model(batch, cache=cache, prefill=True)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        prefill_launches = quant_matmul.launches - n0
+        del cache
+    for h in hooks:
+        h.remove()
+    want_prefill = 4 * cfg.n_layers + 1 + 3 * routed[0]
+    if prefill_launches != want_prefill:
+        faults.append(f"a 512-row prefill launched K6 {prefill_launches} "
+                      f"times, not {want_prefill}")
+
+    # The static path: generate's replies, each prompt alone; and how far
+    # the paths' logits part, as the model routes and where routing cannot
+    # flip.
+    with torch.inference_mode():
+        want = [generate(model, torch.tensor([p]), MOE_NEW)[0, len(p):]
+                .tolist() for p in greedy]
+    witness, wfaults = routing_witness(torch, model, prompts,
+                                       want[:SERVE_BATCH])
+    faults += wfaults
+
+    server = GenerationServer(model, port=0)
+    server.start()
+    eng = server.engine
+    harvests = []
+    harvest = eng._harvest
+
+    def timed_harvest(fut):
+        harvest(fut)
+        harvests.append((fut[0], time.perf_counter()))
+
+    eng._harvest = timed_harvest
+    # What each decode graph holds: the wrapper counts K6's launches while
+    # a bucket is captured (one eager warm-up step, then the captured one),
+    # and a replay runs the captured launches again.
+    captured = {}
+    capture = eng._capture
+
+    def counted_capture(chunk):
+        n0 = quant_matmul.launches
+        capture(chunk)
+        captured[(chunk.rows.tok.shape[0], chunk.table.shape[1])] = (
+            quant_matmul.launches - n0)
+
+    eng._capture = counted_capture
+    try:
+        t1 = time.perf_counter()
+        warm = eng.warm_shapes([(PROMPT_LEN, MOE_NEW),
+                                (len(fifth), MOE_NEW),
+                                (LONG_PROMPT, MOE_NEW),
+                                (PROMPT_LEN, MOE_ROUND)])
+        warm_s = time.perf_counter() - t1
+        rep0 = {key: c.replays for key, c in eng._chunks.items()}
+        got, wall = serve_greedy(server, prompts, greedy)
+        hits = eng._trie.hits
+        t2 = time.perf_counter()
+        round2 = [None] * SERVE_BATCH
+        th2 = [threading.Thread(target=lambda i: round2.__setitem__(
+            i, request(server.addr, {"prompt": prompts[i],
+                                     "max_new_tokens": MOE_ROUND},
+                       timeout=900)), args=(i,)) for i in range(SERVE_BATCH)]
+        for th in th2:
+            th.start()
+        for th in th2:
+            th.join(timeout=900)
+        round_wall = time.perf_counter() - t2
+        round_log = [h for h in harvests if h[1] >= t2]
+        stats = eng.kv_stats()
+        pool_gb = sum(p.numel() * p.element_size() for p in
+                      eng._pages.pages_k + eng._pages.pages_v) / 1e9
+    finally:
+        server.stop()
+    graph_check = graph_vs_eager_chunk(torch, eng, prompts)
+    if not graph_check["identical"]:
+        faults.append("a decode chunk replayed from its graph differs from "
+                      "the eager chunk")
+    replays = {key: c.replays - rep0.get(key, 0)
+               for key, c in eng._chunks.items()}
+    replays = {key: n for key, n in replays.items() if n}
+    if any(r is None or len(r.get("new_tokens", ())) != MOE_ROUND
+           for r in round2):
+        fail(f"phase 15b: malformed decode-round replies "
+             f"{str(round2)[:400]}")
+    # Greedy replies as the model routes: set beside generate's, and how
+    # far below the static path's largest logit each chosen token lies.
+    # Routing flips part the paths (the witness), so this is no check.
+    equal = [a == b for a, b in zip(got, want)]
+    gaps = [static_gaps(torch, model, p, r) for p, r in zip(greedy, got)]
+    if hits < 1:
+        faults.append("the shared prefix was not reused")
+    if not replays:
+        faults.append("no decode chunk was replayed from a CUDA graph")
+    if not captured or any(n != 2 * MIXTRAL_K6_PER_FWD
+                           for n in captured.values()):
+        faults.append(f"K6 launches while capturing each decode bucket "
+                      f"(a warm-up step and the captured one) "
+                      f"{ {'nb%d_w%d' % k: n for k, n in captured.items()} }"
+                      f", not 2 x {MIXTRAL_K6_PER_FWD}")
+    # Each replay runs what its bucket's graph captured: half the count
+    # while capturing (the other half is the eager warm-up step).
+    replayed = sum(captured[key] // 2 * n for key, n in replays.items())
+    C = eng.chunk_size
+    per_tok = [(b[1] - a[1]) * 1e3 / C
+               for a, b in zip(round_log, round_log[1:])
+               if a[0] == b[0] == "pchunk"]
+    chunk = eng._chunks.get((SERVE_BATCH, 16)) or next(
+        iter(eng._chunks.values()))
+    chunk.table.fill_(eng._pool.sentinel)
+    chunk.step.zero_()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        chunk.graph.replay()
+        torch.cuda.synchronize()
+    span, busy, k6, by_name, kern = device_time(torch, prof, "quant_")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    profiled_step = dict(
+        rows=chunk.rows.tok.shape[0], window=chunk.table.shape[1],
+        span_ms=span / 1e3, busy_ms=busy / 1e3,
+        device_idle_share=1 - busy / span, quant_matmul_ms=k6 / 1e3,
+        k6_calls=k6_calls(kern), device_kernels=len(kern),
+        top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del chunk, eng, server, prof, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The same greedy requests through a fresh engine under TokenRouting,
+    # its graphs captured so: every chosen token within MOE_FORCED_LIMIT
+    # of the static path's largest logit (each prompt alone, routed so).
+    with TokenRouting(torch, model):
+        with torch.inference_mode():
+            want_tr = [generate(model, torch.tensor([p]), MOE_NEW)[0, len(p):]
+                       .tolist() for p in greedy]
+        srv_tr = GenerationServer(model, port=0)
+        srv_tr.start()
+        try:
+            srv_tr.engine.warm_shapes([(PROMPT_LEN, MOE_NEW),
+                                       (len(fifth), MOE_NEW),
+                                       (LONG_PROMPT, MOE_NEW)])
+            got_tr, wall_tr = serve_greedy(srv_tr, prompts, greedy)
+            hits_tr = srv_tr.engine._trie.hits
+        finally:
+            srv_tr.stop()
+        gaps_tr = [static_gaps(torch, model, p, r)
+                   for p, r in zip(greedy, got_tr)]
+    del srv_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    faults += [f"under token routing greedy reply {i} took at step {j} a "
+               f"token {gap:.4g} below generate's largest logit, beyond "
+               f"{MOE_FORCED_LIMIT}" for i, gs in enumerate(gaps_tr)
+               for j, gap in enumerate(gs) if gap > MOE_FORCED_LIMIT]
+    if hits_tr < 1:
+        faults.append("under token routing the shared prefix was not reused")
+    token_routed = dict(
+        wall_s=wall_tr, trie_hits=hits_tr, limit=MOE_FORCED_LIMIT,
+        replies_equal_generate=sum(a == b for a, b in zip(got_tr, want_tr)),
+        worst_gap_to_generate_max=[max(gs) for gs in gaps_tr],
+        steps_off_generate_argmax=[sum(x > 0 for x in gs)
+                                   for gs in gaps_tr])
+
+    # 15c: one static-engine round, the four prompts as one group (a wait
+    # long enough that they arrive as one), which must equal generate of
+    # that group on the engine's paged cache, token for token: one path.
+    srv = GenerationServer(model, port=0, engine="static",
+                           batch_wait_ms=500)
+    srv.start()
+    static_replies = [None] * SERVE_BATCH
+    try:
+        th3 = [threading.Thread(target=lambda i: static_replies.__setitem__(
+            i, request(srv.addr, {"prompt": prompts[i],
+                                  "max_new_tokens": MOE_NEW}, timeout=900)),
+            args=(i,)) for i in range(SERVE_BATCH)]
+        t3 = time.perf_counter()
+        for th in th3:
+            th.start()
+        for th in th3:
+            th.join(timeout=900)
+        static_wall = time.perf_counter() - t3
+    finally:
+        srv.stop()
+    if any(r is None or "error" in r for r in static_replies):
+        fail(f"phase 15c: static engine replies {str(static_replies)[:400]}")
+    sgot = [r["new_tokens"] for r in static_replies]
+    groups = sorted({r["batch_size"] for r in static_replies})
+    padded = torch.zeros(SERVE_BATCH, PROMPT_LEN, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    with torch.inference_mode():
+        group_want = generate(
+            model, padded, MOE_NEW, prompt_lengths=lens,
+            cache=init_cache(model, SERVE_BATCH,
+                             block_size=KVCacheConfig().block_size)
+        )[:, PROMPT_LEN:].tolist()
+    if groups != [SERVE_BATCH] or sgot != group_want:
+        faults.append(f"the static engine's replies (groups of {groups}) "
+                      f"are not generate's of the same group")
+
+    emit("serve_moe_mixtral_8x7b_int8", card=card, layers=cfg.n_layers,
+         experts=cfg.n_experts, top_k=cfg.moe_top_k, weights_gb=weights_gb,
+         build_s=build_s, pool_gb=pool_gb, kv=stats,
+         max_memory_allocated_gb=peak_gb, requests=len(greedy),
+         wall_s=wall, warm_graphs=warm, warm_s=warm_s, trie_hits=hits,
+         k6_launches_eager_decode_forward=decode_launches,
+         k6_launches_per_forward_expected=MIXTRAL_K6_PER_FWD,
+         prefill_512_rows_ms=prefill_ms,
+         k6_launches_prefill_512=prefill_launches,
+         experts_routed_prefill_512=routed[0],
+         replies_equal_generate=sum(equal), replies=len(equal),
+         equal_by_reply=equal, routing_witness=witness,
+         token_routing=token_routed,
+         graph_check={k: v for k, v in graph_check.items()
+                      if not k.startswith("tokens")},
+         worst_gap_to_generate_max=[max(gs) for gs in gaps],
+         steps_off_generate_argmax=[sum(x > 0 for x in gs) for gs in gaps],
+         graph_replays=sum(replays.values()), replays_by_bucket={
+             "nb%d_w%d" % k: n for k, n in replays.items()},
+         k6_launches_per_capture={"nb%d_w%d" % k: n
+                                  for k, n in captured.items()},
+         k6_calls_replayed=replayed,
+         decode_ms_per_token=(statistics.median(per_tok) if per_tok
+                              else None),
+         decode_ms_per_token_all=per_tok, round_wall_s=round_wall,
+         round_new_tokens_per_s=SERVE_BATCH * MOE_ROUND / round_wall,
+         profiled_step=profiled_step,
+         static_engine=dict(
+             wall_s=static_wall, groups=groups,
+             replies_equal_generate_of_the_group=sum(
+                 a == b for a, b in zip(sgot, group_want)),
+             replies_equal_generate_alone=sum(
+                 a == b for a, b in zip(sgot, want[:SERVE_BATCH]))))
+    if faults:
+        fail("phase 15b/c: " + "; ".join(faults))
+    del model, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return decode_launches + prefill_launches, replayed
+
+
+def moe_train(torch, card):
+    """Phase 15d: ``train --model moe_mixtral_8x7b`` at full width, 2 of
+    32 layers (B = 1, T = 4,096, 3 adamw steps, bf16 compute over f32
+    parameters) through the CLI in this process. Checks every loss and
+    every ``moe_aux_loss`` finite and positive, K1-K3 launching 2 times a
+    step each (one a layer: flash attention at T = 4,096), no
+    cross-entropy kernel. Prints the step time, tokens/s, MFU (every
+    expert counted, the reference's formula) and peak memory."""
+    from serverless_learn_tpu_torch.training import loop
+
+    gc.collect()  # phase 15b's engines hold the served model in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    real = loop.run_training
+
+    def keep(fn):
+        def run(*a, **kw):
+            state, meter = fn(*a, **kw)
+            metrics.extend(dict(s.metrics) for s in meter.history)
+            return state, meter
+        return run
+
+    t0 = time.perf_counter()
+    with Patched((loop, "run_training", keep)):
+        done = run_cli(MOE_TRAIN_ARGS)
+    seconds = time.perf_counter() - t0
+    assert loop.run_training is real
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = done["losses"]
+    aux = [float(m.get("moe_aux_loss", float("nan"))) for m in metrics]
+    kl = done["kernel_launches"]
+    want = MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+    emit("train_moe_mixtral_8x7b", card=card, layers=MOE_TRAIN_LAYERS,
+         batch=1, seq_len=TRAIN_T, steps=MOE_TRAIN_STEPS, losses=losses,
+         moe_aux_losses=aux, step_time_s=done.get("step_time_s"),
+         tokens_per_s=done.get("tokens_per_sec"), mfu=done.get("mfu"),
+         max_memory_allocated_gb=peak_gb, kernel_launches=kl,
+         seconds=seconds)
+    if (len(losses) != MOE_TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses + aux)
+            or not all(a > 0 for a in aux) or len(aux) != MOE_TRAIN_STEPS):
+        fail(f"phase 15d: losses {losses}, aux {aux}")
+    if (any(kl[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+            or kl["cross_entropy_fwd"] or kl["cross_entropy_bwd"]):
+        fail(f"phase 15d: kernel launches {kl}, expected {want} of K1-K3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kl
+
+
+def moe_phase(torch, qm, card):
+    """Phase 15: 15a, then 15b/15c and 15d. Returns the kernels-line
+    figures."""
+    max_err, decode, prefill = moe_kernel_check(torch, qm, card)
+    serve_launches, replayed = moe_serve(torch, card)
+    train_launches = moe_train(torch, card)
+    return dict(max_err=max_err, decode=decode, prefill=prefill,
+                serve_launches=serve_launches, replayed=replayed,
+                train=train_launches)
+
+
+def moe_only(torch, qm, build, card) -> int:
+    """``--moe-only``: the K6 and flash kernels built, phase 15 alone, no
+    result line."""
+    build.build(["quant_matmul", "flash_attention"])
+    for name in ("quant_matmul", "flash_attention"):
+        build.load(name)
+    moe_phase(torch, qm, card)
+    return 0
+
+
 def numerics_only(torch, build, card) -> int:
     sources = ["quant_matmul", "flash_attention", "cross_entropy",
                "tensor_stats"]
@@ -5279,8 +6223,10 @@ def main() -> int:
     if "--elastic-only" in sys.argv[1:]:
         build.build(["flash_attention", "tensor_stats"])
         build.load("flash_attention")
-        elastic_cluster(torch, card)
+        elastic_cluster(torch, card, cache_on_disk=True)
         return 0
+    if "--moe-only" in sys.argv[1:]:
+        return moe_only(torch, qm, build, card)
     if "--numerics-only" in sys.argv[1:]:
         return numerics_only(torch, build, card)
     if "--nonfinite-only" in sys.argv[1:]:
@@ -5344,6 +6290,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stats_launches = numerics_phase(torch, card)
     stats_time = time_stats(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, qm, card)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -5364,6 +6313,18 @@ def main() -> int:
         "qlora_library_ms": qlora_fwd["convert_matmul_ms"],
         "qlora_plain_ms": qlora_fwd["plain_ms"],
         "qlora_step_k6_ms": qlora["profile"]["k6_ms"],
+        "qlora_weight_int8pack_mm_ms": qlora_fwd["library_ms"],
+        "launches_moe_serving": moe["serve_launches"],
+        "launches_graph_replayed_moe_serving": moe["replayed"],
+        "max_abs_err_mixtral_shapes": moe["max_err"],
+        "mixtral_decode_ms": moe["decode"]["ms"],
+        "mixtral_decode_graph_ms": moe["decode"]["graph_ms"],
+        "mixtral_decode_bound_ms": moe["decode"]["bound_ms"],
+        "mixtral_decode_plain_ms": moe["decode"]["plain_ms"],
+        "mixtral_decode_library_ms": moe["decode"]["library_ms"],
+        "mixtral_prefill_ms": moe["prefill"]["ms"],
+        "mixtral_prefill_bound_ms": moe["prefill"]["bound_ms"],
+        "mixtral_prefill_library_ms": moe["prefill"]["library_ms"],
     }]
     replaces = {
         "flash_fwd": "serverless_learn_tpu/ops/pallas/flash_attention.py:197",
@@ -5378,6 +6339,7 @@ def main() -> int:
             "replaces": where, "launches": flash_launches[name],
             "launches_checkpoint_path": phase10[name],
             "launches_elastic_worker": elastic[name],
+            "launches_moe_training": moe["train"][name],
             "max_abs_err": flash_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

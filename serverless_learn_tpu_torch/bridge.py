@@ -13,7 +13,12 @@ Projection leaves are flattened to the port's ``[I, O]`` layout:
 * LoRA adapters: ``lora_a`` ``[d, r]`` passes through, ``lora_b`` ``[r, H,
   D]`` (``q_lora``) or ``[r, K, D]`` (``v_lora``) becomes ``[r, H*D]`` /
   ``[r, K*D]``;
-* the f32 embedding table and the norm scales pass through.
+* the f32 embedding table and the norm scales pass through;
+* MoE leaves (``layer_i.moe.router`` ``[D, E]``, ``expert_gate`` /
+  ``expert_up`` ``[E, D, F]``, ``expert_down`` ``[E, F, D]``, and int8
+  ``expert_*_q`` with ``expert_*_scale`` ``[E, out]``) pass through: the
+  port keeps the reference's layout, each expert's slice already ``[I,
+  O]``.
 
 The same reshapes map optimizer moments, which have their parameter's
 shape: :func:`to_flax` and :func:`from_flax` do it on tensors, as views,

@@ -213,28 +213,32 @@ def _make_store(args):
 
 
 def _make_checkpointer(args, cfg=None):
-    """The store's Checkpointer, or None without a store;
-    ``checkpoint.keep`` / ``checkpoint.verify`` from ``cfg`` when given."""
+    """The store's Checkpointer, or None without a store; with ``cfg``,
+    ``checkpoint.keep`` / ``checkpoint.verify`` from it and the store
+    tiered by its cache and peers (``training/replicate.py``)."""
     from serverless_learn_tpu_torch.training.checkpoint import Checkpointer
+    from serverless_learn_tpu_torch.training.replicate import (
+        maybe_replicated)
 
     store = _make_store(args)
     if store is None:
         return None
     if cfg is None:
         return Checkpointer(store, name=args.checkpoint_name)
-    return Checkpointer(store, name=args.checkpoint_name,
-                        keep=cfg.checkpoint.keep,
+    return Checkpointer(maybe_replicated(store, cfg.checkpoint),
+                        name=args.checkpoint_name, keep=cfg.checkpoint.keep,
                         verify=cfg.checkpoint.verify)
 
 
 def _close_checkpointer(ckpt):
-    """Drain and disarm ``ckpt``, then close its store's connection (a
-    shard-server store holds one)."""
+    """Drain and disarm ``ckpt``, then close its store: a replicated
+    store's peer pushes, then the connection a shard-server store holds."""
     try:
         ckpt.close()
     finally:
-        if hasattr(ckpt.store, "close"):
-            ckpt.store.close()
+        for store in (ckpt.store, getattr(ckpt.store, "primary", None)):
+            if store is not None and hasattr(store, "close"):
+                store.close()
 
 
 def _load_inference_params(args, cfg):
@@ -613,6 +617,24 @@ def _kernel_launches():
                       ce.cross_entropy_fwd, ce.cross_entropy_bwd)}
 
 
+def _with_ckpt_flags(cfg, args):
+    """``cfg`` with ``worker``'s ``--ckpt-cache-dir``, ``--ckpt-peers`` and
+    ``--ckpt-serve-cache`` over its ``checkpoint`` section, as the
+    reference merges them: a flag given wins, the config's field stays
+    otherwise."""
+    import dataclasses
+
+    if (args.ckpt_cache_dir is None and args.ckpt_peers is None
+            and not args.ckpt_serve_cache):
+        return cfg
+    ck = cfg.checkpoint
+    return dataclasses.replace(cfg, checkpoint=dataclasses.replace(
+        ck, cache_dir=(args.ckpt_cache_dir if args.ckpt_cache_dir is not None
+                       else ck.cache_dir),
+        peers=args.ckpt_peers if args.ckpt_peers is not None else ck.peers,
+        serve_cache=args.ckpt_serve_cache or ck.serve_cache))
+
+
 def cmd_worker(args) -> int:
     """An elastic worker: register with the coordinator under an exclusive
     name, train, and re-form at every membership epoch (drain, save,
@@ -632,7 +654,7 @@ def cmd_worker(args) -> int:
         raise SystemExit(str(not_ported(
             "the multi-host elastic worker (--multihost, "
             "training/elastic_multihost.py)", "ROADMAP.md queue 1 item 5")))
-    cfg = _train_config(args)
+    cfg = _with_ckpt_flags(_train_config(args), args)
     resolve_device(args.device)  # no card: raise before joining anyone
     _init_tracing_from_args(args)
     store = _make_store(args) or ShardServerStore(
@@ -647,6 +669,10 @@ def cmd_worker(args) -> int:
             advertise_addr=args.advertise,
             name=args.name or f"worker-{socket.gethostname()}-{os.getpid()}",
             device=args.device, verbose=args.verbose)
+        if et.cache_server is not None:
+            log_json({"event": "ckpt_cache_serving",
+                      "addr": et.cache_server.addr,
+                      "root": cfg.checkpoint.cache_dir}, stream=sys.stdout)
         state, losses = et.run()
         grep = goodput.get_ledger().report()
         log_json({"event": "worker_done", "steps": len(losses),
@@ -1029,6 +1055,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "a name (refused at registration)")
     w.add_argument("--multihost", metavar="RUN", default=None,
                    help="not yet ported: raises")
+    w.add_argument("--ckpt-cache-dir", default=None,
+                   help="worker-local checkpoint cache dir: a transition's "
+                        "restore reads local disk instead of the central "
+                        "store; served to peers with --ckpt-serve-cache")
+    w.add_argument("--ckpt-peers", default=None,
+                   help="comma-separated peer cache addrs to replicate "
+                        "checkpoints to (and restore from when the "
+                        "central store is slow or partitioned)")
+    w.add_argument("--ckpt-serve-cache", action="store_true",
+                   help="serve --ckpt-cache-dir to peers over the "
+                        "shard-server wire protocol (ephemeral port)")
     w.set_defaults(fn=cmd_worker)
 
     c = sub.add_parser("coordinator", help="run the membership daemon")

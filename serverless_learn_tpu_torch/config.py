@@ -30,8 +30,6 @@ _SECTIONS_NOT_PORTED = {
 }
 ROADMAP_TRAINING = "ROADMAP.md queue 1 item 3"
 _DATA_ITEM = "ROADMAP.md queue 1 item 5"
-_REPLICAS = ("peer checkpoint replication (training/replicate.py)",
-             _DATA_ITEM)
 # (section, field) -> (what it runs, ROADMAP item): kept so the reference's
 # configs load, raising when set away from the default.
 _FIELDS_NOT_PORTED = {
@@ -43,11 +41,6 @@ _FIELDS_NOT_PORTED = {
     ("data", "mask_rate"): ("dynamic MLM masking", _DATA_ITEM),
     ("data", "learnable"): ("mlp_mnist's learnable synthetic task",
                             _DATA_ITEM),
-    ("checkpoint", "cache_dir"): _REPLICAS,
-    ("checkpoint", "peers"): _REPLICAS,
-    ("checkpoint", "replica_fanout"): _REPLICAS,
-    ("checkpoint", "serve_cache"): _REPLICAS,
-    ("checkpoint", "serve_cache_port"): _REPLICAS,
     ("membership", "mode"): ("SWIM gossip membership (control/gossip.py)",
                              _DATA_ITEM),
     ("elastic", "remesh_wire_dtype"): (
@@ -136,19 +129,26 @@ class CheckpointConfig:
     restore; ``keep`` is how many committed steps GC keeps.
     ``emergency_save`` arms the save on the flight recorder's death path
     whenever ``train`` has a checkpointer, from a host shadow refreshed at
-    most once per ``emergency_min_interval_s``. The peer-replication
-    fields raise when set away from their defaults
-    (``_FIELDS_NOT_PORTED``)."""
+    most once per ``emergency_min_interval_s``.
+
+    The replication fields (``training/replicate.py``): ``cache_dir``
+    keeps a worker-local copy of every checkpoint file, so a transition
+    restores from local disk; ``serve_cache`` serves that cache to peers
+    over the shard-server protocol (an ephemeral port unless
+    ``serve_cache_port``); ``peers`` (comma-separated addresses) and
+    ``replica_fanout`` push each commit to that many peer caches, so a
+    rejoining worker restores from a peer when the central store is slow
+    or unreachable."""
 
     verify: bool = True
     keep: int = 3                       # retained steps (Checkpointer GC)
     emergency_save: bool = True
     emergency_min_interval_s: float = 30.0
-    cache_dir: str = ""
-    peers: str = ""
-    replica_fanout: int = 2
-    serve_cache: bool = False
-    serve_cache_port: int = 0
+    cache_dir: str = ""                 # "" = no worker-local cache
+    peers: str = ""                     # comma-separated peer cache addrs
+    replica_fanout: int = 2             # peers to push each commit to
+    serve_cache: bool = False           # serve cache_dir to peers
+    serve_cache_port: int = 0           # 0 = ephemeral
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,8 @@
 d_model 4096, d_ff 14336, vocab 128256, rope_theta 5e5). The presets and the
 training bundle are those of ``serverless_learn_tpu/models/llama.py``:
 ``lora_rank > 0`` adds frozen-base LoRA adapters on the q and v projections,
-and the bundle's ``trainable_mask`` confines training to them.
+and the bundle's ``trainable_mask`` confines training to them;
+``n_experts > 0`` makes every MLP a mixture of experts (``ops/moe.py``).
 """
 
 from __future__ import annotations
@@ -17,17 +18,8 @@ from serverless_learn_tpu_torch.models.registry import (ModelBundle,
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
 from serverless_learn_tpu_torch.ops.losses import causal_lm_loss
 
-# Reference options this port does not run yet, and where they wait.
-_NOT_PORTED = {
-    "n_experts": "mixture-of-experts layers are not yet ported to PyTorch "
-                 "(ROADMAP.md queue 1 item 4)",
-}
-
 
 def _llama_cfg(size: str, **overrides) -> TransformerConfig:
-    for key, why in _NOT_PORTED.items():
-        if overrides.pop(key, 0):
-            raise NotImplementedError(why)
     presets = {
         "tiny": dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
                      n_kv_heads=2, d_ff=512, max_seq_len=512),
@@ -44,14 +36,18 @@ def _llama_cfg(size: str, **overrides) -> TransformerConfig:
 
 def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
     """The causal-LM training bundle: next-token loss on synthetic uniform
-    tokens; ``fused_ce`` takes the loss through the cross-entropy kernels
-    (K4/K5). With ``lora_rank > 0`` only the adapters train."""
+    tokens, plus the MoE layers' load-balance losses (the model's
+    ``return_aux``, so an ``n_experts`` override keeps them; the metric
+    ``moe_aux_loss`` with ``n_experts > 0``); ``fused_ce`` takes the
+    cross-entropy through its kernels (K4/K5). With ``lora_rank > 0`` only the adapters train."""
 
     def loss_fn(model, batch):
-        logits = model(batch["tokens"])
+        logits, aux = model(batch["tokens"], return_aux=True)
         loss, metrics = causal_lm_loss(logits, batch["tokens"],
                                        fused=fused_ce)
-        return loss, {"metrics": metrics}
+        if cfg.n_experts > 0:
+            metrics = dict(metrics, moe_aux_loss=aux)
+        return loss + aux, {"metrics": metrics}
 
     def make_batch(rng: np.random.Generator, data_config, batch_size):
         return {"tokens": rng.integers(

@@ -47,7 +47,7 @@ def register_model(name: str):
 
 
 def get_model_config(name: str, **overrides) -> TransformerConfig:
-    from serverless_learn_tpu_torch.models import llama  # noqa: F401
+    from serverless_learn_tpu_torch.models import llama, moe  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")

@@ -22,6 +22,16 @@ With ``lora_rank > 0`` each attention layer also holds ``q_lora`` and
 ``v_lora`` adapters (:class:`LoRAAdapter`) whose deltas are added to the q
 and v projections before the rotation, as the reference adds them.
 
+With ``n_experts > 0`` each block's MLP is a mixture of experts
+(``ops/moe.MoELayer``, under ``layer_i.moe``): routed in groups of
+``moe_group_size`` tokens in the training forward, and per token under
+prefill, decode and extend, as the reference's ``Block`` routes, so a
+cached decode equals the full forward. ``forward(..., return_aux=True)``
+also returns the layers' summed load-balance loss (the reference's
+``"losses"`` collection, which its ``apply_with_losses`` gathers). Under
+``quant="int8"`` the experts are int8 too: 3 K6 launches an expert and
+layer.
+
 A model built with ``trainable=True`` has every float parameter but the
 int8 base's ``requires_grad`` (the trainer then freezes what the bundle's
 trainable mask leaves out, ``training/partition.py``); serving builds it
@@ -41,9 +51,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from serverless_learn_tpu_torch.config import not_ported
 from serverless_learn_tpu_torch.inference.kvcache import PagedKVCache
 from serverless_learn_tpu_torch.ops.attention import (dot_product_attention,
                                                       xla_attention)
+from serverless_learn_tpu_torch.ops.moe import MoELayer
 from serverless_learn_tpu_torch.ops.quant_matmul import QuantMatmul
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -80,8 +92,27 @@ class TransformerConfig:
     remat: bool = False
     lora_rank: int = 0  # > 0: LoRA adapters on the q and v projections
     lora_alpha: float = 16.0
+    n_experts: int = 0  # 0: the dense MLP; > 0: MoE (ops/moe.py)
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    # Training's routing-group tokens (0: the whole row). It bounds slot
+    # competition and sets the granularity of the load-balance loss (a
+    # mean of per-group terms), so changing it changes the loss's value.
+    moe_group_size: int = 1024
+    # The reference's expert and tensor parallelism inside a pipeline
+    # stage: multi-device, refused unless at these defaults.
+    manual_ep_axis: Optional[str] = None
+    moe_global_experts: int = 0
+    manual_tp_axis: Optional[str] = None
 
     def __post_init__(self):
+        for name in ("manual_ep_axis", "moe_global_experts",
+                     "manual_tp_axis"):
+            if getattr(self, name):
+                raise not_ported(
+                    f"{name} (manual expert/tensor parallelism inside a "
+                    "pipeline stage)", "ROADMAP.md queue 1 item 4a")
         object.__setattr__(self, "dtype", _as_dtype(self.dtype))
         object.__setattr__(self, "param_dtype", _as_dtype(self.param_dtype))
         if self.quant not in (None, "int8"):
@@ -308,15 +339,26 @@ class MlpBlock(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         norm = lambda: RMSNorm(cfg.d_model, cfg.dtype, cfg.param_dtype, device)
         self.norm_attn = norm()
         self.attn = Attention(cfg, device)
         self.norm_mlp = norm()
-        self.mlp = MlpBlock(cfg, device)
+        if cfg.n_experts > 0:
+            self.moe = MoELayer(cfg, device)
+        else:
+            self.mlp = MlpBlock(cfg, device)
 
     def forward(self, x, sin, cos, **attn_kw):
+        """(x after the block, the MoE layer's weighted aux loss or None).
+        Any attention mode but the training forward's routes the MoE layer
+        per token, with no aux loss."""
         x = x + self.attn(self.norm_attn(x), sin, cos, **attn_kw)
-        return x + self.mlp(self.norm_mlp(x))
+        if self.cfg.n_experts <= 0:
+            return x + self.mlp(self.norm_mlp(x)), None
+        y, aux = self.moe(self.norm_mlp(x),
+                          per_token=attn_kw.get("mode") is not None)
+        return x + y, aux
 
 
 class Transformer(nn.Module):
@@ -347,6 +389,8 @@ class Transformer(nn.Module):
         self.lm_head = _proj(cfg, cfg.d_model, cfg.vocab_size, device)
         base = {id(p) for m in self.modules()
                 if isinstance(m, QuantDenseGeneral) for p in m.parameters()}
+        base |= {id(p) for m in self.modules() if isinstance(m, MoELayer)
+                 for p in m.frozen()}
         for p in self.parameters():
             p.requires_grad_(trainable and id(p) not in base)
 
@@ -358,7 +402,8 @@ class Transformer(nn.Module):
                 cache: Optional[Union[KVCache, PagedKVCache]] = None,
                 prefill: bool = False, decode: bool = False,
                 extend: bool = False,
-                seq_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_lengths: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         """``prefill=True``: one causal forward over right-padded prompts
         that fills ``cache``; ``seq_lengths`` [B] gives each row's true
         length, which becomes its cache index (default T). ``decode=True``:
@@ -372,7 +417,11 @@ class Transformer(nn.Module):
         at each row's index, as in the reference: ``seq_lengths`` [B] (default
         T) real tokens a row are written through the table window, pad
         positions and positions past the window go to the scratch page, and
-        attention reads the window's ``W * block_size`` positions."""
+        attention reads the window's ``W * block_size`` positions.
+
+        ``return_aux=True`` returns ``(logits, aux)``: the MoE layers'
+        summed weighted load-balance losses, an f32 zero without MoE or
+        under a cache."""
         if prefill + decode + extend > 1:
             raise ValueError("prefill, decode and extend are mutually "
                              "exclusive")
@@ -427,15 +476,18 @@ class Transformer(nn.Module):
                 kw = dict(mode="prefill")
         sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        aux = None
         for i, block in enumerate(self.layers):
             if isinstance(cache, PagedKVCache):
                 kw["kv"] = (cache.pages_k[i], cache.pages_v[i])
             elif cache is not None:
                 kw["kv"] = (cache.k[i], cache.v[i])
             if remat:
-                x = checkpoint(block, x, sin, cos, use_reentrant=False)
+                x, a = checkpoint(block, x, sin, cos, use_reentrant=False)
             else:
-                x = block(x, sin, cos, **kw)
+                x, a = block(x, sin, cos, **kw)
+            if a is not None and return_aux:
+                aux = a if aux is None else aux + a
         if isinstance(cache, PagedKVCache):
             cache.index = cache.index + new_len
         elif prefill:
@@ -445,7 +497,12 @@ class Transformer(nn.Module):
                            else seq_lengths.to(torch.int32).to(x.device))
         elif decode or extend:
             cache.index = cache.index + T
-        return self.lm_head(self.norm_f(x))
+        logits = self.lm_head(self.norm_f(x))
+        if not return_aux:
+            return logits
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
 
 def leaf_generator(seed: int, name: str, device) -> torch.Generator:
@@ -489,7 +546,8 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
     the reference's flax initializers: projection kernels ``lecun_normal``
     (truncated normal over [-2, 2] std, scaled so the variance is 1 / fan_in,
     fan_in the contracted dims: ``[I, O]`` here, as flax's DenseGeneral
-    flattens them), the embedding table ``variance_scaling(1, "fan_in",
+    flattens them; an expert stack ``[E, I, O]`` contracts I), the MoE
+    router normal(0.02), the embedding table ``variance_scaling(1, "fan_in",
     "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)), norm scales 1,
     LoRA's ``lora_a`` normal(0.02) and ``lora_b`` zeros; an int8 base as
     flax's initializers give it, ``kernel_q`` zeros and ``scale`` ones
@@ -504,9 +562,15 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
             t.zero_()
         elif name.endswith("embedding"):
             t.normal_(0.0, 1.0 / math.sqrt(t.shape[1]), generator=gen)
+        elif name.endswith("moe.router"):
+            t.normal_(0.0, 0.02, generator=gen)
+        elif name.endswith("_scale"):  # int8 experts' scales
+            t.fill_(1.0)
         elif t.ndim >= 2:
             # 0.8796...: the std of a unit normal truncated to [-2, 2].
-            std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
+            # Experts [E, I, O] contract their middle dim.
+            fan_in = t.shape[1] if t.ndim == 3 else t.shape[0]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                   generator=gen)
         else:

@@ -49,9 +49,14 @@ upload itself overlaps training and is not charged).
 Two stores: :class:`LocalStore` (``--checkpoint-dir``) and
 :class:`ShardServerStore` (``--checkpoint-store ADDR``, the shard server of
 ``control/daemons.py`` or the JAX package's), each moving data in bounded
-calls. Not ported yet, each raising where it would be reached: replicated
-restore sources (ROADMAP.md queue 1 item 5) and the ZeRO layouts (queue 1
-item 3d).
+calls. Either can sit behind ``training/replicate.ReplicatedStore``, a
+worker-local cache and peer replicas: a restore then reads each step from
+its ``restore_sources()`` in order (cache, primary, peers), and a copy that
+fails verification is healed by the next intact one; ``ckpt_corrupt``
+names the source, ``timings["restore_source"]`` the one that served, and
+a restore served by anything but the primary counts in
+``slt_ckpt_peer_restores_total``. Not ported yet, raising where it would
+be reached: the ZeRO layouts (ROADMAP.md queue 1 item 3d).
 """
 
 from __future__ import annotations
@@ -541,7 +546,11 @@ class Checkpointer:
                            "stop": shape, "offset": offset,
                            "nbytes": nbytes})
             offset += nbytes
-        if self._save_buf is None or len(self._save_buf) != offset:
+        # A peer push of the last save may still read the buffer
+        # (``ReplicatedStore.holds``): then this save takes a new one.
+        holds = getattr(self.store, "holds", None)
+        if (self._save_buf is None or len(self._save_buf) != offset
+                or (holds is not None and holds(self._save_buf))):
             self._save_buf = None
             self._save_buf = host_buffer(offset)
         data = self._save_buf
@@ -806,24 +815,53 @@ class Checkpointer:
         self.timings["restore_s"] = time.perf_counter() - t0
         return out
 
-    def _restore_step(self, template, step: int, in_place: bool):
-        try:
-            return self._restore_verified(template, step, in_place)
-        except CheckpointCorrupt as e:
-            self._m_corrupt.inc()
-            rec = {"event": "ckpt_corrupt", "name": self.name, "step": step,
-                   "detail": e.detail}
-            flight.record(rec)
-            ttrace.emit_event(rec)
-            raise
+    def _sources(self):
+        """(label, store) in the order a step is read: a replicated
+        store's cache, primary and peers; else the store alone."""
+        if hasattr(self.store, "restore_sources"):
+            return list(self.store.restore_sources())
+        return [("store", self.store)]
 
-    def _restore_verified(self, template, step: int, in_place: bool):
-        if self._is_sharded(self.store, step):
-            return self._load_sharded(template, step, in_place)
-        if not self.store.exists(self._key(step)):
+    def _restore_step(self, template, step: int, in_place: bool):
+        """Load and verify ``step`` from the first source that holds an
+        intact copy. A copy failing verification is reported and the
+        next source tried; an absent or unreachable source is skipped.
+        Raises :class:`CheckpointCorrupt` only when every copy found
+        failed; else the first absence or transport error (with one
+        source: its own error, so a partition never reads as a missing
+        or corrupt checkpoint)."""
+        last: Optional[Exception] = None
+        corrupt: Optional[CheckpointCorrupt] = None
+        for label, src in self._sources():
+            try:
+                out = self._restore_verified(src, template, step, in_place)
+            except CheckpointCorrupt as e:
+                self._m_corrupt.inc()
+                rec = {"event": "ckpt_corrupt", "name": self.name,
+                       "step": step, "source": label, "detail": e.detail}
+                flight.record(rec)
+                ttrace.emit_event(rec)
+                corrupt = e
+                continue
+            except OSError as e:  # absent here, or unreachable
+                last = last or e
+                continue
+            if label not in ("store", "primary"):
+                self._m_peer_restores.inc()
+            self.timings["restore_source"] = label
+            return out
+        if corrupt is not None:
+            raise corrupt
+        raise last or FileNotFoundError(
+            f"checkpoint step {step} absent under {self.name!r}")
+
+    def _restore_verified(self, src, template, step: int, in_place: bool):
+        if self._is_sharded(src, step):
+            return self._load_sharded(src, template, step, in_place)
+        if not src.exists(self._key(step)):
             raise FileNotFoundError(
                 f"checkpoint step {step} absent under {self.name!r}")
-        tree = self._decode_blob(self.store, step)
+        tree = self._decode_blob(src, step)
         problems = _structure_problems(template, tree)
         if problems:
             raise ValueError(_misfit(step, problems))
@@ -885,8 +923,8 @@ class Checkpointer:
                     step, f"crc mismatch: manifest {int(man['crc32']):#010x}"
                           f", payload {crc:#010x}")
 
-    def _load_sharded(self, template, step: int, in_place: bool):
-        reader = _ShardedReader(self.store, self._key(step), self.verify)
+    def _load_sharded(self, src, template, step: int, in_place: bool):
+        reader = _ShardedReader(src, self._key(step), self.verify)
         by_path = {info["path"]: i
                    for i, info in enumerate(reader.meta["leaves"])}
         want = [p for p, _ in leaves_with_paths(template)]

@@ -38,11 +38,18 @@ does, and every drain's save the saved ones' with ``reason=remesh_save``:
 ``numerics diff`` of the two, or their equality, shows a transition kept
 the values.
 
+The store is tiered as ``config.checkpoint`` says
+(``training/replicate.maybe_replicated``, outside the byte accounting, as
+the reference wraps it): with ``cache_dir`` a transition's restore reads
+the worker's own cache, with ``peers`` every commit is pushed to peer
+caches a restarted worker can restore from, and with ``serve_cache`` this
+worker serves its cache to peers until it shuts down. Each ``remesh``
+record names the restore's source (``restore_source``).
+
 Off their defaults these raise "not yet ported" (``config.py``): the
-quantized remesh stream (``elastic.remesh_wire_dtype``), gossip membership
-(``membership.mode``) and the replicated checkpoint sources
-(``checkpoint.cache_dir``, ``peers``, ``replica_fanout``,
-``serve_cache``); ``worker --multihost`` raises in the CLI.
+quantized remesh stream (``elastic.remesh_wire_dtype``) and gossip
+membership (``membership.mode``); ``worker --multihost`` raises in the
+CLI.
 """
 
 from __future__ import annotations
@@ -65,8 +72,15 @@ from serverless_learn_tpu_torch.telemetry.dcn import instrument_store
 from serverless_learn_tpu_torch.telemetry.registry import get_registry
 from serverless_learn_tpu_torch.training.checkpoint import Checkpointer
 from serverless_learn_tpu_torch.training.loop import make_source
+from serverless_learn_tpu_torch.training.replicate import (maybe_replicated,
+                                                           serve_cache)
 from serverless_learn_tpu_torch.training.train_step import build_trainer
 from serverless_learn_tpu_torch.utils.metrics import log_json
+
+
+# The longest a worker's exit waits for its queued peer pushes: a
+# multi-GB state moves through one Python stream at ~0.5-0.7 GB/s.
+_PUSH_DRAIN_S = 300.0
 
 
 def default_device_policy(peers, local_devices) -> List:
@@ -104,10 +118,17 @@ class ElasticTrainer:
         self.name = name
         self.device = torch.device(device)
         self.registry = registry or get_registry()
+        ccfg = config.checkpoint
+        self._primary = instrument_store(store, "remesh",
+                                         registry=self.registry)
         self.ckpt = Checkpointer(
-            instrument_store(store, "remesh", registry=self.registry),
-            name=name, async_save=False, sharded=True,
-            keep=config.checkpoint.keep, verify=config.checkpoint.verify)
+            maybe_replicated(self._primary, ccfg), name=name,
+            async_save=False, sharded=True, keep=ccfg.keep,
+            verify=ccfg.verify)
+        self.cache_server = None
+        if ccfg.serve_cache and ccfg.cache_dir:
+            self.cache_server = serve_cache(ccfg.cache_dir,
+                                            port=ccfg.serve_cache_port)
         self.verbose = verbose
         self.name_wait_s = name_wait_s
         self.transitions: List[EpochTransition] = []
@@ -332,6 +353,8 @@ class ElasticTrainer:
                     "restore_s": round(t2 - t1, 6) if restored else None,
                     "restore_bytes": restored,
                     "restore_io_s": restore_io_s,
+                    "restore_source": (self.ckpt.timings.get(
+                        "restore_source") if restored else None),
                     "restored_step": step if restored else None,
                     "step_peak_bytes": step_peak,
                     "transition_peak_bytes": self._peak()}
@@ -402,8 +425,14 @@ class ElasticTrainer:
                     return state, losses
         finally:
             self.ckpt.close()  # disarms the emergency hook
-            if hasattr(self.ckpt.store, "close"):
+            if self.ckpt.store is not self._primary:
+                # The last commit's pushes reach the peers before exit.
+                self.ckpt.store.flush(_PUSH_DRAIN_S)
                 self.ckpt.store.close()
+            if hasattr(self._primary, "close"):
+                self._primary.close()
+            if self.cache_server is not None:
+                self.cache_server.stop()
             if source is not None and hasattr(source, "close"):
                 source.close()
             if self._agent is not None:

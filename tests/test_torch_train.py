@@ -178,9 +178,6 @@ UNPORTED_VALUES = {
     ("train", "zero_stage"): 1, ("train", "donate_state"): False,
     ("data", "augment"): True, ("data", "mask_rate"): 0.3,
     ("data", "learnable"): True,
-    ("checkpoint", "cache_dir"): "ckpt-cache", ("checkpoint", "peers"): "a:1",
-    ("checkpoint", "replica_fanout"): 3, ("checkpoint", "serve_cache"): True,
-    ("checkpoint", "serve_cache_port"): 50070,
     ("membership", "mode"): "gossip", ("elastic", "remesh_wire_dtype"): "int8",
 }
 
