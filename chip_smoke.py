@@ -10,8 +10,9 @@ any failing phase exits non-zero:
 2. builds every CUDA kernel of the port from ``csrc/`` (four sources) with
    nvcc, one process per source, all at once, prints each kernel's
    registers and spills (the saved report where a kernel was built
-   before), and fails unless the report shows each tensor-core flash
-   backward kernel (dq, dk/dv at D = 32, 64, 128) with no spills;
+   before), and fails unless the report shows each tensor-core kernel
+   (``NO_SPILL``: the flash forward on mma.sync and the flash dq and dk/dv
+   on wgmma at D = 32, 64, 128; the int8 matmul's) with no spills;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, on both sides of its decode/prefill
    threshold and at every row count phase 9 serves (decode batches and
@@ -40,8 +41,12 @@ any failing phase exits non-zero:
    masks; runs the forward, dq and dk/dv twice at both training shapes
    and fails unless they repeat bit for bit;
 7. times them at the llama_1b training shape and at the llama_8b
-   attention shape (D = 128) beside their bounds, their plain versions
-   and ``scaled_dot_product_attention``;
+   attention shape (D = 128) beside their bounds, their plain versions,
+   ``scaled_dot_product_attention`` and the parent's kernels' times
+   (``PARENT_FLASH_MS``); then forward + backward of the three kernels
+   against the dense form (``ops/attention.py``) at T = 1,024, 2,048 and
+   4,096 at both head layouts, the crossover ``impl="auto"`` would need
+   (measured only: the threshold stays);
 6b. holds the cross-entropy kernels (K4 forward, K5 backward) against
     their plain versions: the llama_8b loss shape read through the strided
     ``logits[:, :-1]``, a ragged and an odd (unaligned) vocab, f32, equal
@@ -260,6 +265,14 @@ runs only phase 10's ``train`` with ``--checkpoint-dir`` at the defaults
 (250 steps, no periodic save among them) the same way, for an A/B of the
 checkpoint path's steady tokens/s, the emergency shadow's refreshes
 included, between commits.
+
+    python3 chip_smoke.py --flash-only
+
+builds the flash kernels and runs only phases 6, 7 (both shapes and the
+dense crossover) and 8b (llama_1b's step) on the package next to this
+file, with no result line: copied into a checkout of another commit, it
+gives that commit's flash kernels the same checks and yardsticks, for an
+A/B of K1-K3 and of the step between commits.
 
     python3 chip_smoke.py --elastic-only
 
@@ -1667,6 +1680,16 @@ FLASH_CASES = [
 # K1, K2 and K3 run twice on these cases and must repeat bit for bit (no
 # atomics).
 REPEAT_CASES = ("train_shape", "train_shape_8b")
+# The earlier kernels' times at phase 7's shapes, by head dim (ms: K1, K2
+# and K3 all on mma.sync, before K2's and K3's wgmma redesign; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6), printed beside this run's.
+PARENT_FLASH_MS = {
+    64: {"flash_fwd": 0.776, "flash_dq": 1.046, "flash_dkv": 1.773},
+    128: {"flash_fwd": 1.350, "flash_dq": 1.847, "flash_dkv": 2.774},
+}
+# Forward + backward of K1-K3 against the dense form at these sequence
+# lengths (batch TRAIN_B, causal, both head layouts).
+CROSSOVER_T = (1024, 2048, 4096)
 
 
 def flash_inputs(torch, g, shape, mode, dtype):
@@ -1788,9 +1811,50 @@ def flash_bounds(shape, causal=True):
 
 def time_flash(torch, card):
     """Phase 7: K1, K2, K3 at the llama_1b training shape (the kernels
-    line's figures) and at the llama_8b LoRA attention shape."""
+    line's figures) and at the llama_8b LoRA attention shape, then the
+    dense crossover."""
     rows = time_flash_shape(torch, card, FLASH_SHAPE)
     time_flash_shape(torch, card, FLASH_SHAPE_8B)
+    flash_crossover(torch, card)
+    return rows
+
+
+def flash_crossover(torch, card):
+    """Forward + backward of attention through the flash kernels (K1, then
+    K2 and K3 from ``flash_attention``'s autograd) and through the dense
+    form (``ops.attention.xla_attention``: einsums, an f32 softmax, ATen's
+    backward), causal, bf16, B = TRAIN_B, at each CROSSOVER_T and both head
+    layouts: where flash starts to win on this card. Measured only:
+    ``impl="auto"`` keeps the reference's thresholds."""
+    from serverless_learn_tpu_torch.ops.attention import xla_attention
+    from serverless_learn_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for _, _, _, h, k, d in (FLASH_SHAPE, FLASH_SHAPE_8B):
+        for t in CROSSOVER_T:
+            q, kk, v, dout, _ = flash_inputs(
+                torch, g, (TRAIN_B, t, t, h, k, d), "none", "bfloat16")
+            q, kk, v = (x.requires_grad_() for x in (q, kk, v))
+            row = {}
+            for form, fn in (("flash", flash_attention),
+                             ("dense", xla_attention)):
+                def step(i, fn=fn):
+                    fn(q, kk, v, causal=True).backward(dout)
+                    q.grad = kk.grad = v.grad = None
+                torch.cuda.reset_peak_memory_stats()
+                # flash at T <= 2,048 is short enough for the host's
+                # autograd and launches to show: the median of 3 runs
+                row[f"{form}_ms"] = time_ms(torch, step, 10, warmup=2,
+                                            reps=3)
+                row[f"{form}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            row["dense_over_flash"] = row["dense_ms"] / row["flash_ms"]
+            emit("flash_crossover", card=card, batch=TRAIN_B, seq_len=t,
+                 heads=h, kv_heads=k, head_dim=d, causal=True,
+                 dtype="bfloat16", **row)
+            rows.append(row)
+            del q, kk, v, dout
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1853,7 +1917,9 @@ def time_flash_shape(torch, card, shape):
                           bound_by=by, flops=flops,
                           tflops_per_s=flops / ms[name] / 1e9,
                           fraction_of_bound=b_ms / ms[name],
-                          library_ms=library[name])
+                          library_ms=library[name],
+                          parent_ms=PARENT_FLASH_MS.get(shape[5], {}).get(
+                              name))
         emit("time_flash", card=card, kernel=name, shape=list(shape),
              causal=True, dtype="bfloat16", **rows[name])
     emit("time_flash_fwd_bwd", card=card, shape=list(shape),
@@ -2403,9 +2469,10 @@ def kernel_split(torch, prof, names):
     cuBLAS's products and the rest, and the top kernels."""
     span, busy, _, by_name, kern = device_time(torch, prof, "")
     # a wrapper's kernels: <name>_kernel (CUDA cores), <name>_bf16 (the
-    # tensor-core flash kernels)
+    # flash forward on mma.sync), <name>_wgmma (the flash dq and dk/dv)
     ours = {n: sum(v for k, v in by_name.items()
-                   if f"{n}_kernel" in k or f"{n}_bf16" in k) / 1e3
+                   if any(f"{n}_{kind}" in k
+                          for kind in ("kernel", "bf16", "wgmma"))) / 1e3
             for n in names}
     # cuBLAS's products: its Hopper kernels are named nvjet_* or *gemm*.
     matmul = sum(v for k, v in by_name.items()
@@ -4624,10 +4691,19 @@ def qlora_block_grads(torch, card, model, batch, split_reference):
 # must appear.
 NO_SPILL = {
     "flash_attention": [f"{kern}ILi{d}E" for kern in (
-        "flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
+        "flash_fwd_bf16", "flash_dq_wgmma", "flash_dkv_wgmma")
         for d in (32, 64, 128)],
     "quant_matmul": ["quant_decodeI", "quant_prefillI", "quant_reduceI"],
 }
+
+
+def ptxas_summary(reports):
+    """Each source's ptxas lines on registers and spills, by function."""
+    return {name: [ln.split("ptxas info    : ")[-1].strip()
+                   for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln
+                   or "Function properties" in ln]
+            for name, log in reports.items()}
 
 
 def spill_faults(log: str, kernels):
@@ -4664,6 +4740,23 @@ def quant_matmul_only(torch, qm, build, card) -> int:
     model = build_model("llama_8b", device="cuda", quant="int8", seed=0)
     where_time_goes(torch, model, serve_prompts(torch, model.cfg.vocab_size),
                     card)
+    return 0
+
+
+def flash_only(torch, build, card) -> int:
+    """Phases 6, 7 and 8b alone, for whichever flash kernels the package
+    beside this file builds: their checks against the plain versions, their
+    times at both shapes beside the yardsticks and the dense crossover, and
+    llama_1b's training step. The ptxas report is printed, not gated: the
+    kernels' names differ between commits."""
+    emit("build", card=card,
+         ptxas=ptxas_summary(build.build(["flash_attention"])))
+    build.load("flash_attention")
+    check_flash(torch, card)
+    time_flash(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full_width(torch, card)
     return 0
 
 
@@ -6216,6 +6309,8 @@ def main() -> int:
         return quant_matmul_only(torch, qm, build, card)
     if "--train-only" in sys.argv[1:]:
         return train_only(torch, build, card)
+    if "--flash-only" in sys.argv[1:]:
+        return flash_only(torch, build, card)
     if "--serve-only" in sys.argv[1:]:
         return serve_only(torch, build, card)
     if "--ckpt-train-only" in sys.argv[1:]:
@@ -6244,11 +6339,7 @@ def main() -> int:
     for name in sources:
         build.load(name)
     emit("build", card=card, seconds=time.perf_counter() - t0,
-         ptxas={name: [ln.split("ptxas info    : ")[-1].strip()
-                       for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln
-                       or "Function properties" in ln]
-                for name, log in reports.items()})
+         ptxas=ptxas_summary(reports))
     faults = {name: spill_faults(reports.get(name, ""), kernels)
               for name, kernels in NO_SPILL.items()}
     if any(faults.values()):

@@ -30,15 +30,16 @@
 // What bounds it on an H100 SXM: the operations. Causal attention at
 // B=2, T=4096, H=32, D=64 is 1.4e11 FLOPs forward (0.14 ms at the 989
 // TFLOP/s bf16 tensor-core rate) against 17 MB of q/k/v/out, and the
-// backward 2.5x that. Two designs share this file:
+// backward 2.5x that. Three designs share this file:
 //   * K1-K3 in f32 (llama_tiny's f32 tests): the products on the CUDA
 //     cores in f32 (67 TFLOP/s peak), well above that bound; described
 //     next.
-//   * K1-K3 in bf16, the forward and backward of every full-width path:
-//     the products on the tensor cores (mma.sync, ldmatrix, cp.async),
-//     described at `namespace hk` below. wgmma with TMA-fed tiles is the
-//     next step.
-// Both keep flash attention's memory side: the [T, S] scores never reach
+//   * K1 in bf16: the products on the tensor cores through mma.sync fed by
+//     ldmatrix from a cp.async ring, described at `namespace hk` below.
+//   * K2 and K3 in bf16, the backward of every full-width path: wgmma fed
+//     by TMA through an mbarrier ring, a producer warp and two consumer
+//     warpgroups a block, described at `namespace wk` below.
+// All keep flash attention's memory side: the [T, S] scores never reach
 // device memory, each q/k/v tile is read into shared memory once per block,
 // and blocks above the causal diagonal or past a "len" row's length are
 // skipped outright.
@@ -55,10 +56,12 @@
 //     group's q heads and the q tiles at or below the diagonal and writes
 //     dk, dv once: no atomics, deterministic sums, no [B, H, S, D] buffer.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "hopper_ptx.cuh"
@@ -70,6 +73,7 @@ constexpr int kBK = 64;                 // key rows per tile
 constexpr int kThreads = 256;           // 16 x 16
 constexpr int kPad = kBQ + 4;           // row stride of the p / ds tile
 constexpr float kNeg = -1e30f;          // the mask floor (`_NEG`)
+constexpr float kLog2e = 1.4426950408889634f;
 
 // max(a, b) that returns NaN when either is NaN (jnp.maximum); the same
 // value as fmaxf otherwise.
@@ -561,62 +565,41 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// --------------------------------------- K1, K2 and K3 in bf16 (Hopper) ----
+// ------------------------------------------------- K1 in bf16 (Hopper) ----
 //
-// K1 replaces `_fwd_kernel` (call `:223`), K2 `_bwd_dq_kernel` (`:371`,
-// call `:403`) and K3 `_bwd_dkv_kernel` (call `:427`, group sum
-// `:439-444`). What bounds them is the operations: K3 does four products
-// of 2 D FLOPs per (query, key) pair, K2 three, K1 two, so at llama_8b's
-// B=2, T=S=4096, H=32, D=128 causal K3 is 5.5e11 FLOPs (0.56 ms at 989
-// TFLOP/s) against ~0.1 GB of operands. The
-// CUDA-core design ran them at ~20 TFLOP/s: f32 FMAs, tiles widened to f32
-// and transposed in shared memory (one block an SM at D = 128), synchronous
-// loads, a mask test on every element. This design runs on the tensor
-// cores. Every product is mma.sync.m16n8k16 (bf16 in, f32 sums) with
-// operands read from shared memory by ldmatrix; tiles sit in shared memory
-// in bf16 as they lie in
+// K1 replaces `_fwd_kernel` (call `:223`). What bounds it is the
+// operations: two products of 2 D FLOPs per (query, key) pair, 0.14 ms at
+// llama_1b's B=2, T=4096, H=32, D=64 causal against ~17 MB of operands.
+// The CUDA-core design ran it at ~20 TFLOP/s: f32 FMAs, tiles widened to
+// f32 and transposed in shared memory, synchronous loads, a mask test on
+// every element. This design runs on the tensor cores. Every product is
+// mma.sync.m16n8k16 (bf16 in, f32 sums) with operands read from shared
+// memory by ldmatrix; tiles sit in shared memory in bf16 as they lie in
 // device memory (rows padded by 16 bytes, so the 8 rows an ldmatrix reads
 // fall in 8 different bank groups), filled by a two-stage ring of 16-byte
 // cp.async copies whose zero-fill form reads rows past T or S as 0. A block
-// has 4 warps (128 threads) and a 64-row tile of each operand.
-//   * K3 (flash_dkv_bf16): each warp owns 16 keys of the block's key tile.
-//     It computes S^T = K Q^T and dP^T = V dO^T into registers, forms P^T
-//     and dS^T there, and packs them to bf16 A fragments in place (the
-//     m16n8 accumulator layout is the A layout of the next m16n8k16), so
-//     dV += P^T dO and dK += dS^T Q read dO and Q by ldmatrix.trans and
-//     nothing goes through shared memory. dK and dV stay in registers over
-//     the group's q heads and q tiles; the next q tile (with its lse and
-//     delta rows) loads while the current one computes. At D = 128 the q
-//     tile is taken 32 queries at a time to keep dK + dV (128 registers a
-//     thread) and the scores under the register limit without spills.
-//   * K2 (flash_dq_bf16): each warp owns 16 query rows; Q and dO of the
-//     block load once, the next K/V tile loads while the current one
-//     computes, and dq += dS K reads K by ldmatrix.trans.
-//   * K1 (flash_fwd_bf16): each warp owns 16 query rows, whose Q stays in
-//     registers as A fragments; 64-key K/V tiles flow through the same
-//     two-stage ring. S = Q K^T (K by plain ldmatrix) stays in the
-//     accumulators, where the online softmax runs per row: the max over a
-//     quad by shuffles, p = exp2(s * scale log2 e - m), the running sum
-//     and out rescaled by exp2(m_old - m_new). p is packed to bf16 A
-//     fragments in place (rounded against the running max, as the
-//     reference's block-wise p), so out += P V reads V by ldmatrix.trans
-//     and P never touches shared memory. A masked p is selected to 0
-//     after the exp, and a row masked so far keeps its max at the floor,
-//     where the rescale is exp2(0) = 1: no inf or NaN reaches a product.
-// Masks are tested only where a tile needs them: the causal diagonal, the
-// ragged tails, and the "len" and "rows" modes; interior tiles of mode
-// none go straight to exp2 with scale * log2(e) folded into one FFMA.
-// Tiles wholly above the causal diagonal are skipped per warp. The
-// tensor cores add each product's terms in another order than the CUDA
-// cores of the f32 path: the difference is f32 round-off, far inside the
-// bf16 limit (kernel_tolerance). No atomics: runs repeat bit for bit.
+// has 4 warps (128 threads) and a 64-row tile of each operand. Each warp
+// owns 16 query rows, whose Q stays in registers as A fragments; 64-key
+// K/V tiles flow through the ring. S = Q K^T (K by plain ldmatrix) stays in
+// the accumulators, where the online softmax runs per row: the max over a
+// quad by shuffles, p = exp2(s * scale log2 e - m), the running sum and out
+// rescaled by exp2(m_old - m_new). p is packed to bf16 A fragments in place
+// (rounded against the running max, as the reference's block-wise p), so
+// out += P V reads V by ldmatrix.trans and P never touches shared memory.
+// A masked p is selected to 0 after the exp, and a row masked so far keeps
+// its max at the floor, where the rescale is exp2(0) = 1: no inf or NaN
+// reaches a product. Masks are tested only where a tile needs them: the
+// causal diagonal, the ragged tails, and the "len" and "rows" modes;
+// interior tiles of mode none go straight to exp2 with scale * log2(e)
+// folded into one FFMA. Tiles wholly above the causal diagonal are skipped
+// per warp. No atomics: runs repeat bit for bit. wgmma with TMA-fed tiles,
+// as K2 and K3 have, is its next step.
 
 namespace hk {
 
 constexpr int kTile = 64;       // rows of every tile (queries or keys)
 constexpr int kWarps = 4;       // 16 rows each
 constexpr int kThreads = 32 * kWarps;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
@@ -656,286 +639,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stri
       *reinterpret_cast<uint32_t*>(out + 8 * n) = pack(acc[n][2 * half], acc[n][2 * half + 1]);
     }
   }
-}
-
-// ---------------------------------------------------------------- K3 ----
-
-template <int D>
-constexpr int kDkvChunk = D == 128 ? 32 : 64;  // queries a K3 warp takes at once
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // K, V, then two stages of (Q, dO, lse, delta)
-  return 6 * Tile<D>::kBytes + 2 * 2 * kTile * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_bf16(Args a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = Tile<D>::kLd, QC = kDkvChunk<D>, NQ = QC / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + Tile<D>::kElems;
-  bf16* sQ = sV + Tile<D>::kElems;       // [2 stages][kTile][LD]
-  bf16* sG = sQ + 2 * Tile<D>::kElems;   // dO, the same
-  float* sL = reinterpret_cast<float*>(sG + 2 * Tile<D>::kElems);  // [2][kTile]
-  float* sDl = sL + 2 * kTile;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int j = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int group = a.H / a.KH;
-  const int k0 = j * kTile, kw = k0 + 16 * warp;  // the block's and the warp's first key
-  const int vlen = row_length(a, b);
-  const int n_q = (a.T + kTile - 1) / kTile;
-  const int i0 = a.causal ? k0 / kTile : 0;
-  int i1 = n_q;
-  if (a.mask_mode == kLen) i1 = k0 >= vlen ? 0 : min(n_q, (vlen + kTile - 1) / kTile);
-  const int n_i = max(i1 - i0, 0), n_iter = group * n_i;
-  const int64_t qs = static_cast<int64_t>(a.H) * D, ks = static_cast<int64_t>(a.KH) * D;
-  const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
-  const bf16* qbase = static_cast<const bf16*>(a.q) + static_cast<int64_t>(b) * a.T * qs;
-  const bf16* gbase = static_cast<const bf16*>(a.dout) + static_cast<int64_t>(b) * a.T * qs;
-  const float scale2 = a.scale * kLog2e;
-  const float fl = raw_floor(a.scale);
-
-  // Issues the copies of iteration `it` (q head, q tile) into stage it % 2.
-  auto issue = [&](int it) {
-    const int h = kh * group + it / n_i, q0 = (i0 + it % n_i) * kTile, st = it & 1;
-    load_rows<D>(sQ + st * Tile<D>::kElems, qbase + h * D, qs, q0, a.T);
-    load_rows<D>(sG + st * Tile<D>::kElems, gbase + h * D, qs, q0, a.T);
-    const int64_t stat = (static_cast<int64_t>(b) * a.H + h) * a.T;
-    const int r = threadIdx.x & (kTile - 1);
-    const bool ok = q0 + r < a.T;
-    const float* src = threadIdx.x < kTile ? a.lse_in : a.delta;
-    float* dst = (threadIdx.x < kTile ? sL : sDl) + st * kTile + r;
-    cp4(dst, ok ? src + stat + q0 + r : src, ok ? 4 : 0);
-  };
-
-  load_rows<D>(sK, static_cast<const bf16*>(a.k) + koff, ks, k0, a.S);
-  load_rows<D>(sV, static_cast<const bf16*>(a.v) + koff, ks, k0, a.S);
-  if (n_iter > 0) issue(0);
-  cp_commit();
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const uint32_t uK = smem_u32(sK), uV = smem_u32(sV);
-
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) issue(it + 1);
-    cp_commit();
-    cp_wait<1>();
-    // Stage it % 2 (and K, V) landed for every thread; and whether a row of
-    // this q tile has a NaN lse (each of the first kTile threads reads the
-    // one it copied), which sends the tile down the masked path.
-    const int st = it & 1, q0 = (i0 + it % n_i) * kTile;
-    const bool nan_lse = __syncthreads_or(
-        threadIdx.x < kTile && isnan(sL[st * kTile + threadIdx.x]));
-    const uint32_t uQ = smem_u32(sQ + st * Tile<D>::kElems);
-    const uint32_t uG = smem_u32(sG + st * Tile<D>::kElems);
-    const float* L = sL + st * kTile;
-    const float* Dl = sDl + st * kTile;
-#pragma unroll 1
-    for (int qc = 0; qc < kTile; qc += QC) {
-      const int qa = q0 + qc;  // first query of the chunk
-      if (kw >= a.S || (a.causal && kw > qa + QC - 1)) continue;  // all masked
-      const bool masked = a.mask_mode != kNone || qa + QC > a.T || kw + 16 > a.S ||
-                          (a.causal && kw + 15 > qa) || nan_lse;
-      float s[NQ][4], dp[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        ldsm(ka, a_addr<LD>(uK, 16 * warp, 16 * kk, lane));
-        ldsm(va, a_addr<LD>(uV, 16 * warp, 16 * kk, lane));
-#pragma unroll
-        for (int n = 0; n < NQ; n += 2) {
-          uint32_t qb[4], gb[4];
-          ldsm(qb, b_addr<LD>(uQ, qc + 8 * n, 16 * kk, lane));
-          ldsm(gb, b_addr<LD>(uG, qc + 8 * n, 16 * kk, lane));
-          mma(s[n], ka, qb[0], qb[1]);
-          mma(s[n + 1], ka, qb[2], qb[3]);
-          mma(dp[n], va, gb[0], gb[1]);
-          mma(dp[n + 1], va, gb[2], gb[3]);
-        }
-      }
-      // P^T and dS^T, packed into the A fragments of the next products.
-      uint32_t pa[QC / 16][4], da[QC / 16][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qc + 8 * n + 2 * t + (e & 1);  // query within the tile
-          const float x = exp2f(fmaf(s[n][e], scale2, -L[qi] * kLog2e));
-          bool ok = true;
-          if (masked)
-            ok = valid(a, b, q0 + qi, kw + g + 8 * (e >> 1), vlen) && !(s[n][e] <= fl);
-          p[e] = ok ? x : 0.f;
-          ds[e] = p[e] * (dp[n][e] - Dl[qi]) * a.scale;
-        }
-        pa[n / 2][2 * (n & 1)] = pack(p[0], p[1]);
-        pa[n / 2][2 * (n & 1) + 1] = pack(p[2], p[3]);
-        da[n / 2][2 * (n & 1)] = pack(ds[0], ds[1]);
-        da[n / 2][2 * (n & 1) + 1] = pack(ds[2], ds[3]);
-      }
-      // dV += P^T dO, dK += dS^T Q: k runs over the chunk's queries.
-#pragma unroll
-      for (int kq = 0; kq < QC / 16; ++kq) {
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t gb[4], qb[4];
-          ldsm_t(gb, bt_addr<LD>(uG, qc + 16 * kq, 8 * n, lane));
-          ldsm_t(qb, bt_addr<LD>(uQ, qc + 16 * kq, 8 * n, lane));
-          mma(dv[n], pa[kq], gb[0], gb[1]);
-          mma(dv[n + 1], pa[kq], gb[2], gb[3]);
-          mma(dk[n], da[kq], qb[0], qb[1]);
-          mma(dk[n + 1], da[kq], qb[2], qb[3]);
-        }
-      }
-    }
-    __syncthreads();  // stage it % 2 is read before iteration it + 2 refills it
-  }
-  cp_wait<0>();
-  bf16* dkb = static_cast<bf16*>(a.dk) + koff;
-  bf16* dvb = static_cast<bf16*>(a.dv) + koff;
-  store_rows<D>(dkb, ks, kw, a.S, dk, lane);
-  store_rows<D>(dvb, ks, kw, a.S, dv, lane);
-}
-
-// ---------------------------------------------------------------- K2 ----
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 6 * Tile<D>::kBytes;  // Q, dO, then two stages of (K, V)
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_bf16(Args a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = Tile<D>::kLd, NK = kTile / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + Tile<D>::kElems;
-  bf16* sK = sG + Tile<D>::kElems;      // [2 stages][kTile][LD]
-  bf16* sV = sK + 2 * Tile<D>::kElems;  // the same
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_q = (a.T + kTile - 1) / kTile;
-  const int i = a.causal ? n_q - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KH);
-  const int q0 = i * kTile, qw = q0 + 16 * warp;  // the block's and the warp's first query
-  const int vlen = row_length(a, b);
-  const int64_t qs = static_cast<int64_t>(a.H) * D, ks = static_cast<int64_t>(a.KH) * D;
-  const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
-  const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
-  const bf16* kb = static_cast<const bf16*>(a.k) + koff;
-  const bf16* vb = static_cast<const bf16*>(a.v) + koff;
-  const float scale2 = a.scale * kLog2e;
-  const int n_tiles = k_tiles_for(a, q0, vlen);
-
-  auto issue = [&](int jt) {
-    const int st = jt & 1;
-    load_rows<D>(sK + st * Tile<D>::kElems, kb, ks, jt * kTile, a.S);
-    load_rows<D>(sV + st * Tile<D>::kElems, vb, ks, jt * kTile, a.S);
-  };
-  load_rows<D>(sQ, static_cast<const bf16*>(a.q) + qoff, qs, q0, a.T);
-  load_rows<D>(sG, static_cast<const bf16*>(a.dout) + qoff, qs, q0, a.T);
-  if (n_tiles > 0) issue(0);
-  cp_commit();
-
-  // This thread's two query rows: lse (times log2 e) and delta.
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = qw + g + 8 * hf;
-    const int64_t at = (static_cast<int64_t>(b) * a.H + h) * a.T + row;
-    lse2[hf] = row < a.T ? a.lse_in[at] * kLog2e : 0.f;
-    dl[hf] = row < a.T ? a.delta[at] : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const uint32_t uQ = smem_u32(sQ), uG = smem_u32(sG);
-
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    if (jt + 1 < n_tiles) issue(jt + 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int st = jt & 1, k0 = jt * kTile;
-    const uint32_t uK = smem_u32(sK + st * Tile<D>::kElems);
-    const uint32_t uV = smem_u32(sV + st * Tile<D>::kElems);
-    const bool skip = qw >= a.T || (a.causal && k0 > qw + 15);  // all masked
-    if (!skip) {
-      const bool masked = a.mask_mode != kNone || qw + 16 > a.T || k0 + kTile > a.S ||
-                          (a.causal && k0 + kTile - 1 > qw);
-      float s[NK][4], dp[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4], ga[4];
-        ldsm(qa, a_addr<LD>(uQ, 16 * warp, 16 * kk, lane));
-        ldsm(ga, a_addr<LD>(uG, 16 * warp, 16 * kk, lane));
-#pragma unroll
-        for (int n = 0; n < NK; n += 2) {
-          uint32_t kf[4], vf[4];
-          ldsm(kf, b_addr<LD>(uK, 8 * n, 16 * kk, lane));
-          ldsm(vf, b_addr<LD>(uV, 8 * n, 16 * kk, lane));
-          mma(s[n], qa, kf[0], kf[1]);
-          mma(s[n + 1], qa, kf[2], kf[3]);
-          mma(dp[n], ga, vf[0], vf[1]);
-          mma(dp[n + 1], ga, vf[2], vf[3]);
-        }
-      }
-      uint32_t da[kTile / 16][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hf = e >> 1;
-          const float x = exp2f(fmaf(s[n][e], scale2, -lse2[hf]));
-          bool ok = true;
-          if (masked) {
-            const int row = qw + g + 8 * hf, key = k0 + 8 * n + 2 * t + (e & 1);
-            ok = valid(a, b, row, key, vlen);
-          }
-          const float p = ok ? x : 0.f;
-          ds[e] = p * (dp[n][e] - dl[hf]) * a.scale;
-        }
-        da[n / 2][2 * (n & 1)] = pack(ds[0], ds[1]);
-        da[n / 2][2 * (n & 1) + 1] = pack(ds[2], ds[3]);
-      }
-      // dq += dS K: k runs over the tile's keys.
-#pragma unroll
-      for (int kq = 0; kq < kTile / 16; ++kq) {
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t kf[4];
-          ldsm_t(kf, bt_addr<LD>(uK, 16 * kq, 8 * n, lane));
-          mma(acc[n], da[kq], kf[0], kf[1]);
-          mma(acc[n + 1], da[kq], kf[2], kf[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_wait<0>();
-  store_rows<D>(static_cast<bf16*>(a.dq) + qoff, qs, qw, a.T, acc, lane);
 }
 
 // ---------------------------------------------------------------- K1 ----
@@ -1122,6 +825,537 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
 
 }  // namespace hk
 
+// ------------------------------------ K2 and K3 in bf16 (Hopper, wgmma) ----
+//
+// K3 (flash_dkv_wgmma) replaces `_bwd_dkv_kernel` (call `:427`, group sum
+// `:439-444`) and K2 (flash_dq_wgmma) `_bwd_dq_kernel` (`:251`, call
+// `:403`), the kernels `_flash_bwd_bhsd` (`:371`) calls. What bounds them
+// on the H100 is the operations: per (query, key) pair K3 does four
+// products of 2 D FLOPs (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK +=
+// dS^T Q), K2 three (S, dP, dq += dS K); at B=2, T=S=4096, H=32, KH=8,
+// D=64, causal, that is 2.8e11 and 2.1e11 FLOPs, 0.28 and 0.21 ms at
+// 989 TFLOP/s, against ~0.1 GB of operands. Only wgmma reaches that rate;
+// the design before this one (mma.sync fed by ldmatrix from a two-stage
+// cp.async ring that the same four warps issued, as K1 still is) held them
+// at 16-22 % of it.
+//
+// The design, shared by both:
+//   * A block has three warpgroups: a producer and two consumers. The
+//     producer gives its registers up (setmaxnreg 24) and one of its
+//     threads issues every load; the consumers take them (240).
+//   * Tiles come by TMA into shared memory, a tile's rows (64 or 128) in
+//     one box, through 4-D tensor maps (D, heads, rows, batch) encoded on
+//     the host: a row past T or S is out of bounds and reads as zero,
+//     where a map over B·T would read the next batch row. Boxes are 128 B
+//     wide (64 bf16) with the 128-byte swizzle, D = 128 as two boxes; at
+//     D = 32 the rows are 64 B with the 64-byte swizzle. lse and delta come by 1-D TMA maps
+//     into the same stage, one box a tile. TMA faults on a box that does
+//     not start a multiple of 16 bytes into the tensor, so at a T that is
+//     not a multiple of 4 the start is rounded down and the box widened.
+//   * A ring of kStages stages with mbarrier full/empty pairs: the
+//     producer waits for a stage to be released, arms its full barrier
+//     with the stage's bytes and issues the loads; a consumer waits for
+//     full, computes, and each of its warps releases the stage.
+//   * Every product is a wgmma: S and dP with both operands K-major in
+//     shared memory; p and ds are formed in the accumulators and packed to
+//     bf16 there, which is the register A operand of the next wgmma, so
+//     dV, dK and dq read their B (dO, Q, K) from the same swizzled stage
+//     as MN-major operands (the descriptor's transpose bit). Nothing goes
+//     back through shared memory and nothing is transposed by hand.
+//   * K3: a block owns 128 keys of one K/V head, 64 per consumer, loaded
+//     once; the stages stream (Q, dO, lse, delta) of every q tile at or
+//     below the diagonal for each q head of the group in turn, 128
+//     queries a stage at D <= 64 and 64 at D = 128. dK and dV stay in
+//     registers (at D = 128 a consumer holds both in 128 f32 registers a
+//     thread) and are written once: the group is summed inside the block,
+//     with no atomics.
+//   * K2: a block owns 128 queries of one q head, 64 per consumer; Q, dO,
+//     lse and delta load once, and the K and V tiles of every key tile at
+//     or left of the diagonal stream through the stages, 128 keys a
+//     stage. dq stays in registers and is written once. K2 stays a kernel
+//     of its own, as the reference's two pallas_calls are: no atomics, so
+//     every run repeats bit for bit.
+//   * Stages of 128 rows halve the barrier round trips and wgmma waits per
+//     FLOP against 64; K3 at D = 128 keeps 64 (128 would put dK, dV, S^T
+//     and dP^T at 256 f32 registers a thread).
+//   * Masks and skips as in K1: tiles wholly above the causal diagonal or
+//     past a "len" row's length are never loaded (a consumer whose 64 rows
+//     a loaded tile cannot reach skips it); the mask is tested only on the
+//     diagonal, ragged, "len" and "rows" tiles, and interior tiles of mode
+//     none go straight to exp2 with scale log2 e folded into one FFMA. K3
+//     keeps `raw_floor`'s rule: a -inf score against a NaN lse gives p = 0
+//     (a q tile with a NaN lse among a thread's columns takes the masked
+//     path). A query past T (K3) or a key past S (K2), which the reference
+//     does not have, gets dS = 0, so a NaN or inf that the box brings
+//     there (the next head's delta, a zero row times an inf) stays out.
+// The tensor cores add each product's terms in another order than the
+// plain version: f32 round-off, far inside kernel_tolerance.
+
+namespace wk {
+
+using namespace ptx;  // hopper_ptx.cuh: mbarrier, TMA, wgmma, setmaxnreg
+
+constexpr int kBox = 64;          // rows of a TMA box and of a consumer's share
+constexpr int kConsumers = 2;     // consumer warpgroups of a block
+constexpr int kBlockRows = kBox * kConsumers;
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kStages = 2;
+// lse and delta come R values a tile by a 1-D TMA map. A box must start a
+// multiple of 16 bytes into the tensor, so its start is rounded down to 4
+// values and it is 4 values wider; the consumers index past the rounding.
+// Each takes a 128-byte aligned slot of shared memory.
+template <int R>
+constexpr int kStatBox = R + 4;
+template <int R>
+constexpr int kStatSlot = (kStatBox<R> * 4 + 127) / 128 * 128;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// The shared-memory form of a tile of R rows (64 or 128) and D bf16
+// columns: kBoxes TMA boxes of R rows x kCols columns, each kRowBytes a row,
+// swizzled. Within a box the rows lie kRowBytes apart, so one box of R rows
+// is one K-major operand of R rows (N = R) and R / 16 MN-major k-slices.
+template <int D, int R>
+struct Lay {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kBoxBytes = R * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // 128 B or 64 B
+  static constexpr int kGroupBytes = 8 * kRowBytes;               // 8 rows
+};
+
+// The descriptor of a K-major operand: all R rows of the tile at `tile`,
+// k-slice kk (columns 16 kk .. 16 kk + 15 of D).
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  using L = Lay<D, R>;
+  constexpr int kPerBox = L::kCols / 16;
+  return gmma_desc(tile + (kk / kPerBox) * L::kBoxBytes + (kk % kPerBox) * 32, 16,
+                   L::kGroupBytes, L::kSwizzle);
+}
+
+// The descriptor of an MN-major operand: k-rows [k0, k0 + 16) of the tile
+// at `tile`, all D columns (N = D, the boxes kBoxBytes apart).
+template <int D, int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int k0) {
+  using L = Lay<D, R>;
+  return gmma_desc(tile + k0 * L::kRowBytes, L::kBoxBytes, L::kGroupBytes, L::kSwizzle);
+}
+
+// Issues the TMA loads of the R-row tile at rows `row0` of head `head`
+// (through a map whose boxes are R rows).
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int head, int row0, int b) {
+  using L = Lay<D, R>;
+#pragma unroll
+  for (int bx = 0; bx < L::kBoxes; ++bx)
+    tma_load_4d(dst + bx * L::kBoxBytes, map, bar, bx * L::kCols, head, row0, b);
+}
+
+// The A operand of the next wgmma from the m64 x N accumulator x (f32,
+// N / 8 n-tiles of 4): k-slice kq takes n-tiles 2 kq and 2 kq + 1.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float (*x)[4]) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    a[n / 2][2 * (n & 1)] = pack(x[n][0], x[n][1]);
+    a[n / 2][2 * (n & 1) + 1] = pack(x[n][2], x[n][3]);
+  }
+}
+
+struct Maps {
+  CUtensorMap q, g, k, v, lse, delta;  // q, dO, k, v: 4-D; lse, delta: 1-D
+};
+
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem) {
+  return (smem_u32(smem) + 1023u) & ~1023u;
+}
+
+// ---------------------------------------------------------------- K3 ----
+
+// Queries of a K3 stage: 128 at D <= 64; 64 at D = 128, where dK and dV
+// already hold 128 registers a thread.
+template <int D>
+constexpr int kDkvQueries = D <= 64 ? 128 : 64;
+
+template <int D>
+struct DkvSmem {  // byte offsets from the 1024-aligned base
+  static constexpr int kQBytes = Lay<D, kDkvQueries<D>>::kTileBytes;  // Q or dO of a stage
+  static constexpr int kK = 0;                                    // [consumer] tiles
+  static constexpr int kV = kK + kConsumers * Lay<D, kBox>::kTileBytes;
+  static constexpr int kStage = kV + kConsumers * Lay<D, kBox>::kTileBytes;  // [stage] (Q, dO)
+  static constexpr int kStats = kStage + kStages * 2 * kQBytes;  // [stage] (lse, delta)
+  static constexpr int kBars = kStats + kStages * 2 * kStatSlot<kDkvQueries<D>>;  // full, empty, kv
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_wgmma(const __grid_constant__ Maps m, const Args a) {
+  using L = Lay<D, kBox>;  // K and V
+  using SM = DkvSmem<D>;
+  constexpr int QS = kDkvQueries<D>, NQ = QS / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const float* stats = reinterpret_cast<const float*>(smem + (base - smem_u32(smem)) + SM::kStats);
+  const uint32_t full = base + SM::kBars, empty = full + 8 * kStages, kv_bar = empty + 8 * kStages;
+
+  // The key blocks with the most q tiles first (causal: key block 0).
+  const int j = blockIdx.x / (a.KH * a.B), rest = blockIdx.x % (a.KH * a.B);
+  const int kh = rest % a.KH, b = rest / a.KH;
+  const int group = a.H / a.KH, k0 = j * kBlockRows;
+  const int vlen = row_length(a, b);
+  const int n_q = (a.T + QS - 1) / QS;
+  // The first q tile at or below the diagonal (`first_i`, :326); "len"
+  // skips the q tiles and the key blocks past the row's length.
+  const int i0 = a.causal ? k0 / QS : 0;
+  int i1 = n_q;
+  if (a.mask_mode == kLen) i1 = k0 >= vlen ? 0 : min(n_q, (vlen + QS - 1) / QS);
+  const int n_i = max(i1 - i0, 0), n_iter = group * n_i;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);  // one arrival a consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup; one thread loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&m.q);
+      prefetch_map(&m.g);
+      mbar_expect_tx(kv_bar, 2 * kConsumers * L::kTileBytes);
+      for (int c = 0; c < kConsumers; ++c) {
+        load_tile<D, kBox>(base + SM::kK + c * L::kTileBytes, &m.k, kv_bar, kh, k0 + c * kBox, b);
+        load_tile<D, kBox>(base + SM::kV + c * L::kTileBytes, &m.v, kv_bar, kh, k0 + c * kBox, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % kStages;
+        mbar_wait(empty + 8 * st, ((it / kStages) & 1) ^ 1);
+        const int h = kh * group + it / n_i, q0 = (i0 + it % n_i) * QS;
+        const uint32_t bar = full + 8 * st, sq = base + SM::kStage + st * 2 * SM::kQBytes;
+        mbar_expect_tx(bar, 2 * SM::kQBytes + 2 * kStatBox<QS> * 4);
+        load_tile<D, QS>(sq, &m.q, bar, h, q0, b);
+        load_tile<D, QS>(sq + SM::kQBytes, &m.g, bar, h, q0, b);
+        const int stat = ((b * a.H + h) * a.T + q0) & ~3;
+        const uint32_t sl = base + SM::kStats + st * 2 * kStatSlot<QS>;
+        tma_load_1d(sl, &m.lse, bar, stat);
+        tma_load_1d(sl + kStatSlot<QS>, &m.delta, bar, stat);
+      }
+    }
+  } else {  // a consumer: 64 keys
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int kw0 = k0 + wg * kBox;  // the consumer's first key
+    const int kw = kw0 + 16 * warp;  // its warp's
+    const float scale2 = a.scale * kLog2e, fl = raw_floor(a.scale);
+    // The key-only terms of `valid` for this thread's two keys, and the
+    // query limit.
+    bool key_ok[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = kw + g + 8 * hf;
+      key_ok[hf] = key < a.S && (a.mask_mode != kLen || key < vlen) &&
+                   (a.mask_mode != kRows || a.mask[static_cast<int64_t>(b) * a.S + key] != 0);
+    }
+    const int qlim = a.mask_mode == kLen ? min(a.T, vlen) : a.T;
+    const int klim = a.mask_mode == kLen ? min(a.S, vlen) : a.S;
+    const uint32_t uK = base + SM::kK + wg * L::kTileBytes;
+    const uint32_t uV = base + SM::kV + wg * L::kTileBytes;
+
+    float dk[ND][4], dv[ND][4], s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    mbar_wait(kv_bar, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % kStages;
+      mbar_wait(full + 8 * st, (it / kStages) & 1);
+      const int h = kh * group + it / n_i, q0 = (i0 + it % n_i) * QS;
+      const uint32_t sq = base + SM::kStage + st * 2 * SM::kQBytes, sg = sq + SM::kQBytes;
+      const float* lse =
+          stats + st * 2 * (kStatSlot<QS> / 4) + (((b * a.H + h) * a.T + q0) & 3);
+      const float* delta = lse + kStatSlot<QS> / 4;
+      if (!(kw0 >= klim || q0 >= qlim || (a.causal && kw0 > q0 + QS - 1))) {  // else all masked
+        bool masked = a.mask_mode != kNone || q0 + QS > a.T || kw0 + kBox > a.S ||
+                      (a.causal && kw0 + kBox - 1 > q0);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)  // a NaN lse in this thread's columns
+          masked = masked || isnan(lse[8 * n + 2 * t]) || isnan(lse[8 * n + 2 * t + 1]);
+        // S^T = K Q^T and dP^T = V dO^T, k over D.
+        wgmma_fence();
+        wgmma_ss<QS, 0>(&s[0][0], kmajor<D, kBox>(uK, 0), kmajor<D, QS>(sq, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss<QS, 1>(&s[0][0], kmajor<D, kBox>(uK, kk),
+                          kmajor<D, QS>(sq, kk));
+        wgmma_commit();
+        wgmma_ss<QS, 0>(&dp[0][0], kmajor<D, kBox>(uV, 0), kmajor<D, QS>(sg, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss<QS, 1>(&dp[0][0], kmajor<D, kBox>(uV, kk),
+                          kmajor<D, QS>(sg, kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<QS / 2>(&s[0][0]);
+        // P^T (keys x queries), then dV += P^T dO, k over the queries.
+        if (masked) {
+#pragma unroll
+          for (int n = 0; n < NQ; ++n) {
+            const int qi = 8 * n + 2 * t;  // the query within the tile
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float x = exp2f(fmaf(s[n][e], scale2, -lse[qi + (e & 1)] * kLog2e));
+              const int q = q0 + qi + (e & 1), key = kw + g + 8 * (e >> 1);
+              const bool ok = key_ok[e >> 1] && q < qlim && !(a.causal && key > q) &&
+                              !(s[n][e] <= fl);
+              s[n][e] = ok ? x : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NQ; ++n) {
+            const int qi = 8 * n + 2 * t;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[n][e] = exp2f(fmaf(s[n][e], scale2, -lse[qi + (e & 1)] * kLog2e));
+          }
+        }
+        uint32_t pa[QS / 16][4];
+        pack_a<QS>(pa, s);
+        wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < QS / 16; ++kq) wgmma_rs<D>(&dv[0][0], pa[kq], mnmajor<D, QS>(sg, 16 * kq));
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T (dV may still run)
+        fence_regs<QS / 2>(&dp[0][0]);
+        // dS^T = P^T (dP^T - delta) scale, then dK += dS^T Q. A query past
+        // T has no row in the reference: its dS is 0 whatever its delta (the
+        // next head's) or dP (a zero dO row against an inf in V) holds.
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const int qi = 8 * n + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ds = s[n][e] * (dp[n][e] - delta[qi + (e & 1)]) * a.scale;
+            dp[n][e] = masked && q0 + qi + (e & 1) >= a.T ? 0.f : ds;
+          }
+        }
+        uint32_t da[QS / 16][4];
+        pack_a<QS>(da, dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < QS / 16; ++kq) wgmma_rs<D>(&dk[0][0], da[kq], mnmajor<D, QS>(sq, 16 * kq));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(&dv[0][0]);
+        fence_regs<D / 2>(&dk[0][0]);
+        fence_regs<QS / 4>(&pa[0][0]);
+        fence_regs<QS / 4>(&da[0][0]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);  // the warp is done with the stage
+    }
+    const int64_t ks = static_cast<int64_t>(a.KH) * D;
+    const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
+    hk::store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + koff, ks, kw, a.S, dk, lane);
+    hk::store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + koff, ks, kw, a.S, dv, lane);
+  }
+}
+
+// ---------------------------------------------------------------- K2 ----
+
+// Keys of a K2 stage.
+constexpr int kDqKeys = 128;
+
+template <int D>
+struct DqSmem {  // byte offsets from the 1024-aligned base
+  static constexpr int kKvBytes = Lay<D, kDqKeys>::kTileBytes;  // K or V of a stage
+  static constexpr int kQ = 0;                                    // [consumer] tiles
+  static constexpr int kG = kQ + kConsumers * Lay<D, kBox>::kTileBytes;
+  static constexpr int kStage = kG + kConsumers * Lay<D, kBox>::kTileBytes;  // [stage] (K, V)
+  static constexpr int kStats = kStage + kStages * 2 * kKvBytes;  // lse, delta
+  static constexpr int kBars = kStats + 2 * kConsumers * kStatSlot<kBox>;  // full, empty, q
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_wgmma(const __grid_constant__ Maps m, const Args a) {
+  using L = Lay<D, kBox>;  // Q and dO
+  using SM = DqSmem<D>;
+  constexpr int BK = kDqKeys, NK = BK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const float* stats = reinterpret_cast<const float*>(smem + (base - smem_u32(smem)) + SM::kStats);
+  const uint32_t full = base + SM::kBars, empty = full + 8 * kStages, q_bar = empty + 8 * kStages;
+
+  // Causal: the query blocks with the most key tiles first.
+  const int n_qb = (a.T + kBlockRows - 1) / kBlockRows;
+  const int ib = blockIdx.x / (a.H * a.B), rest = blockIdx.x % (a.H * a.B);
+  const int i = a.causal ? n_qb - 1 - ib : ib;
+  const int h = rest % a.H, b = rest / a.H, kh = h / (a.H / a.KH);
+  const int q0 = i * kBlockRows;
+  const int vlen = row_length(a, b);
+  // The key tiles the block visits (`last_j`, :128-146, for 128 queries).
+  int n_tiles = (a.S + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + kBlockRows - 1) / BK + 1);
+  if (a.mask_mode == kLen) n_tiles = q0 >= vlen ? 0 : min(n_tiles, (vlen + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup; one thread loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&m.k);
+      prefetch_map(&m.v);
+      mbar_expect_tx(q_bar, 2 * kConsumers * (L::kTileBytes + kStatBox<kBox> * 4));
+      const int stat = ((b * a.H + h) * a.T + q0) & ~3;
+      for (int c = 0; c < kConsumers; ++c) {
+        load_tile<D, kBox>(base + SM::kQ + c * L::kTileBytes, &m.q, q_bar, h, q0 + c * kBox, b);
+        load_tile<D, kBox>(base + SM::kG + c * L::kTileBytes, &m.g, q_bar, h, q0 + c * kBox, b);
+        tma_load_1d(base + SM::kStats + c * kStatSlot<kBox>, &m.lse, q_bar, stat + c * kBox);
+        tma_load_1d(base + SM::kStats + (kConsumers + c) * kStatSlot<kBox>, &m.delta, q_bar,
+                    stat + c * kBox);
+      }
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int st = jt % kStages;
+        mbar_wait(empty + 8 * st, ((jt / kStages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * st, sk = base + SM::kStage + st * 2 * SM::kKvBytes;
+        mbar_expect_tx(bar, 2 * SM::kKvBytes);
+        load_tile<D, BK>(sk, &m.k, bar, kh, jt * BK, b);
+        load_tile<D, BK>(sk + SM::kKvBytes, &m.v, bar, kh, jt * BK, b);
+      }
+    }
+  } else {  // a consumer: 64 queries
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int qw0 = q0 + wg * kBox;  // the consumer's first query
+    const int qw = qw0 + 16 * warp;  // its warp's
+    const float scale2 = a.scale * kLog2e;
+    const int qlim = a.mask_mode == kLen ? min(a.T, vlen) : a.T;
+    const int klim = a.mask_mode == kLen ? min(a.S, vlen) : a.S;
+    const uint32_t uQ = base + SM::kQ + wg * L::kTileBytes;
+    const uint32_t uG = base + SM::kG + wg * L::kTileBytes;
+
+    float acc[ND][4], s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    mbar_wait(q_bar, 0);
+    // This thread's two query rows: lse (times log2 e) and delta.
+    const float* lse = stats + wg * (kStatSlot<kBox> / 4) + (((b * a.H + h) * a.T + q0) & 3);
+    const float* delta = lse + kConsumers * (kStatSlot<kBox> / 4);
+    float lse2[2], dl[2];
+    bool row_ok[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 16 * warp + g + 8 * hf;
+      lse2[hf] = lse[r] * kLog2e;
+      dl[hf] = delta[r];
+      row_ok[hf] = qw + g + 8 * hf < qlim;
+    }
+
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int st = jt % kStages;
+      mbar_wait(full + 8 * st, (jt / kStages) & 1);
+      const int k0 = jt * BK;
+      const uint32_t sk = base + SM::kStage + st * 2 * SM::kKvBytes, sv = sk + SM::kKvBytes;
+      if (!(qw0 >= qlim || (a.causal && k0 > qw0 + kBox - 1))) {  // else all masked
+        const bool masked = a.mask_mode != kNone || qw0 + kBox > a.T || k0 + BK > a.S ||
+                            (a.causal && k0 + BK - 1 > qw0);
+        // S = Q K^T and dP = dO V^T, k over D.
+        wgmma_fence();
+        wgmma_ss<BK, 0>(&s[0][0], kmajor<D, kBox>(uQ, 0), kmajor<D, BK>(sk, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss<BK, 1>(&s[0][0], kmajor<D, kBox>(uQ, kk), kmajor<D, BK>(sk, kk));
+        wgmma_commit();
+        wgmma_ss<BK, 0>(&dp[0][0], kmajor<D, kBox>(uG, 0), kmajor<D, BK>(sv, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss<BK, 1>(&dp[0][0], kmajor<D, kBox>(uG, kk), kmajor<D, BK>(sv, kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<BK / 2>(&s[0][0]);
+        if (masked) {
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            int keep[2] = {1, 1};
+            if (a.mask_mode == kRows) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = k0 + 8 * n + 2 * t + e;
+                keep[e] = key < a.S ? a.mask[static_cast<int64_t>(b) * a.S + key] : 0;
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hf = e >> 1;
+              const int q = qw + g + 8 * hf, key = k0 + 8 * n + 2 * t + (e & 1);
+              const bool ok = row_ok[hf] && key < klim && keep[e & 1] != 0 &&
+                              !(a.causal && key > q);
+              s[n][e] = ok ? exp2f(fmaf(s[n][e], scale2, -lse2[hf])) : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NK; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = exp2f(fmaf(s[n][e], scale2, -lse2[e >> 1]));
+        }
+        wgmma_wait<0>();
+        fence_regs<BK / 2>(&dp[0][0]);
+        // dS = P (dP - delta) scale, then dq += dS K, k over the keys. A key
+        // past S has no column in the reference: its dS is 0.
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ds = s[n][e] * (dp[n][e] - dl[e >> 1]) * a.scale;
+            dp[n][e] = masked && k0 + 8 * n + 2 * t + (e & 1) >= a.S ? 0.f : ds;
+          }
+        uint32_t da[BK / 16][4];
+        pack_a<BK>(da, dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < BK / 16; ++kq) wgmma_rs<D>(&acc[0][0], da[kq], mnmajor<D, BK>(sk, 16 * kq));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(&acc[0][0]);
+        fence_regs<BK / 4>(&da[0][0]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+    const int64_t qs = static_cast<int64_t>(a.H) * D;
+    const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
+    hk::store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + qoff, qs, qw, a.T, acc, lane);
+  }
+}
+
+}  // namespace wk
+
 // ------------------------------------------------------------ launch ----
 
 enum Which : int { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -1134,6 +1368,106 @@ constexpr size_t smem_bytes(int which) {
                          : 4 * D * kBQ + 2 * D * kBK + kBQ * kPad + 2 * kBQ);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query,
+// so the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (D, heads, rows, batch) of a contiguous bf16 [B, rows, heads,
+// D] tensor, boxes of `box_rows` rows x min(D, 64) columns, swizzled as
+// wk::Lay expects; rows past `rows` read as zero.
+int head_map(EncodeTiled fn, CUtensorMap* m, const void* p, int B, int rows, int heads, int D,
+             int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D < 64 ? D : 64), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 1-D map of an f32 [B, H, T] statistic, boxes of `box` values.
+int stat_map(EncodeTiled fn, CUtensorMap* m, const float* p, int64_t n, int box_values) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // rank 1: none is read
+  const cuuint32_t box[1] = {static_cast<cuuint32_t>(box_values)}, unit[1] = {1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(p), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2 or K3 in bf16: the tensor maps, then the launch. TMA needs every base
+// 16-byte aligned (the row strides, 2 D bytes and their multiples, are):
+// a misaligned one is refused with cudaErrorMisalignedAddress.
+template <int D>
+int launch_wgmma(int which, const Args& a, cudaStream_t stream) {
+  for (const void* p : {a.q, a.k, a.v, a.dout, static_cast<const void*>(a.lse_in),
+                        static_cast<const void*>(a.delta)}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  wk::Maps m;
+  const int64_t n_stat = static_cast<int64_t>(a.B) * a.H * a.T;
+  // The boxes' rows: K3 streams q tiles of kDkvQueries and holds 64 keys a
+  // consumer; K2 holds 64 queries a consumer and streams kDqKeys keys.
+  const int q_rows = which == kDkv ? wk::kDkvQueries<D> : wk::kBox;
+  const int k_rows = which == kDkv ? wk::kBox : wk::kDqKeys;
+  int rc = head_map(fn, &m.q, a.q, a.B, a.T, a.H, D, q_rows);
+  if (rc == 0) rc = head_map(fn, &m.g, a.dout, a.B, a.T, a.H, D, q_rows);
+  if (rc == 0) rc = head_map(fn, &m.k, a.k, a.B, a.S, a.KH, D, k_rows);
+  if (rc == 0) rc = head_map(fn, &m.v, a.v, a.B, a.S, a.KH, D, k_rows);
+  const int box = which == kDkv ? wk::kStatBox<wk::kDkvQueries<D>> : wk::kStatBox<wk::kBox>;
+  if (rc == 0) rc = stat_map(fn, &m.lse, a.lse_in, n_stat, box);
+  if (rc == 0) rc = stat_map(fn, &m.delta, a.delta, n_stat, box);
+  if (rc != 0) return rc;
+  void (*kern)(wk::Maps, Args);
+  int smem, blocks;
+  if (which == kDkv) {
+    kern = wk::flash_dkv_wgmma<D>;
+    smem = wk::DkvSmem<D>::kBytes;
+    blocks = (a.S + wk::kBlockRows - 1) / wk::kBlockRows * a.KH * a.B;
+  } else {
+    kern = wk::flash_dq_wgmma<D>;
+    smem = wk::DqSmem<D>::kBytes;
+    blocks = (a.T + wk::kBlockRows - 1) / wk::kBlockRows * a.H * a.B;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<blocks, wk::kThreads, smem, stream>>>(m, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(int which, const Args& a, cudaStream_t stream) {
   void (*kern)(Args);
@@ -1144,11 +1478,10 @@ int launch(int which, const Args& a, cudaStream_t stream) {
            : which == kDq ? flash_dq_kernel<float, D> : flash_dkv_kernel<float, D>;
     smem = smem_bytes<D>(which);
     threads = kThreads;
-  } else {  // the tensor-core bf16 kernels
-    kern = which == kFwd ? hk::flash_fwd_bf16<D>
-           : which == kDq ? hk::flash_dq_bf16<D> : hk::flash_dkv_bf16<D>;
-    smem = which == kFwd ? hk::fwd_smem_bytes<D>()
-           : which == kDq ? hk::dq_smem_bytes<D>() : hk::dkv_smem_bytes<D>();
+  } else {  // bf16: K1 on mma.sync, K2 and K3 on wgmma
+    if (which != kFwd) return launch_wgmma<D>(which, a, stream);
+    kern = hk::flash_fwd_bf16<D>;
+    smem = hk::fwd_smem_bytes<D>();
     threads = hk::kThreads;
   }
   cudaError_t err = cudaFuncSetAttribute(

@@ -124,13 +124,45 @@ def _jax_llama_trainer():
                                                   devices=jax.devices()[:1]))
 
 
+# Steps each formation of the join-and-crash run trains before the test's
+# next event; the trainer is then held until its membership changes or it
+# is stopped, so the run is as long whatever the lease and the joins take.
+SEGMENT_STEPS = 2
+
+
+def _hold_each_formation(et, steps_now):
+    """Bound ``et.run``'s steps per formation to SEGMENT_STEPS: its step
+    loop asks ``_remesh_due()`` before every step, and the wrapper answers
+    only once the formation has taken its steps, holding the trainer until
+    the real answer is yes or a stop is requested. Returns one event per
+    formation, set when that formation is held."""
+    held = [threading.Event() for _ in range(3)]
+    starts = {}
+    remesh_due = et._remesh_due
+
+    def gated():
+        n = len(et.transitions)  # formations so far; this one is the n-th
+        start = starts.setdefault(n, steps_now())
+        while steps_now() - start >= SEGMENT_STEPS and not et._stop.is_set():
+            if n <= len(held):
+                held[n - 1].set()
+            if remesh_due():
+                return True
+            time.sleep(0.01)
+        return remesh_due()
+
+    et._remesh_due = gated
+    return held
+
+
 def _join_and_crash(et, coordinator, steps_now, joiner_chips=1):
-    """Drive ``et.run`` in a thread: after its first formation and two
-    steps a second member joins; two steps after that re-formation the
-    member crashes (its heartbeats stop, no deregister); two steps after
-    the eviction's re-formation the run is stopped. Returns run()'s
-    result."""
+    """Drive ``et.run`` in a thread, SEGMENT_STEPS steps a formation: after
+    its first formation's steps a second member joins; after the
+    re-formation's, the member crashes (its heartbeats stop, no
+    deregister); after the eviction's re-formation's, the run is stopped.
+    Returns run()'s result."""
     out, errors = [], []
+    held = _hold_each_formation(et, steps_now)
 
     def run():
         try:
@@ -143,11 +175,8 @@ def _join_and_crash(et, coordinator, steps_now, joiner_chips=1):
     joiner = None
     try:
         for k in range(3):
-            wait_for(lambda: len(et.transitions) > k or errors,
-                     f"formation {k + 1}")
-            base = steps_now()
-            wait_for(lambda: steps_now() >= base + 2 or errors,
-                     f"steps after formation {k + 1}")
+            wait_for(lambda: held[k].is_set() or errors,
+                     f"formation {k + 1}'s {SEGMENT_STEPS} steps")
             if errors:
                 break
             if k == 0:
@@ -239,6 +268,8 @@ def test_join_and_crash_match_the_reference(coordinator, shard_server,
                                                    et.transitions[1:]]
     starts = [t.step for t in et.transitions] + [state.step]
     assert starts == sorted(starts) and starts[0] == 0
+    # Each formation took its SEGMENT_STEPS, no more.
+    assert [b - a for a, b in zip(starts, starts[1:])] == [SEGMENT_STEPS] * 3
     assert len(losses) == state.step  # no step lost or repeated
     snap = reg.snapshot()
     value = lambda name, **lab: next(  # noqa: E731

@@ -192,66 +192,161 @@ def test_kernel_tolerance_passes_k1_rounding_and_fails_wrong_tiles():
 LOG2E = 1.4426950408889634
 
 
-def _k2_k3_arithmetic_bf16(q, k, v, dout, lse, delta, *, chunk=64,
-                           drop_head=None, unmasked_diagonal=False,
-                           early_skip=False):
-    """K2 and K3 as the tensor-core kernels compute them, in torch, causal,
-    with each warp's share of a 64-row tile: a K2 warp takes 16 query rows
-    against a 64-key tile, a K3 warp 16 keys against ``chunk`` queries of
-    a 64-query tile (64 at D = 32 and 64, 32 at D = 128). A warp skips a
-    block wholly above the diagonal and applies the mask only to a block
-    the diagonal crosses, by the kernels' own tests; p = exp2(s * (scale
-    log2 e) - lse log2 e), p and ds rounded to bf16 before the products,
-    every sum f32, dk/dv summed over the GQA group. ``drop_head`` leaves
-    that q head out of the group sum, ``unmasked_diagonal`` skips the
-    mask on the diagonal blocks, and ``early_skip`` has K3 skip a chunk
-    whose first query precedes the warp's first key (a wrong boundary):
-    the faults the limit must catch."""
+def _box(x, b, r0, next_row=False):
+    """Rows [r0, r0 + 64) of batch row ``b`` of x [B, N, heads, D] as a TMA
+    box loads them through the kernels' 4-D map: rows past N are zero.
+    ``next_row`` reads them as a map over B·N would, from the rows that
+    follow in memory, the next batch row's first (zeros past the tensor)."""
+    n = x.shape[1]
+    src = (x.reshape(-1, *x.shape[2:])[b * n + r0:b * n + r0 + 64] if next_row
+           else x[b, r0:r0 + 64])
+    pad = 64 - src.shape[0]
+    return torch.cat([src, src.new_zeros(pad, *src.shape[1:])]) if pad else src
+
+
+def _stat_box(stat, b, h, r0):
+    """64 values of lse or delta [B, H, T] from row r0 of (b, h) through the
+    kernels' 1-D map: past T the next head's, zeros past the tensor."""
+    flat = stat.reshape(-1)
+    at = (b * stat.shape[1] + h) * stat.shape[2] + r0
+    src = flat[at:at + 64]
+    return torch.cat([src, src.new_zeros(64 - src.shape[0])])
+
+
+def _dot16(a, b):
+    """a [m, D] b [n, D]^T as wgmma sums it: k-slices of 16, in order."""
+    out = torch.zeros(a.shape[0], b.shape[0])
+    for kk in range(0, a.shape[1], 16):
+        out = out + a[:, kk:kk + 16] @ b[:, kk:kk + 16].T
+    return out
+
+
+def _acc16(a, b):
+    """a [m, K] @ b [K, n] in k-slices of 16, in order."""
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for kk in range(0, a.shape[1], 16):
+        out = out + a[:, kk:kk + 16] @ b[kk:kk + 16]
+    return out
+
+
+def _k2_k3_wgmma_twin(q, k, v, dout, lse, delta, *, drop_head=None,
+                      unmasked_diagonal=False, skip_off_by_tile=False,
+                      next_row=False):
+    """K2 and K3 as the wgmma kernels compute them, in torch, causal:
+    (dq, dk, dv) in bf16.
+
+    * K3: a block owns 128 keys of a K/V head, 64 per consumer; the stages
+      bring (Q, dO, lse, delta) of the query tiles (128 queries at D <= 64,
+      64 at D = 128) from the diagonal on, for each q head of the group in
+      turn. S^T = K Q^T and dP^T = V dO^T (k-slices of 16 over D); p =
+      exp2(s scale log2 e - lse log2 e); p and dS^T = p (dP^T - delta)
+      scale rounded to bf16; dV += P^T dO and dK += dS^T Q in k-slices of
+      16 over the queries, summed in registers over the group and the
+      tiles.
+    * K2: a block owns 128 queries, 64 per consumer, against the 128-key
+      stages from key 0 to the diagonal: S = Q K^T, dP = dO V^T, dq +=
+      dS K.
+    * Skips and masks by the kernels' own tests: a consumer skips a tile
+      wholly above the diagonal and masks only a diagonal or ragged tile,
+      where a query past T (K3) or a key past S (K2) also gets dS = 0.
+
+    The faults the limit must catch: ``drop_head`` leaves that q head out
+    of K3's group sum, ``unmasked_diagonal`` skips the masks,
+    ``skip_off_by_tile`` moves both skip tests one stage down (the diagonal
+    stage is skipped), and ``next_row`` loads every box through a map over
+    B·T (see ``_box``)."""
     Bq, Tq, Hq, Dq = q.shape
-    Kq = k.shape[2]
+    Sk, Kq = k.shape[1], k.shape[2]
     grp = Hq // Kq
-    scale2 = torch.tensor(Dq ** -0.5, dtype=torch.float32) * LOG2E
-    qf, gf = q.float().transpose(1, 2), dout.float().transpose(1, 2)
-    kf = k.float().repeat_interleave(grp, dim=2).transpose(1, 2)
-    vf = v.float().repeat_interleave(grp, dim=2).transpose(1, 2)
-    lse2 = (lse * LOG2E)[..., None]
-    pos = torch.arange(Tq)
+    scale = Dq ** -0.5
+    scale2 = float(torch.tensor(scale, dtype=torch.float32) * LOG2E)
+    floor = float(torch.tensor(NEG * 0.5, dtype=torch.float32) / scale)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
+    pos = torch.arange(64)
 
-    def p_ds(r0, nr, c0, nc, masked):
-        """bf16 p and ds of queries [r0, r0 + nr) against keys
-        [c0, c0 + nc), the mask applied only where ``masked``."""
-        s = qf[:, :, r0:r0 + nr] @ kf[:, :, c0:c0 + nc].transpose(-1, -2)
-        p = torch.exp2(s * scale2 - lse2[:, :, r0:r0 + nr])
-        if masked and not unmasked_diagonal:
-            p = p.masked_fill(pos[None, c0:c0 + nc]
-                              > pos[r0:r0 + nr, None], 0.0)
-        dp = gf[:, :, r0:r0 + nr] @ vf[:, :, c0:c0 + nc].transpose(-1, -2)
-        ds = p * (dp - delta[:, :, r0:r0 + nr, None]) * Dq ** -0.5
-        return _round_bf16(p), _round_bf16(ds)
-
-    dq = torch.zeros(Bq, Hq, Tq, Dq)
-    for qw in range(0, Tq, 16):  # K2: a warp's 16 rows
-        for k0 in range(0, Tq, 64):
-            if k0 > qw + 15:
-                continue
-            _, ds = p_ds(qw, 16, k0, 64, k0 + 63 > qw)
-            dq[:, :, qw:qw + 16] += ds @ kf[:, :, k0:k0 + 64]
-    dk = torch.zeros(Bq, Hq, Tq, Dq)
-    dv = torch.zeros(Bq, Hq, Tq, Dq)
-    for kw in range(0, Tq, 16):  # K3: a warp's 16 keys
-        for qa in range(kw // 64 * 64, Tq, chunk):
-            if kw > (qa if early_skip else qa + chunk - 1):
-                continue
-            p, ds = p_ds(qa, chunk, kw, 16, kw + 15 > qa)
-            dk[:, :, kw:kw + 16] += ds.transpose(-1, -2) @ qf[:, :, qa:qa + chunk]
-            dv[:, :, kw:kw + 16] += p.transpose(-1, -2) @ gf[:, :, qa:qa + chunk]
-    if drop_head is not None:
-        dk[:, drop_head] = 0
-        dv[:, drop_head] = 0
-    dk = dk.transpose(1, 2).reshape(Bq, Tq, Kq, grp, Dq).sum(3)
-    dv = dv.transpose(1, 2).reshape(Bq, Tq, Kq, grp, Dq).sum(3)
-    return (dq.transpose(1, 2).to(torch.bfloat16), dk.to(torch.bfloat16),
-            dv.to(torch.bfloat16))
+    bk = 128  # keys of a K2 stage
+    kpos = torch.arange(bk)
+    dq = torch.zeros(Bq, Tq, Hq, Dq)
+    for b in range(Bq):
+        for h in range(Hq):
+            for q0 in range(0, Tq, 128):
+                n_tiles = min(-(-Sk // bk), (q0 + 127) // bk + 1)
+                for qw0 in (q0, q0 + 64):
+                    if qw0 >= Tq:
+                        continue
+                    Qt = _box(qf, b, qw0, next_row)[:, h]
+                    Gt = _box(gf, b, qw0, next_row)[:, h]
+                    L = _stat_box(lse, b, h, qw0)[:, None]
+                    Dl = _stat_box(delta, b, h, qw0)[:, None]
+                    acc = torch.zeros(64, Dq)
+                    for k0 in range(0, bk * n_tiles, bk):
+                        if k0 > qw0 + 63 - (bk if skip_off_by_tile else 0):
+                            continue  # all masked
+                        Kt = torch.cat([_box(kf, b, r, next_row)
+                                        for r in range(k0, k0 + bk, 64)])
+                        Vt = torch.cat([_box(vf, b, r, next_row)
+                                        for r in range(k0, k0 + bk, 64)])
+                        Kt, Vt = Kt[:, h // grp], Vt[:, h // grp]
+                        p = torch.exp2(_dot16(Qt, Kt) * scale2 - L * LOG2E)
+                        dp = _dot16(Gt, Vt)
+                        ds = p * (dp - Dl) * scale
+                        if (qw0 + 64 > Tq or k0 + bk > Sk or k0 + bk - 1 > qw0) \
+                                and not unmasked_diagonal:
+                            qq, kk = qw0 + pos[:, None], k0 + kpos[None, :]
+                            p = torch.where((qq < Tq) & (kk < Sk) & (kk <= qq),
+                                            p, 0.0)
+                            ds = torch.where(kk < Sk, p * (dp - Dl) * scale,
+                                             0.0)
+                        acc = acc + _acc16(_round_bf16(ds), Kt)
+                    n = min(64, Tq - qw0)
+                    dq[b, qw0:qw0 + n, h] = acc[:n]
+    qs = 128 if Dq <= 64 else 64  # queries of a K3 stage
+    qpos = torch.arange(qs)
+    dk = torch.zeros(Bq, Sk, Kq, Dq)
+    dv = torch.zeros(Bq, Sk, Kq, Dq)
+    for b in range(Bq):
+        for kh in range(Kq):
+            for k0 in range(0, Sk, 128):
+                for kw0 in (k0, k0 + 64):
+                    if kw0 >= Sk:
+                        continue
+                    Kt = _box(kf, b, kw0, next_row)[:, kh]
+                    Vt = _box(vf, b, kw0, next_row)[:, kh]
+                    adk, adv = torch.zeros(64, Dq), torch.zeros(64, Dq)
+                    for h in range(kh * grp, (kh + 1) * grp):
+                        for q0 in range(k0, Tq, qs):  # from the diagonal
+                            if kw0 > q0 + qs - 1 - (qs if skip_off_by_tile
+                                                    else 0):
+                                continue  # all masked
+                            Qt = torch.cat([_box(qf, b, r, next_row)
+                                            for r in range(q0, q0 + qs, 64)])
+                            Gt = torch.cat([_box(gf, b, r, next_row)
+                                            for r in range(q0, q0 + qs, 64)])
+                            Qt, Gt = Qt[:, h], Gt[:, h]
+                            L = torch.cat([_stat_box(lse, b, h, r) for r in
+                                           range(q0, q0 + qs, 64)])[None, :]
+                            Dl = torch.cat([_stat_box(delta, b, h, r) for r in
+                                            range(q0, q0 + qs, 64)])[None, :]
+                            sT = _dot16(Kt, Qt)  # [keys, queries]
+                            p = torch.exp2(sT * scale2 - L * LOG2E)
+                            dpT = _dot16(Vt, Gt)
+                            ds = p * (dpT - Dl) * scale
+                            if (q0 + qs > Tq or kw0 + 64 > Sk or kw0 + 63 > q0) \
+                                    and not unmasked_diagonal:
+                                kk, qq = kw0 + pos[:, None], q0 + qpos[None, :]
+                                ok = ((kk < Sk) & (qq < Tq) & (kk <= qq)
+                                      & ~(sT <= floor))
+                                p = torch.where(ok, p, 0.0)
+                                ds = torch.where(qq < Tq,
+                                                 p * (dpT - Dl) * scale, 0.0)
+                            if h == drop_head:
+                                continue
+                            adv = adv + _acc16(_round_bf16(p), Gt)
+                            adk = adk + _acc16(_round_bf16(ds), Qt)
+                    n = min(64, Sk - kw0)
+                    dk[b, kw0:kw0 + n, kh] = adk[:n]
+                    dv[b, kw0:kw0 + n, kh] = adv[:n]
+    return dq.to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
 def _round_bf16(x):
@@ -264,54 +359,82 @@ def _over_limit(got, ref):
     return (err / kernel_tolerance(ref)).max().item()
 
 
-def _k2_k3_twin_against_plain(d, chunk):
-    """The twin at llama-like scales, T = S = 512, 4 q heads on 2 K/V
-    heads, head dim ``d``: the worst error / limit of its dq, dk, dv, and
-    of those of each fault, against the plain versions."""
-    b, t, h, k = 1, 512, 4, 2
-    q, kk, v, g, _ = _inputs(8, b=b, t=t, h=h, k=k, d=d)
-    q, kk, v, g = (torch.from_numpy(a).to(torch.bfloat16)
-                   for a in (q, kk, v, g))
+def _bf16_inputs(seed, **shape):
+    q, kk, v, g, _ = _inputs(seed, **shape)
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (q, kk, v, g))
+
+
+def _plain_grads(q, kk, v, g):
+    """The plain versions' (dq, dk, dv), causal, and the lse and delta the
+    kernels read."""
     out, lse = flash_fwd_reference(q, kk, v, causal=True)
     delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     kw = dict(causal=True)
-    want = (flash_dq_reference(q, kk, v, g, lse, delta, **kw),
-            *flash_dkv_reference(q, kk, v, g, lse, delta, **kw))
-    ratios = {}
-    for fault, fkw in [("none", {}), ("drop_head", dict(drop_head=1)),
-                       ("unmasked_diagonal", dict(unmasked_diagonal=True)),
-                       ("early_skip", dict(early_skip=True))]:
-        got = _k2_k3_arithmetic_bf16(q, kk, v, g, lse, delta, chunk=chunk,
-                                     **fkw)
-        ratios[fault] = {name: _over_limit(x, ref) for name, x, ref
-                         in zip(("dq", "dk", "dv"), got, want)}
-    return ratios
+    return ((flash_dq_reference(q, kk, v, g, lse, delta, **kw),
+             *flash_dkv_reference(q, kk, v, g, lse, delta, **kw)), lse, delta)
 
 
-def _assert_twin_within_limit_and_faults_fail(ratios):
-    assert max(ratios["none"].values()) <= 1.0, ratios["none"]
-    assert ratios["drop_head"]["dk"] > 1.0
-    assert ratios["drop_head"]["dv"] > 1.0
-    assert ratios["unmasked_diagonal"]["dq"] > 1.0
-    assert ratios["unmasked_diagonal"]["dk"] > 1.0
-    assert ratios["early_skip"]["dk"] > 1.0
-    assert ratios["early_skip"]["dv"] > 1.0
+def _ratios(got, want):
+    return {name: _over_limit(x, ref)
+            for name, x, ref in zip(("dq", "dk", "dv"), got, want)}
 
 
-def test_kernel_tolerance_passes_k2_k3_tiles_and_fails_their_faults():
-    """The bf16 limit holds the tensor-core K2/K3 arithmetic at D = 64
-    (exp2 with the scale folded in, bf16 p and ds, each warp's 16-row
-    share of a 64 x 64 tile, the mask on the diagonal blocks only, the
-    GQA group summed) to the plain versions; dk/dv that miss one q head
-    of a group, diagonal blocks without their mask, and a K3 that skips a
-    block the diagonal crosses each fail it."""
-    _assert_twin_within_limit_and_faults_fail(_k2_k3_twin_against_plain(64, 64))
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_kernel_tolerance_passes_k2_k3_wgmma_tiles_and_fails_their_faults(d):
+    """The bf16 limit the card tests and chip_smoke.py hold K2 and K3 to
+    holds their wgmma tiles (the twin above: 128-row blocks of two 64-row
+    consumers, 64-row stages in the producer's order, k-slices of 16, exp2
+    with the scale folded in, bf16 p and ds, the masks on the diagonal
+    tiles only, the GQA group summed) against the plain versions and the
+    reference's Pallas kernels (interpret mode, bf16 in), T = S = 256, 4 q
+    heads on 2 K/V heads; dk/dv that miss one q head of a group, diagonal
+    tiles without their mask, and skip tests one tile off each fail it."""
+    q, kk, v, g = _bf16_inputs(8, b=1, t=256, h=4, k=2, d=d)
+    want, lse, delta = _plain_grads(q, kk, v, g)
+
+    def loss(q, k, v):
+        out = jax_flash(q, k, v, causal=True, interpret=True)
+        return (out.astype(jnp.float32) * jnp.asarray(g.float().numpy())).sum()
+
+    pallas = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+              for x in jax.grad(loss, argnums=(0, 1, 2))(
+                  *(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                    for x in (q, kk, v)))]
+    twin = _k2_k3_wgmma_twin(q, kk, v, g, lse, delta)
+    assert max(_ratios(twin, want).values()) <= 1.0, _ratios(twin, want)
+    assert max(_ratios(twin, pallas).values()) <= 1.0, _ratios(twin, pallas)
+    bad = {fault: _ratios(_k2_k3_wgmma_twin(q, kk, v, g, lse, delta, **kw),
+                          want)
+           for fault, kw in [("drop_head", dict(drop_head=1)),
+                             ("unmasked_diagonal", dict(unmasked_diagonal=True)),
+                             ("skip_off_by_tile", dict(skip_off_by_tile=True))]}
+    assert bad["drop_head"]["dk"] > 1.0 and bad["drop_head"]["dv"] > 1.0
+    assert bad["unmasked_diagonal"]["dq"] > 1.0
+    assert bad["unmasked_diagonal"]["dk"] > 1.0
+    assert all(r > 1.0 for r in bad["skip_off_by_tile"].values()), bad
 
 
-def test_kernel_tolerance_passes_k3_query_chunks_at_d128():
-    """The same at D = 128, where a K3 warp takes the 64-query tile 32
-    queries at a time, each chunk with its own causal skip and mask test."""
-    _assert_twin_within_limit_and_faults_fail(_k2_k3_twin_against_plain(128, 32))
+def test_kernel_tolerance_passes_ragged_k2_k3_tiles_and_fails_a_tail_from_the_next_row():
+    """Ragged T = S = 200 in two batch rows, D = 64: the twin's last boxes
+    (rows 192-255, past T zero through the 4-D map) stay within the limit.
+    Loaded through a map over B·T, the same boxes read batch row 1's first
+    rows into batch row 0's tail: with an inf there (batch row 1's first q,
+    k, v and dO rows), 0 x inf puts NaN into batch row 0's dq, dk and dv,
+    which the limit fails; through the 4-D map batch row 0 stays within
+    it."""
+    q, kk, v, g = _bf16_inputs(10, b=2, t=200, h=4, k=2, d=64)
+    want, lse, delta = _plain_grads(q, kk, v, g)
+    twin = _k2_k3_wgmma_twin(q, kk, v, g, lse, delta)
+    assert max(_ratios(twin, want).values()) <= 1.0, _ratios(twin, want)
+    for x in (q, kk, v, g):
+        x[1, :2] = float("inf")
+    want0, _, _ = _plain_grads(q[:1], kk[:1], v[:1], g[:1])
+    _, lse, delta = _plain_grads(q, kk, v, g)
+    row0 = [x[:1] for x in _k2_k3_wgmma_twin(q, kk, v, g, lse, delta)]
+    assert max(_ratios(row0, want0).values()) <= 1.0, _ratios(row0, want0)
+    trap = [x[:1] for x in _k2_k3_wgmma_twin(q, kk, v, g, lse, delta,
+                                             next_row=True)]
+    assert not any(r <= 1.0 for r in _ratios(trap, want0).values())
 
 
 def _k1_tensor_core_arithmetic_bf16(q, k, v, *, drop_rescale=False,
@@ -400,6 +523,12 @@ CARD_CASES = [
     (2, 256, 256, 4, 2, 64, False, "rows", torch.float32),
     (1, 1000, 1000, 8, 2, 128, True, "none", torch.bfloat16),
     (2, 256, 256, 8, 2, 128, True, "len", torch.bfloat16),
+    # the edges of K2's and K3's 128-row blocks and 64-row boxes, with a T
+    # that is not a multiple of 4 (the lse/delta boxes' rounded start)
+    *[(2, t, t, 4, 2, d, True, "none", torch.bfloat16)
+      for t in (127, 128, 129, 255) for d in (32, 64, 128)],
+    (2, 129, 129, 4, 2, 64, True, "len", torch.bfloat16),
+    (2, 255, 255, 8, 2, 128, False, "rows", torch.bfloat16),
 ]
 
 
@@ -418,14 +547,18 @@ def test_kernels_match_plain_on_card(card, case):
     kw = dict(causal=causal, mode=mode, arg=arg)
     n = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
     out, lse = flash_fwd(q, kk, v, **kw)
-    out2, lse2 = flash_fwd(q, kk, v, **kw)  # K1 repeats bit for bit
+    out2, lse2 = flash_fwd(q, kk, v, **kw)  # K1-K3 repeat bit for bit
     delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = flash_dq(q, kk, v, g, lse, delta, **kw)
     dk, dv = flash_dkv(q, kk, v, g, lse, delta, **kw)
+    dq2 = flash_dq(q, kk, v, g, lse, delta, **kw)
+    dk2, dv2 = flash_dkv(q, kk, v, g, lse, delta, **kw)
     torch.cuda.synchronize()
     assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == (
-        n[0] + 2, n[1] + 1, n[2] + 1)
+        n[0] + 2, n[1] + 2, n[2] + 2)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2)
+    assert torch.equal(dv, dv2)
     want_out, want_lse = flash_fwd_reference(q, kk, v, **kw)
     want = (flash_dq_reference(q, kk, v, g, want_lse, delta, **kw),
             *flash_dkv_reference(q, kk, v, g, want_lse, delta, **kw))
