@@ -11,8 +11,9 @@ any failing phase exits non-zero:
    nvcc, one process per source, all at once, prints each kernel's
    registers and spills (the saved report where a kernel was built
    before), and fails unless the report shows each tensor-core kernel
-   (``NO_SPILL``: the flash forward on mma.sync and the flash dq and dk/dv
-   on wgmma at D = 32, 64, 128; the int8 matmul's) with no spills;
+   (``NO_SPILL``: the flash forward, dq and dk/dv on wgmma at D = 32, 64,
+   128; the int8 matmul's four, its prefill on wgmma among them) with no
+   spills;
 3. holds the int8 matmul kernel against its plain PyTorch version at every
    llama_8b projection shape, on both sides of its decode/prefill
    threshold and at every row count phase 9 serves (decode batches and
@@ -31,7 +32,8 @@ any failing phase exits non-zero:
    form and ``torch._weight_int8pack_mm``: eagerly, as the model calls it
    (host time included), and replayed from a CUDA graph (device time);
    and at 4,096 rows (one QLoRA forward) eagerly beside its bound, the
-   plain version and the convert-then-matmul form;
+   plain version and the convert-then-matmul form; each forward beside
+   the parent tree's time (``PARENT_K6_MS``);
 5. runs llama_tiny int8 on the card (kernel) and on the CPU (plain) from the
    same weights and compares logits and greedy tokens;
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
@@ -43,7 +45,10 @@ any failing phase exits non-zero:
 7. times them at the llama_1b training shape and at the llama_8b
    attention shape (D = 128) beside their bounds, their plain versions,
    ``scaled_dot_product_attention`` and the parent's kernels' times
-   (``PARENT_FLASH_MS``); then forward + backward of the three kernels
+   (``PARENT_FLASH_MS``), each kernel warmed up at its own shape and
+   timed as the median of several runs, with the SM clock, temperature,
+   power and throttle reasons sampled beside them; then forward +
+   backward of the three kernels
    against the dense form (``ops/attention.py``) at T = 1,024, 2,048 and
    4,096 at both head layouts, the crossover ``impl="auto"`` would need
    (measured only: the threshold stays);
@@ -241,11 +246,17 @@ card, or where the port's package is missing.
 
     python3 chip_smoke.py --quant-matmul-only
 
-runs only phase 4 and phase 9b (the int8 matmul's times, and a prefill
-forward and decode steps of llama_8b int8 with their profiles) on the
-``serverless_learn_tpu_torch`` next to this file, and prints no result
+runs only phase 4 and phase 9b (the int8 matmul's times at 8 and 512
+rows, at QLoRA's 4,096 and at Mixtral's 512-row prefill shapes, and a
+prefill forward and decode steps of llama_8b int8 with their profiles) on
+the ``serverless_learn_tpu_torch`` next to this file, and prints no result
 line: copied into a checkout of another commit, it times that commit's
 kernel with the same yardsticks.
+
+    python3 chip_smoke.py --qlora-only
+
+runs only phase 11's training (11a) and its profiled step (11e) the same
+way, for an A/B of the QLoRA step between commits.
 
     python3 chip_smoke.py --train-only
 
@@ -376,6 +387,36 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# The parent tree's K6 forwards (ms, eager, its mma.sync prefill tiling;
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), by phase 4's line,
+# printed beside this run's.
+PARENT_K6_MS = {
+    "time_per_prefill_forward": 40.02,
+    "time_per_qlora_forward": 258.60,
+    "time_per_prefill_forward_mixtral_prefill": 88.78,
+}
+
+
+def k6_tilings(kern) -> dict:
+    """K6's launches so far by tiling (``kern``: the wrapper
+    ``quant_matmul``); {} from a package that does not count them (the
+    parent of an A/B mode)."""
+    return dict(getattr(kern, "tilings", {}))
+
+
+def tilings_since(kern, before: dict) -> dict:
+    """K6's launches by tiling since ``before`` (``k6_tilings``), the
+    tilings that launched."""
+    return {k: n - before.get(k, 0) for k, n in k6_tilings(kern).items()
+            if n - before.get(k, 0)}
+
+
+def prefill_on_wgmma(tilings: dict) -> bool:
+    """Whether K6's launches above 16 rows all took the wgmma prefill
+    tiling (none the shape-only mma.sync one), and some did."""
+    return tilings.get("prefill", 0) > 0 and not tilings.get("prefill_mma")
 
 
 def bound(R: int, I: int, O: int):
@@ -639,7 +680,8 @@ def time_kernel(torch, qm, card, R=DECODE_ROWS, shapes=None, label=None):
                          else "operations"))
     name = ("time_per_qlora_forward" if qlora else "time_per_decode_forward"
             if R == DECODE_ROWS else "time_per_prefill_forward")
-    emit(f"{name}_{label}" if label else name, card=card,
+    name = f"{name}_{label}" if label else name
+    emit(name, card=card, parent_ms=PARENT_K6_MS.get(name),
          rows=R, launches=sum(r["per_forward"] for r in rows), **fwd,
          fraction_of_bound=fwd["bound_ms"] / fwd["ms"],
          library_call="torch._weight_int8pack_mm (bf16 scales, one call"
@@ -894,11 +936,13 @@ def serve_full_width(torch, card):
             return replies, time.perf_counter() - t
 
         quant_matmul.launches = 0
+        tilings0 = k6_tilings(quant_matmul)
         forwards[0] = 0
         rows_served.clear()
         first, wall1 = send_all(greedy + [sampled])
         again, wall2 = send_all(greedy)
         launches, n_fwd = quant_matmul.launches, forwards[0]
+        tilings = tilings_since(quant_matmul, tilings0)
         scraped = fetch_text(server.metrics_addr, "/metrics")
     finally:
         server.stop()
@@ -928,6 +972,9 @@ def serve_full_width(torch, card):
     if not rows_served <= set(CHECK_ROWS):
         fail(f"the kernel served row counts {sorted(rows_served)}, phase 3 "
              f"checked only {list(CHECK_ROWS)}")
+    if not prefill_on_wgmma(tilings):
+        fail(f"phase 9's K6 launches by tiling {tilings}: its prefills did "
+             "not all take the wgmma prefill tiling")
     lat = ([r["latency_ms"] for r in first[:SERVE_BATCH]]
            + [r["latency_ms"] for r in again])
     emit("serve_llama_8b_int8", card=card, layers=cfg.n_layers,
@@ -935,6 +982,7 @@ def serve_full_width(torch, card):
          requests=len(first) + len(again),
          batch_sizes=[r["batch_size"] for r in first + again],
          forwards=n_fwd, kernel_launches=launches,
+         kernel_launches_by_tiling=tilings,
          launches_per_forward=launches / n_fwd,
          rows_served=sorted(rows_served),
          greedy_latency_ms_median=statistics.median(lat),
@@ -1680,12 +1728,12 @@ FLASH_CASES = [
 # K1, K2 and K3 run twice on these cases and must repeat bit for bit (no
 # atomics).
 REPEAT_CASES = ("train_shape", "train_shape_8b")
-# The earlier kernels' times at phase 7's shapes, by head dim (ms: K1, K2
-# and K3 all on mma.sync, before K2's and K3's wgmma redesign; NVIDIA H100
-# 80GB HBM3, 700 W; PERF.md section 6), printed beside this run's.
+# The parent tree's kernels' times at phase 7's shapes, by head dim (ms:
+# K1 on mma.sync, K2 and K3 on wgmma; NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6), printed beside this run's.
 PARENT_FLASH_MS = {
-    64: {"flash_fwd": 0.776, "flash_dq": 1.046, "flash_dkv": 1.773},
-    128: {"flash_fwd": 1.350, "flash_dq": 1.847, "flash_dkv": 2.774},
+    64: {"flash_fwd": 0.776, "flash_dq": 0.500, "flash_dkv": 0.733},
+    128: {"flash_fwd": 1.350, "flash_dq": 0.697, "flash_dkv": 1.029},
 }
 # Forward + backward of K1-K3 against the dense form at these sequence
 # lengths (batch TRAIN_B, causal, both head layouts).
@@ -1811,10 +1859,18 @@ def flash_bounds(shape, causal=True):
 
 def time_flash(torch, card):
     """Phase 7: K1, K2, K3 at the llama_1b training shape (the kernels
-    line's figures) and at the llama_8b LoRA attention shape, then the
-    dense crossover."""
-    rows = time_flash_shape(torch, card, FLASH_SHAPE)
-    time_flash_shape(torch, card, FLASH_SHAPE_8B)
+    line's figures) and at the llama_8b LoRA attention shape, each with
+    the card's clocks sampled beside it, then the dense crossover."""
+    for shape in (FLASH_SHAPE, FLASH_SHAPE_8B):
+        with ClockSampler() as clocks:
+            got = time_flash_shape(torch, card, shape)
+        summary = clocks.summary()
+        emit("time_flash_clocks", card=card, shape=list(shape), **summary)
+        if shape == FLASH_SHAPE:
+            rows = got
+            for row in rows.values():
+                row["sm_mhz"] = (summary["sm_mhz_min_median_max"] or
+                                 [None, None])[1]
     flash_crossover(torch, card)
     return rows
 
@@ -1870,12 +1926,16 @@ def time_flash_shape(torch, card, shape):
     kw = dict(causal=True, mode="none", arg=None)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    # Each kernel warmed up at its own shape, then the median of 5 runs of
+    # 20: K1, timed first, once read 1.79 ms against its steady 0.78 after
+    # a warm-up of 3.
     ms = {
-        "flash_fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v, **kw), 20),
+        "flash_fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v, **kw), 20,
+                             warmup=10, reps=5),
         "flash_dq": time_ms(torch, lambda i: fa.flash_dq(
-            q, k, v, dout, lse, delta, **kw), 20),
+            q, k, v, dout, lse, delta, **kw), 20, warmup=10, reps=5),
         "flash_dkv": time_ms(torch, lambda i: fa.flash_dkv(
-            q, k, v, dout, lse, delta, **kw), 20),
+            q, k, v, dout, lse, delta, **kw), 20, warmup=10, reps=5),
     }
     plain = {
         "flash_fwd": time_ms(torch, lambda i: fa.flash_fwd_reference(
@@ -1888,21 +1948,23 @@ def time_flash_shape(torch, card, shape):
     torch.cuda.empty_cache()
     F = torch.nn.functional
     qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    # Warmed up and the median of 5 runs too, as the kernels are: one run
+    # after a warm-up of 3 once read 3.6 ms against a steady ~0.34.
     lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True), 20)
+        qh, kh, vh, is_causal=True, enable_gqa=True), 20, warmup=10, reps=5)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
 
     def fwd_bwd(i):
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                        enable_gqa=True).backward(gh)
 
-    lib_fwd_bwd = time_ms(torch, fwd_bwd, 10)
+    lib_fwd_bwd = time_ms(torch, fwd_bwd, 10, warmup=5, reps=3)
     # SDPA's backward alone: one call that computes delta, dq, dk and dv
     # from the saved out and lse, the work of K2 + K3.
     og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                         enable_gqa=True)
     lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
-        og, (qg, kg, vg), gh, retain_graph=True), 10)
+        og, (qg, kg, vg), gh, retain_graph=True), 10, warmup=5, reps=3)
     bounds = flash_bounds(shape)
     bwd_flops = bounds["flash_dq"][2] + bounds["flash_dkv"][2]
     # K1's library time is SDPA's forward; K2's and K3's are SDPA's
@@ -4262,7 +4324,36 @@ def qlora_profile(torch, prof, card):
     return out
 
 
-def qlora_8b(torch, card):
+def qlora_step_profile(torch, card, trainer, state, batch):
+    """Phase 11e: one QLoRA step under torch.profiler, dense attention in
+    its record_function range; the split of its device time. Returns the
+    state after the step and the split."""
+    from torch.profiler import record_function
+
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.ops import attention
+
+    real_dense = attention.xla_attention
+
+    def ranged(*a, **kw):
+        with record_function("dense_attention"):
+            return real_dense(*a, **kw)
+
+    attention.xla_attention = transformer.xla_attention = ranged
+    try:
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            state, m = trainer.step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+    finally:
+        attention.xla_attention = transformer.xla_attention = real_dense
+    split = qlora_profile(torch, prof, card)
+    del prof
+    return state, split
+
+
+def qlora_8b(torch, card, ab=False):
     """Phase 11: the JAX package's QLoRA rung at full depth. 11a: the
     state filled in place on the card in the int8 layout
     (``random_quantized_params``), 7 adamw steps through run_training (2
@@ -4277,8 +4368,6 @@ def qlora_8b(torch, card):
     import dataclasses
     import os
     import shutil
-
-    from torch.profiler import record_function
 
     from serverless_learn_tpu_torch.cli import _train_config, build_parser
     from serverless_learn_tpu_torch.config import OptimizerConfig
@@ -4340,6 +4429,7 @@ def qlora_8b(torch, card):
                ce.cross_entropy_fwd, ce.cross_entropy_bwd)
     for k in kernels:
         k.launches = 0
+    tilings0 = k6_tilings(qm.quant_matmul)
     torch.cuda.reset_peak_memory_stats()
     attention.xla_attention = transformer.xla_attention = counting_dense
     try:
@@ -4347,6 +4437,7 @@ def qlora_8b(torch, card):
     finally:
         attention.xla_attention = transformer.xla_attention = real_dense
     launches = {k.__name__: k.launches for k in kernels}
+    tilings = tilings_since(qm.quant_matmul, tilings0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = cfg.train.num_steps
     losses = [s.metrics["loss"] for s in meter.history]
@@ -4375,6 +4466,7 @@ def qlora_8b(torch, card):
          max_memory_allocated_gb=peak_gb, launches=launches,
          expected_launches=want,
          k6_launches_per_step=launches["quant_matmul"] / steps,
+         k6_launches_by_tiling=tilings,
          dense_attention_calls=counts["dense_attention"],
          optimizer_state_tensors={m: len(opt[m]) for m in ("mu", "nu")},
          optimizer_state_dtype=str(opt["mu"][0].dtype),
@@ -4383,6 +4475,10 @@ def qlora_8b(torch, card):
         fail(f"QLoRA: non-finite loss or grad norm: {losses}, {norms}")
     if launches != want:
         fail(f"QLoRA launched {launches}, expected {want}")
+    # Every projection at 4 x 1,024 rows takes the wgmma prefill tiling.
+    if tilings and tilings != {"prefill": want["quant_matmul"]}:
+        fail(f"QLoRA's K6 launches by tiling {tilings}, expected all "
+             f"{want['quant_matmul']} on the wgmma prefill")
     if counts["dense_attention"] != 2 * mcfg.n_layers * steps:
         fail(f"QLoRA: dense attention ran {counts['dense_attention']} "
              f"times, expected {2 * mcfg.n_layers * steps} (T = "
@@ -4398,9 +4494,15 @@ def qlora_8b(torch, card):
              f"{LORA_8B_ADAPTER_TENSORS} bf16 adapter tensors of "
              f"{LORA_8B_ADAPTER_PARAMS}")
 
-    # -- 11b ----------------------------------------------------------------
     batch = trainer.place(next(iter(make_source(cfg, trainer,
                                                 start_step=state.step))))
+    if ab:  # --qlora-only: the timed steps above and the profiled one
+        state, split = qlora_step_profile(torch, card, trainer, state, batch)
+        emit("qlora_phase", card=card, seconds=time.perf_counter() - t_phase)
+        return dict(launches=launches["quant_matmul"],
+                    per_step=QLORA_K6_PER_STEP, profile=split)
+
+    # -- 11b ----------------------------------------------------------------
 
     def grads():
         for p in lora:
@@ -4586,22 +4688,9 @@ def qlora_8b(torch, card):
         shutil.rmtree(root, ignore_errors=True)
 
     # -- 11e ----------------------------------------------------------------
-    def ranged(*a, **kw):
-        with record_function("dense_attention"):
-            return real_dense(*a, **kw)
-
-    attention.xla_attention = transformer.xla_attention = ranged
-    try:
-        torch.cuda.synchronize()
-        with profiled() as prof:
-            state, m = trainer.step(state, batch)
-            float(m["loss"])
-            torch.cuda.synchronize()
-    finally:
-        attention.xla_attention = transformer.xla_attention = real_dense
-    split = qlora_profile(torch, prof, card)
+    state, split = qlora_step_profile(torch, card, trainer, state, batch)
     emit("qlora_phase", card=card, seconds=time.perf_counter() - t_phase)
-    del state, trainer, batch, prof, model, named, lora, copies
+    del state, trainer, batch, model, named, lora, copies
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches["quant_matmul"],
@@ -4691,9 +4780,10 @@ def qlora_block_grads(torch, card, model, batch, split_reference):
 # must appear.
 NO_SPILL = {
     "flash_attention": [f"{kern}ILi{d}E" for kern in (
-        "flash_fwd_bf16", "flash_dq_wgmma", "flash_dkv_wgmma")
+        "flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
         for d in (32, 64, 128)],
-    "quant_matmul": ["quant_decodeI", "quant_prefillI", "quant_reduceI"],
+    "quant_matmul": ["quant_decodeI", "quant_prefillI", "quant_prefill_mmaI",
+                     "quant_reduceI"],
 }
 
 
@@ -4730,16 +4820,28 @@ def spill_faults(log: str, kernels):
 
 def quant_matmul_only(torch, qm, build, card) -> int:
     """Phases 4 and 9b alone, for whichever kernel the package beside this
-    file builds: its decode and prefill times, then llama_8b int8's
-    prefill forward and decode steps with their profiles."""
+    file builds: its decode, prefill, QLoRA and Mixtral prefill times,
+    then llama_8b int8's prefill forward and decode steps with their
+    profiles."""
     from serverless_learn_tpu_torch.models.registry import build_model
 
     build.load("quant_matmul")
     time_kernel(torch, qm, card)
     time_kernel(torch, qm, card, R=PREFILL_ROWS)
+    time_kernel(torch, qm, card, R=QLORA_ROWS)
+    time_kernel(torch, qm, card, R=MOE_PREFILL_ROWS,
+                shapes=MIXTRAL_PREFILL_SHAPES, label="mixtral_prefill")
     model = build_model("llama_8b", device="cuda", quant="int8", seed=0)
     where_time_goes(torch, model, serve_prompts(torch, model.cfg.vocab_size),
                     card)
+    return 0
+
+
+def qlora_only(torch, qm, build, card) -> int:
+    """Phase 11a (the QLoRA step, timed) and 11e (its profile) alone, for
+    whichever K6 the package beside this file builds."""
+    build.load("quant_matmul")
+    qlora_8b(torch, card, ab=True)
     return 0
 
 
@@ -5523,8 +5625,10 @@ MIXTRAL_SHAPES = {
 MIXTRAL_K6_PER_FWD = 897
 MOE_EXPERTS, MOE_TOP_K = 8, 2
 # Phase 15a's rows: decode buckets, K6's decode/prefill edge, an expert's
-# share of a 512-row prefill (512 * 2 / 8) and the prefill itself.
-MOE_CHECK_ROWS = (1, 2, 8, 16, 128, 512)
+# share of a 512-row prefill (512 * 2 / 8), the prefill itself and
+# phase 3's training rows (Mixtral's lm_head is the one shape llama_8b's
+# check does not cover).
+MOE_CHECK_ROWS = (1, 2, 8, 16, 128, 512, QLORA_ROWS)
 MOE_PREFILL_ROWS = 512
 MOE_EXPERT_PREFILL_ROWS = MOE_PREFILL_ROWS * MOE_TOP_K // MOE_EXPERTS
 # A 512-row prefill forward: attention and lm_head at 512 rows, each expert
@@ -5955,11 +6059,13 @@ def moe_serve(torch, card):
         torch.cuda.synchronize()
         routed[0] = 0
         n0 = quant_matmul.launches
+        tilings0 = k6_tilings(quant_matmul)
         t1 = time.perf_counter()
         model(batch, cache=cache, prefill=True)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
         prefill_launches = quant_matmul.launches - n0
+        prefill_tilings = tilings_since(quant_matmul, tilings0)
         del cache
     for h in hooks:
         h.remove()
@@ -5967,6 +6073,11 @@ def moe_serve(torch, card):
     if prefill_launches != want_prefill:
         faults.append(f"a 512-row prefill launched K6 {prefill_launches} "
                       f"times, not {want_prefill}")
+    # Attention and lm_head at 512 rows, each routed expert at its share
+    # (above 16 rows at top-2 of 8 over 512): all on the wgmma tiling.
+    if not prefill_on_wgmma(prefill_tilings):
+        faults.append(f"a 512-row prefill's K6 launches by tiling "
+                      f"{prefill_tilings}, not all on the wgmma prefill")
 
     # The static path: generate's replies, each prompt alone; and how far
     # the paths' logits part, as the model routes and where routing cannot
@@ -6165,6 +6276,7 @@ def moe_serve(torch, card):
          k6_launches_per_forward_expected=MIXTRAL_K6_PER_FWD,
          prefill_512_rows_ms=prefill_ms,
          k6_launches_prefill_512=prefill_launches,
+         k6_launches_prefill_512_by_tiling=prefill_tilings,
          experts_routed_prefill_512=routed[0],
          replies_equal_generate=sum(equal), replies=len(equal),
          equal_by_reply=equal, routing_witness=witness,
@@ -6307,6 +6419,8 @@ def main() -> int:
 
     if "--quant-matmul-only" in sys.argv[1:]:
         return quant_matmul_only(torch, qm, build, card)
+    if "--qlora-only" in sys.argv[1:]:
+        return qlora_only(torch, qm, build, card)
     if "--train-only" in sys.argv[1:]:
         return train_only(torch, build, card)
     if "--flash-only" in sys.argv[1:]:
@@ -6349,7 +6463,7 @@ def main() -> int:
     max_err = check_kernel(torch, qm, card)
     check_dx(torch, qm, card)
     fwd = time_kernel(torch, qm, card)
-    time_kernel(torch, qm, card, R=PREFILL_ROWS)
+    prefill_fwd = time_kernel(torch, qm, card, R=PREFILL_ROWS)
     qlora_fwd = time_kernel(torch, qm, card, R=QLORA_ROWS)
     tiny_agreement(torch, card)
     flash_err = check_flash(torch, card)
@@ -6398,6 +6512,9 @@ def main() -> int:
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
+        "prefill_ms": prefill_fwd["ms"], "prefill_graph_ms": prefill_fwd[
+            "graph_ms"], "prefill_bound_ms": prefill_fwd["bound_ms"],
+        "prefill_library_ms": prefill_fwd["convert_matmul_ms"],
         "launches_qlora": qlora["launches"],
         "launches_qlora_per_step": qlora["per_step"],
         "qlora_ms": qlora_fwd["ms"], "qlora_bound_ms": qlora_fwd["bound_ms"],
@@ -6432,6 +6549,7 @@ def main() -> int:
             "launches_elastic_worker": elastic[name],
             "launches_moe_training": moe["train"][name],
             "max_abs_err": flash_err[name], "ms": row["ms"],
+            "sm_mhz": row["sm_mhz"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     replaces = {

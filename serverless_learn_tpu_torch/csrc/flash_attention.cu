@@ -30,14 +30,12 @@
 // What bounds it on an H100 SXM: the operations. Causal attention at
 // B=2, T=4096, H=32, D=64 is 1.4e11 FLOPs forward (0.14 ms at the 989
 // TFLOP/s bf16 tensor-core rate) against 17 MB of q/k/v/out, and the
-// backward 2.5x that. Three designs share this file:
+// backward 2.5x that. Two designs share this file:
 //   * K1-K3 in f32 (llama_tiny's f32 tests): the products on the CUDA
 //     cores in f32 (67 TFLOP/s peak), well above that bound; described
 //     next.
-//   * K1 in bf16: the products on the tensor cores through mma.sync fed by
-//     ldmatrix from a cp.async ring, described at `namespace hk` below.
-//   * K2 and K3 in bf16, the backward of every full-width path: wgmma fed
-//     by TMA through an mbarrier ring, a producer warp and two consumer
+//   * K1, K2 and K3 in bf16, every full-width path: wgmma fed by TMA
+//     through an mbarrier ring, a producer warp and two consumer
 //     warpgroups a block, described at `namespace wk` below.
 // All keep flash attention's memory side: the [T, S] scores never reach
 // device memory, each q/k/v tile is read into shared memory once per block,
@@ -565,281 +563,22 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// ------------------------------------------------- K1 in bf16 (Hopper) ----
+// -------------------------------- K1, K2 and K3 in bf16 (Hopper, wgmma) ----
 //
-// K1 replaces `_fwd_kernel` (call `:223`). What bounds it is the
-// operations: two products of 2 D FLOPs per (query, key) pair, 0.14 ms at
-// llama_1b's B=2, T=4096, H=32, D=64 causal against ~17 MB of operands.
-// The CUDA-core design ran it at ~20 TFLOP/s: f32 FMAs, tiles widened to
-// f32 and transposed in shared memory, synchronous loads, a mask test on
-// every element. This design runs on the tensor cores. Every product is
-// mma.sync.m16n8k16 (bf16 in, f32 sums) with operands read from shared
-// memory by ldmatrix; tiles sit in shared memory in bf16 as they lie in
-// device memory (rows padded by 16 bytes, so the 8 rows an ldmatrix reads
-// fall in 8 different bank groups), filled by a two-stage ring of 16-byte
-// cp.async copies whose zero-fill form reads rows past T or S as 0. A block
-// has 4 warps (128 threads) and a 64-row tile of each operand. Each warp
-// owns 16 query rows, whose Q stays in registers as A fragments; 64-key
-// K/V tiles flow through the ring. S = Q K^T (K by plain ldmatrix) stays in
-// the accumulators, where the online softmax runs per row: the max over a
-// quad by shuffles, p = exp2(s * scale log2 e - m), the running sum and out
-// rescaled by exp2(m_old - m_new). p is packed to bf16 A fragments in place
-// (rounded against the running max, as the reference's block-wise p), so
-// out += P V reads V by ldmatrix.trans and P never touches shared memory.
-// A masked p is selected to 0 after the exp, and a row masked so far keeps
-// its max at the floor, where the rescale is exp2(0) = 1: no inf or NaN
-// reaches a product. Masks are tested only where a tile needs them: the
-// causal diagonal, the ragged tails, and the "len" and "rows" modes;
-// interior tiles of mode none go straight to exp2 with scale * log2(e)
-// folded into one FFMA. Tiles wholly above the causal diagonal are skipped
-// per warp. No atomics: runs repeat bit for bit. wgmma with TMA-fed tiles,
-// as K2 and K3 have, is its next step.
-
-namespace hk {
-
-constexpr int kTile = 64;       // rows of every tile (queries or keys)
-constexpr int kWarps = 4;       // 16 rows each
-constexpr int kThreads = 32 * kWarps;
-
-template <int D>
-struct Tile {
-  static constexpr int kLd = D + 8;                    // padded row, bf16
-  static constexpr int kElems = kTile * kLd;
-  static constexpr int kBytes = kElems * 2;
-};
-
-using namespace ptx;  // hopper_ptx.cuh: cp.async, ldmatrix, mma, fragment addresses
-
-// Rows [row0, row0 + kTile) of one head into a padded shared tile with
-// cp.async; rows at or past `nvalid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          int64_t row_stride, int row0, int nvalid) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const bool ok = row0 + r < nvalid;
-    const __nv_bfloat16* src = ok ? base + static_cast<int64_t>(row0 + r) * row_stride + ch * 8 : base;
-    cp16(dst + r * Tile<D>::kLd + ch * 8, src, ok ? 16 : 0);
-  }
-}
-
-// Stores a warp's 16 x D f32 accumulator rows [row0, row0 + 16) as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride, int row0,
-                                           int nvalid, float (*acc)[4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
-    if (row >= nvalid) continue;
-    __nv_bfloat16* out = base + static_cast<int64_t>(row) * row_stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(out + 8 * n) = pack(acc[n][2 * half], acc[n][2 * half + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- K1 ----
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return 5 * Tile<D>::kBytes;  // Q, then two stages of (K, V)
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = Tile<D>::kLd, NK = kTile / 8, ND = D / 8;
-  static_assert(NK * 4 == 32, "one mask bit per score of a thread");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + Tile<D>::kElems;      // [2 stages][kTile][LD]
-  bf16* sV = sK + 2 * Tile<D>::kElems;  // the same
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_q = (a.T + kTile - 1) / kTile;
-  const int i = a.causal ? n_q - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KH);
-  const int q0 = i * kTile, qw = q0 + 16 * warp;  // the block's and the warp's first query
-  const int vlen = row_length(a, b);
-  const int64_t qs = static_cast<int64_t>(a.H) * D, ks = static_cast<int64_t>(a.KH) * D;
-  const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
-  const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
-  const bf16* kb = static_cast<const bf16*>(a.k) + koff;
-  const bf16* vb = static_cast<const bf16*>(a.v) + koff;
-  const float scale2 = a.scale * kLog2e;
-  const int n_tiles = k_tiles_for(a, q0, vlen);
-
-  auto issue = [&](int jt) {
-    const int st = jt & 1;
-    load_rows<D>(sK + st * Tile<D>::kElems, kb, ks, jt * kTile, a.S);
-    load_rows<D>(sV + st * Tile<D>::kElems, vb, ks, jt * kTile, a.S);
-  };
-  load_rows<D>(sQ, static_cast<const bf16*>(a.q) + qoff, qs, q0, a.T);
-  cp_commit();
-  if (n_tiles > 0) issue(0);
-  cp_commit();
-  cp_wait<1>();  // Q landed
-  __syncthreads();
-
-  // The warp's 16 query rows stay in registers as A fragments.
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldsm(qa[kk], a_addr<LD>(smem_u32(sQ), 16 * warp, 16 * kk, lane));
-
-  // This thread's two rows (g, g + 8): running max in log2 units, its own
-  // share of the running sum (summed over the quad at the end), out.
-  float m2[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    if (jt + 1 < n_tiles) issue(jt + 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int st = jt & 1, k0 = jt * kTile;
-    const uint32_t uK = smem_u32(sK + st * Tile<D>::kElems);
-    const uint32_t uV = smem_u32(sV + st * Tile<D>::kElems);
-    const bool skip = qw >= a.T || (a.causal && k0 > qw + 15);  // all masked
-    if (!skip) {
-      const bool masked = a.mask_mode != kNone || qw + 16 > a.T || k0 + kTile > a.S ||
-                          (a.causal && k0 + kTile - 1 > qw);
-      float s[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int n = 0; n < NK; n += 2) {
-          uint32_t kf[4];
-          ldsm(kf, b_addr<LD>(uK, 8 * n, 16 * kk, lane));
-          mma(s[n], qa[kk], kf[0], kf[1]);
-          mma(s[n + 1], qa[kk], kf[2], kf[3]);
-        }
-      }
-      // Masked scores leave the max at the floor; their p is selected to 0
-      // after the exp (bit 4n + e of `ok`).
-      uint32_t ok = 0xffffffffu;
-      if (masked) {
-        ok = 0u;
-#pragma unroll
-        for (int n = 0; n < NK; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = qw + g + 8 * (e >> 1), key = k0 + 8 * n + 2 * t + (e & 1);
-            if (valid(a, b, row, key, vlen)) {
-              ok |= 1u << (4 * n + e);
-            } else {
-              s[n][e] = kNeg;
-            }
-          }
-      }
-      float mx[2] = {kNeg, kNeg};
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      float alpha[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-        const float m_new = fmaxf(m2[hf], mx[hf] * scale2);
-        alpha[hf] = exp2f(m2[hf] - m_new);  // <= 1, and 1 while the row is all masked
-        m2[hf] = m_new;
-      }
-      // p against the running max, packed to bf16 A fragments in place.
-      uint32_t pa[kTile / 16][4];
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = exp2f(fmaf(s[n][e], scale2, -m2[e >> 1]));
-          p[e] = (ok >> (4 * n + e)) & 1u ? x : 0.f;
-          rs[e >> 1] += p[e];
-        }
-        pa[n / 2][2 * (n & 1)] = pack(p[0], p[1]);
-        pa[n / 2][2 * (n & 1) + 1] = pack(p[2], p[3]);
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + rs[hf];
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-      // out += P V: k runs over the tile's keys.
-#pragma unroll
-      for (int kq = 0; kq < kTile / 16; ++kq) {
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t vf[4];
-          ldsm_t(vf, bt_addr<LD>(uV, 16 * kq, 8 * n, lane));
-          mma(acc[n], pa[kq], vf[0], vf[1]);
-          mma(acc[n + 1], pa[kq], vf[2], vf[3]);
-        }
-      }
-    }
-    __syncthreads();  // stage jt % 2 is read before iteration jt + 2 refills it
-  }
-  cp_wait<0>();
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
-    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
-  }
-  // A row with no valid key: l = 0, so out = 0 and lse = the floor.
-  const float inv0 = 1.f / max_nan(l[0], 1e-30f), inv1 = 1.f / max_nan(l[1], 1e-30f);
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] *= inv0;
-    acc[n][1] *= inv0;
-    acc[n][2] *= inv1;
-    acc[n][3] *= inv1;
-  }
-  store_rows<D>(static_cast<bf16*>(a.out) + qoff, qs, qw, a.T, acc, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = qw + g + 8 * hf;
-      if (row < a.T) {
-        a.lse[(static_cast<int64_t>(b) * a.H + h) * a.T + row] =
-            !(l[hf] <= 0.f) ? m2[hf] * (1.f / kLog2e) + logf(l[hf]) : kNeg;
-      }
-    }
-  }
-}
-
-}  // namespace hk
-
-// ------------------------------------ K2 and K3 in bf16 (Hopper, wgmma) ----
+// K1 (flash_fwd_wgmma) replaces `_fwd_kernel` (call `:223`); K3
+// (flash_dkv_wgmma) `_bwd_dkv_kernel` (call `:427`, group sum `:439-444`)
+// and K2 (flash_dq_wgmma) `_bwd_dq_kernel` (`:251`, call `:403`), the
+// kernels `_flash_bwd_bhsd` (`:371`) calls. What bounds them on the H100
+// is the operations: per (query, key) pair K1 does two products of 2 D
+// FLOPs (S = Q K^T, out += P V), K3 four (S^T = K Q^T, dP^T = V dO^T,
+// dV += P^T dO, dK += dS^T Q), K2 three (S, dP, dq += dS K); at B=2,
+// T=S=4096, H=32, KH=8, D=64, causal, that is 1.4e11, 2.8e11 and 2.1e11
+// FLOPs, 0.14, 0.28 and 0.21 ms at 989 TFLOP/s, against ~0.1 GB of
+// operands. Only wgmma reaches that rate; the designs before this one
+// (mma.sync fed by ldmatrix from a cp.async ring that the same four warps
+// issued) held them at 16-22 % of it.
 //
-// K3 (flash_dkv_wgmma) replaces `_bwd_dkv_kernel` (call `:427`, group sum
-// `:439-444`) and K2 (flash_dq_wgmma) `_bwd_dq_kernel` (`:251`, call
-// `:403`), the kernels `_flash_bwd_bhsd` (`:371`) calls. What bounds them
-// on the H100 is the operations: per (query, key) pair K3 does four
-// products of 2 D FLOPs (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK +=
-// dS^T Q), K2 three (S, dP, dq += dS K); at B=2, T=S=4096, H=32, KH=8,
-// D=64, causal, that is 2.8e11 and 2.1e11 FLOPs, 0.28 and 0.21 ms at
-// 989 TFLOP/s, against ~0.1 GB of operands. Only wgmma reaches that rate;
-// the design before this one (mma.sync fed by ldmatrix from a two-stage
-// cp.async ring that the same four warps issued, as K1 still is) held them
-// at 16-22 % of it.
-//
-// The design, shared by both:
+// The design, shared by the three:
 //   * A block has three warpgroups: a producer and two consumers. The
 //     producer gives its registers up (setmaxnreg 24) and one of its
 //     threads issues every load; the consumers take them (240).
@@ -875,10 +614,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
 //     stage. dq stays in registers and is written once. K2 stays a kernel
 //     of its own, as the reference's two pallas_calls are: no atomics, so
 //     every run repeats bit for bit.
+//   * K1: laid out as K2, Q alone loaded once. S = Q K^T stays in the
+//     accumulators, where the online softmax runs per row: the max over a
+//     quad by shuffles, p = exp2(s scale log2 e - m) against the running
+//     max m (log2 units), the running sum and out rescaled by exp2(m_old -
+//     m_new). p is packed to bf16 in place (rounded against the running
+//     max, as the reference's block-wise p) and is the register A operand
+//     of out += P V, V read MN-major from the stage. A masked p is
+//     selected to 0 after the exp, and a row masked so far keeps its max at
+//     the floor, where the rescale is exp2(0) = 1: no inf or NaN reaches a
+//     product. out is normalised by l in registers and written once; lse =
+//     m + ln l, and a row with no valid key gets out = 0 and lse = -1e30.
+//     exp2 is one ex2.approx.ftz. Each consumer waits for its S before
+//     the softmax: issuing the next tile's S first made ptxas serialise
+//     the wgmmas (C7514) and took 1.5x as long, and turn-taking between
+//     the consumers on named barriers 1.4x.
 //   * Stages of 128 rows halve the barrier round trips and wgmma waits per
 //     FLOP against 64; K3 at D = 128 keeps 64 (128 would put dK, dV, S^T
 //     and dP^T at 256 f32 registers a thread).
-//   * Masks and skips as in K1: tiles wholly above the causal diagonal or
+//   * Masks and skips: tiles wholly above the causal diagonal or
 //     past a "len" row's length are never loaded (a consumer whose 64 rows
 //     a loaded tile cannot reach skips it); the mask is tested only on the
 //     diagonal, ragged, "len" and "rows" tiles, and interior tiles of mode
@@ -963,6 +717,25 @@ __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float (*x)[4]) {
   for (int n = 0; n < N / 8; ++n) {
     a[n / 2][2 * (n & 1)] = pack(x[n][0], x[n][1]);
     a[n / 2][2 * (n & 1) + 1] = pack(x[n][2], x[n][3]);
+  }
+}
+
+// Stores a warp's 16 x D f32 accumulator rows [row0, row0 + 16) as bf16
+// (the m64 accumulator's layout: rows g and g + 8 of n-tile n hold columns
+// 8 n + 2 t and + 1).
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride, int row0,
+                                           int nvalid, float (*acc)[4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= nvalid) continue;
+    __nv_bfloat16* out = base + static_cast<int64_t>(row) * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(out + 8 * n) = pack(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
   }
 }
 
@@ -1168,8 +941,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const int64_t ks = static_cast<int64_t>(a.KH) * D;
     const int64_t koff = (static_cast<int64_t>(b) * a.S * a.KH + kh) * D;
-    hk::store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + koff, ks, kw, a.S, dk, lane);
-    hk::store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + koff, ks, kw, a.S, dv, lane);
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + koff, ks, kw, a.S, dk, lane);
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + koff, ks, kw, a.S, dv, lane);
   }
 }
 
@@ -1350,7 +1123,221 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const int64_t qs = static_cast<int64_t>(a.H) * D;
     const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
-    hk::store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + qoff, qs, qw, a.T, acc, lane);
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + qoff, qs, qw, a.T, acc, lane);
+  }
+}
+
+// ---------------------------------------------------------------- K1 ----
+
+// Keys of a K1 stage.
+constexpr int kFwdKeys = 128;
+
+// 2^x in one MUFU.EX2, subnormal results flushed to 0 (exp2f adds a
+// rescale for them): p and the rescale are summed in f32 and rounded to
+// bf16, where a p under 2^-126 is 0 either way. NaN and inf pass through.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kFwdStages = 2;
+
+template <int D>
+struct FwdSmem {  // byte offsets from the 1024-aligned base
+  static constexpr int kKvBytes = Lay<D, kFwdKeys>::kTileBytes;  // K or V of a stage
+  static constexpr int kQ = 0;                                     // [consumer] tiles
+  static constexpr int kStage = kQ + kConsumers * Lay<D, kBox>::kTileBytes;  // [stage] (K, V)
+  static constexpr int kBars = kStage + kFwdStages * 2 * kKvBytes;  // full, empty, q
+  static constexpr int kBytes = kBars + 8 * (2 * kFwdStages + 1) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ Maps m, const Args a) {
+  using L = Lay<D, kBox>;  // Q
+  using SM = FwdSmem<D>;
+  constexpr int BK = kFwdKeys, NK = BK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t full = base + SM::kBars, empty = full + 8 * kFwdStages, q_bar = empty + 8 * kFwdStages;
+
+  // Causal: the query blocks with the most key tiles first.
+  const int n_qb = (a.T + kBlockRows - 1) / kBlockRows;
+  const int ib = blockIdx.x / (a.H * a.B), rest = blockIdx.x % (a.H * a.B);
+  const int i = a.causal ? n_qb - 1 - ib : ib;
+  const int h = rest % a.H, b = rest / a.H, kh = h / (a.H / a.KH);
+  const int q0 = i * kBlockRows;
+  const int vlen = row_length(a, b);
+  // The key tiles the block visits (`last_j`, :128-146, for 128 queries).
+  int n_tiles = (a.S + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + kBlockRows - 1) / BK + 1);
+  if (a.mask_mode == kLen) n_tiles = q0 >= vlen ? 0 : min(n_tiles, (vlen + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup; one thread loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&m.k);
+      prefetch_map(&m.v);
+      mbar_expect_tx(q_bar, kConsumers * L::kTileBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        load_tile<D, kBox>(base + SM::kQ + c * L::kTileBytes, &m.q, q_bar, h, q0 + c * kBox, b);
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int st = jt % kFwdStages;
+        mbar_wait(empty + 8 * st, ((jt / kFwdStages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * st, sk = base + SM::kStage + st * 2 * SM::kKvBytes;
+        mbar_expect_tx(bar, 2 * SM::kKvBytes);
+        load_tile<D, BK>(sk, &m.k, bar, kh, jt * BK, b);
+        load_tile<D, BK>(sk + SM::kKvBytes, &m.v, bar, kh, jt * BK, b);
+      }
+    }
+  } else {  // a consumer: 64 queries
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int qw0 = q0 + wg * kBox;  // the consumer's first query
+    const int qw = qw0 + 16 * warp;  // its warp's
+    const float scale2 = a.scale * kLog2e;
+    const int qlim = a.mask_mode == kLen ? min(a.T, vlen) : a.T;
+    const uint32_t uQ = base + SM::kQ + wg * L::kTileBytes;
+
+    // This thread's two rows (g, g + 8): running max in log2 units, its own
+    // share of the running sum (summed over the quad at the end), out.
+    float m2[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    float acc[ND][4], s[NK][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    mbar_wait(q_bar, 0);
+
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int st = jt % kFwdStages;
+      mbar_wait(full + 8 * st, (jt / kFwdStages) & 1);
+      const int k0 = jt * BK;
+      const uint32_t sk = base + SM::kStage + st * 2 * SM::kKvBytes, sv = sk + SM::kKvBytes;
+      if (!(qw0 >= qlim || (a.causal && k0 > qw0 + kBox - 1))) {  // else all masked
+        const bool masked = a.mask_mode != kNone || qw0 + kBox > a.T || k0 + BK > a.S ||
+                            (a.causal && k0 + BK - 1 > qw0);
+        // S = Q K^T, k over D.
+        wgmma_fence();
+        wgmma_ss<BK, 0>(&s[0][0], kmajor<D, kBox>(uQ, 0), kmajor<D, BK>(sk, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss<BK, 1>(&s[0][0], kmajor<D, kBox>(uQ, kk), kmajor<D, BK>(sk, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<BK / 2>(&s[0][0]);
+        // Masked scores leave the max at the floor; their p is selected to 0
+        // after the exp (bit 4 n + e of `ok`).
+        uint64_t ok = ~0ull;
+        if (masked) {
+          ok = 0ull;
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            int keep[2] = {1, 1};
+            if (a.mask_mode == kRows) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = k0 + 8 * n + 2 * t + e;
+                keep[e] = key < a.S ? a.mask[static_cast<int64_t>(b) * a.S + key] : 0;
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = qw + g + 8 * (e >> 1), key = k0 + 8 * n + 2 * t + (e & 1);
+              if (q < qlim && key < a.S && keep[e & 1] != 0 && !(a.causal && key > q) &&
+                  (a.mask_mode != kLen || key < vlen)) {
+                ok |= 1ull << (4 * n + e);
+              } else {
+                s[n][e] = kNeg;
+              }
+            }
+          }
+        }
+        float mx[2] = {kNeg, kNeg};
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        float alpha[2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+          const float m_new = fmaxf(m2[hf], mx[hf] * scale2);
+          alpha[hf] = ex2(m2[hf] - m_new);  // <= 1, and 1 while the row is all masked
+          m2[hf] = m_new;
+        }
+        // p against the running max, in place, then packed to bf16.
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = ex2(fmaf(s[n][e], scale2, -m2[e >> 1]));
+            s[n][e] = (ok >> (4 * n + e)) & 1ull ? x : 0.f;
+            rs[e >> 1] += s[n][e];
+          }
+        uint32_t pa[BK / 16][4];
+        pack_a<BK>(pa, s);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + rs[hf];
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][0] *= alpha[0];
+          acc[n][1] *= alpha[0];
+          acc[n][2] *= alpha[1];
+          acc[n][3] *= alpha[1];
+        }
+        // out += P V, k over the tile's keys.
+        wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < BK / 16; ++kq) wgmma_rs<D>(&acc[0][0], pa[kq], mnmajor<D, BK>(sv, 16 * kq));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(&acc[0][0]);
+        fence_regs<BK / 4>(&pa[0][0]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);  // the warp is done with the stage
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    }
+    // A row with no valid key: l = 0, so out = 0 and lse = the floor.
+    const float inv0 = 1.f / max_nan(l[0], 1e-30f), inv1 = 1.f / max_nan(l[1], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= inv0;
+      acc[n][1] *= inv0;
+      acc[n][2] *= inv1;
+      acc[n][3] *= inv1;
+    }
+    const int64_t qs = static_cast<int64_t>(a.H) * D;
+    const int64_t qoff = (static_cast<int64_t>(b) * a.T * a.H + h) * D;
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.out) + qoff, qs, qw, a.T, acc, lane);
+    if (t == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = qw + g + 8 * hf;
+        if (row < a.T) {
+          a.lse[(static_cast<int64_t>(b) * a.H + h) * a.T + row] =
+              !(l[hf] <= 0.f) ? m2[hf] * (1.f / kLog2e) + logf(l[hf]) : kNeg;
+        }
+      }
+    }
   }
 }
 
@@ -1366,31 +1353,6 @@ constexpr size_t smem_bytes(int which) {
          (which == kFwd ? 2 * D * kBQ + kBK * D + kBK * kPad
           : which == kDq ? 2 * D * kBQ + 3 * D * kBK + kBK * kPad
                          : 4 * D * kBQ + 2 * D * kBK + kBQ * kPad + 2 * kBQ);
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's entry-point query,
-// so the library links no libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The 4-D map (D, heads, rows, batch) of a contiguous bf16 [B, rows, heads,
@@ -1424,9 +1386,9 @@ int stat_map(EncodeTiled fn, CUtensorMap* m, const float* p, int64_t n, int box_
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2 or K3 in bf16: the tensor maps, then the launch. TMA needs every base
-// 16-byte aligned (the row strides, 2 D bytes and their multiples, are):
-// a misaligned one is refused with cudaErrorMisalignedAddress.
+// K1, K2 or K3 in bf16: the tensor maps, then the launch. TMA needs every
+// base 16-byte aligned (the row strides, 2 D bytes and their multiples,
+// are): a misaligned one is refused with cudaErrorMisalignedAddress.
 template <int D>
 int launch_wgmma(int which, const Args& a, cudaStream_t stream) {
   for (const void* p : {a.q, a.k, a.v, a.dout, static_cast<const void*>(a.lse_in),
@@ -1434,22 +1396,6 @@ int launch_wgmma(int which, const Args& a, cudaStream_t stream) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  wk::Maps m;
-  const int64_t n_stat = static_cast<int64_t>(a.B) * a.H * a.T;
-  // The boxes' rows: K3 streams q tiles of kDkvQueries and holds 64 keys a
-  // consumer; K2 holds 64 queries a consumer and streams kDqKeys keys.
-  const int q_rows = which == kDkv ? wk::kDkvQueries<D> : wk::kBox;
-  const int k_rows = which == kDkv ? wk::kBox : wk::kDqKeys;
-  int rc = head_map(fn, &m.q, a.q, a.B, a.T, a.H, D, q_rows);
-  if (rc == 0) rc = head_map(fn, &m.g, a.dout, a.B, a.T, a.H, D, q_rows);
-  if (rc == 0) rc = head_map(fn, &m.k, a.k, a.B, a.S, a.KH, D, k_rows);
-  if (rc == 0) rc = head_map(fn, &m.v, a.v, a.B, a.S, a.KH, D, k_rows);
-  const int box = which == kDkv ? wk::kStatBox<wk::kDkvQueries<D>> : wk::kStatBox<wk::kBox>;
-  if (rc == 0) rc = stat_map(fn, &m.lse, a.lse_in, n_stat, box);
-  if (rc == 0) rc = stat_map(fn, &m.delta, a.delta, n_stat, box);
-  if (rc != 0) return rc;
   void (*kern)(wk::Maps, Args);
   int smem, blocks;
   if (which == kDkv) {
@@ -1457,40 +1403,56 @@ int launch_wgmma(int which, const Args& a, cudaStream_t stream) {
     smem = wk::DkvSmem<D>::kBytes;
     blocks = (a.S + wk::kBlockRows - 1) / wk::kBlockRows * a.KH * a.B;
   } else {
-    kern = wk::flash_dq_wgmma<D>;
-    smem = wk::DqSmem<D>::kBytes;
+    kern = which == kDq ? wk::flash_dq_wgmma<D> : wk::flash_fwd_wgmma<D>;
+    smem = which == kDq ? wk::DqSmem<D>::kBytes : wk::FwdSmem<D>::kBytes;
     blocks = (a.T + wk::kBlockRows - 1) / wk::kBlockRows * a.H * a.B;
   }
+  // A runtime call before the driver's encoder: it makes the device's
+  // primary context current in a thread that has not used CUDA yet, where
+  // cuTensorMapEncodeTiled would fail.
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  wk::Maps m;
+  const int64_t n_stat = static_cast<int64_t>(a.B) * a.H * a.T;
+  // The boxes' rows: K3 streams q tiles of kDkvQueries and holds 64 keys a
+  // consumer; K1 and K2 hold 64 queries a consumer and stream kFwdKeys and
+  // kDqKeys keys.
+  const int q_rows = which == kDkv ? wk::kDkvQueries<D> : wk::kBox;
+  const int k_rows = which == kDkv ? wk::kBox : which == kDq ? wk::kDqKeys : wk::kFwdKeys;
+  int rc = head_map(fn, &m.q, a.q, a.B, a.T, a.H, D, q_rows);
+  if (rc == 0) rc = head_map(fn, &m.k, a.k, a.B, a.S, a.KH, D, k_rows);
+  if (rc == 0) rc = head_map(fn, &m.v, a.v, a.B, a.S, a.KH, D, k_rows);
+  if (which != kFwd) {  // dO, lse and delta: the backward's alone
+    const int box = which == kDkv ? wk::kStatBox<wk::kDkvQueries<D>> : wk::kStatBox<wk::kBox>;
+    if (rc == 0) rc = head_map(fn, &m.g, a.dout, a.B, a.T, a.H, D, q_rows);
+    if (rc == 0) rc = stat_map(fn, &m.lse, a.lse_in, n_stat, box);
+    if (rc == 0) rc = stat_map(fn, &m.delta, a.delta, n_stat, box);
+  }
+  if (rc != 0) return rc;
   kern<<<blocks, wk::kThreads, smem, stream>>>(m, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch(int which, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args);
-  size_t smem;
-  int threads;
-  if constexpr (std::is_same_v<T, float>) {  // the CUDA-core f32 kernels
-    kern = which == kFwd ? flash_fwd_kernel<float, D>
-           : which == kDq ? flash_dq_kernel<float, D> : flash_dkv_kernel<float, D>;
-    smem = smem_bytes<D>(which);
-    threads = kThreads;
-  } else {  // bf16: K1 on mma.sync, K2 and K3 on wgmma
-    if (which != kFwd) return launch_wgmma<D>(which, a, stream);
-    kern = hk::flash_fwd_bf16<D>;
-    smem = hk::fwd_smem_bytes<D>();
-    threads = hk::kThreads;
+  if constexpr (!std::is_same_v<T, float>) {  // bf16: K1, K2 and K3 on wgmma
+    return launch_wgmma<D>(which, a, stream);
+  } else {  // the CUDA-core f32 kernels
+    void (*kern)(Args) = which == kFwd ? flash_fwd_kernel<float, D>
+                         : which == kDq ? flash_dq_kernel<float, D>
+                                        : flash_dkv_kernel<float, D>;
+    const int smem = static_cast<int>(smem_bytes<D>(which));
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(which == kDkv ? (a.S + kBK - 1) / kBK : (a.T + kBQ - 1) / kBQ,
+                    which == kDkv ? a.KH : a.H, a.B);
+    kern<<<grid, kThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(which == kDkv ? (a.S + kBK - 1) / kBK : (a.T + kBQ - 1) / kBQ,
-                  which == kDkv ? a.KH : a.H, a.B);
-  kern<<<grid, threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

@@ -1,15 +1,21 @@
-// PTX helpers shared by the port's tensor-core kernels (sm_90a). Two sets:
+// PTX helpers shared by the port's tensor-core kernels (sm_90a):
 //   * Ampere's: cp.async copies, ldmatrix, mma.sync m16n8k16 (bf16 in, f32
-//     sums) and the ldmatrix row addresses of the fragments (K1, K6);
+//     sums) and the ldmatrix row addresses of the fragments (K6's decode
+//     and prefill_mma tilings);
 //   * Hopper's: mbarriers, TMA tile loads, wgmma (its shared-memory matrix
 //     descriptors, the instruction with both operands in shared memory or
-//     A in registers, fence/commit/wait) and setmaxnreg (K2, K3).
+//     A in registers, fence/commit/wait) and setmaxnreg (K1-K3, K6's
+//     prefill);
+//   * on the host: cuTensorMapEncodeTiled, reached through the runtime's
+//     entry-point query, so no library links libcuda.
 // Included by flash_attention.cu and quant_matmul.cu; ops/build.py's hash
 // covers this file, so an edit here rebuilds both.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ptx {
@@ -21,12 +27,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes.
 __device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -67,18 +67,11 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // Shared-memory addresses of the ldmatrix rows this lane supplies, for a
 // tile stored [row][col] with row stride LD (bf16):
 //   a_addr: the A fragment of the 16 x 16 block at (r0, c0);
-//   b_addr: the B fragments of two n-tiles (rows n0, n0 + 8) x 16 columns
-//     at c0, for a B stored [n][k] (plain ldmatrix);
 //   bt_addr: the B fragments of two n-tiles (columns n0, n0 + 8) x 16 rows
 //     at k0, for a B stored [k][n] (ldmatrix.trans).
 template <int LD>
 __device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int c0, int lane) {
   return base + 2 * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-
-template <int LD>
-__device__ __forceinline__ uint32_t b_addr(uint32_t base, int n0, int c0, int lane) {
-  return base + 2 * ((n0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 + ((lane >> 3) & 1) * 8);
 }
 
 template <int LD>
@@ -134,6 +127,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -219,6 +221,11 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b);
 // 8), and B (16 x N) MN-major in shared memory.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+
+// d += A B with A (64 x 16 bf16) in registers, as for wgmma_rs, and B
+// (N x 16) K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float* d, const uint32_t* a, uint64_t b);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64, 0>(float* d, uint64_t a, uint64_t b) {
@@ -375,4 +382,59 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs_k<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 }  // namespace ptx
+
+// ---------------------------------------------------------------- host ----
+
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query,
+// so the library links no libcuda; null where the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}

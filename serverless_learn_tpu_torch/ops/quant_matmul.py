@@ -10,13 +10,15 @@ a gradient for the activations (QLoRA trains adapters through the frozen
 int8 base); it is the models' entry point, in training and serving.
 
 :func:`plan` is the one place that picks the kernel's tiling (decode with
-one n8 tile of x's rows up to 8 rows, two up to 16, prefill above) and how
-the contraction is split across blocks; the wrapper passes both to the
-kernel. The split partials go to an f32 workspace of a fixed size that the
-wrapper allocates once for each stream and keeps, so a call allocates
-nothing but its output: a decode forward makes 225 calls of a few
-microseconds of device time each, and the host's time for a call is what
-an eager forward waits on.
+one n8 tile of x's rows up to 8 rows, two up to 16; above, the ``prefill``
+tiling on wgmma fed by TMA wherever TMA can describe the operands, else
+``prefill_mma``) and how the contraction is split across blocks; the
+wrapper passes both to the kernel. The split partials go to an f32
+workspace of a fixed size that the wrapper allocates once for each stream
+and keeps, so a call allocates nothing but its output (and, under the
+``prefill`` tiling, a bf16 copy of an f32 x): a decode forward makes 225
+calls of a few microseconds of device time each, and the host's time for a
+call is what an eager forward waits on.
 """
 
 from __future__ import annotations
@@ -36,22 +38,30 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/quant_matmul.cu's tile geometry, which plan() counts blocks with
 # (checked against the built kernel's on loading).
 DECODE_MAX_ROWS = 16  # R <= 16: the split-K decode kernel; above: prefill
-TILE_COLS = 128       # output columns a block owns, both paths
-PREFILL_TILE_ROWS = 128
-STEP_ROWS = 64        # contraction rows a stage, both paths
+TILE_COLS = 128       # output columns a block owns: decode, prefill_mma
+PREFILL_TILE_ROWS = 128  # x rows a block owns, both prefill tilings
+PREFILL_TILE_COLS = 256  # output columns a block owns: prefill (wgmma)
+STEP_ROWS = 64        # contraction rows a stage, every tiling
 # Blocks to aim for (H100 SXM: 132 SMs): decode blocks are small (4 warps,
-# 38-43 KB of shared memory) and stream bytes, so about four an SM; prefill
-# blocks hold a 128 x 128 tile and fit two an SM, so one full wave.
-TARGET_BLOCKS = {"decode": 4 * 132, "prefill": 2 * 132}
+# 38-43 KB of shared memory) and stream bytes, so about four an SM; a
+# prefill block (three warpgroups, 193 KB) fills an SM, so one full wave;
+# prefill_mma blocks fit two an SM.
+TARGET_BLOCKS = {"decode": 4 * 132, "prefill": 132, "prefill_mma": 2 * 132}
 # The kernel's tilings, by the code its entry point takes.
-TILINGS = {"decode_n8": 0, "decode_n16": 1, "prefill": 2}
+TILINGS = {"decode_n8": 0, "decode_n16": 1, "prefill": 2, "prefill_mma": 3}
+# (rows, columns) of a tiling's output tile.
+_TILE = {"decode": (DECODE_MAX_ROWS, TILE_COLS),
+         "prefill": (PREFILL_TILE_ROWS, PREFILL_TILE_COLS),
+         "prefill_mma": (PREFILL_TILE_ROWS, TILE_COLS)}
 # The most f32 partials a split plan writes: with more than one split,
-# splits * tiles <= TARGET_BLOCKS, and a tile covers at most DECODE_MAX_ROWS
-# (decode) or PREFILL_TILE_ROWS (prefill) rows of TILE_COLS columns, so
-# splits * R * O stays under this (17.3 MB).
-WORKSPACE_FLOATS = TILE_COLS * max(
-    TARGET_BLOCKS["decode"] * DECODE_MAX_ROWS,
-    TARGET_BLOCKS["prefill"] * PREFILL_TILE_ROWS)
+# splits * tiles <= TARGET_BLOCKS, and a tile covers at most its tiling's
+# rows and columns, so splits * R * O stays under this (17.3 MB).
+WORKSPACE_FLOATS = max(TARGET_BLOCKS[k] * r * c for k, (r, c) in _TILE.items())
+
+
+# What slt_quant_matmul_geometry reports, in its order.
+GEOMETRY = (TILE_COLS, STEP_ROWS, PREFILL_TILE_ROWS, DECODE_MAX_ROWS,
+            PREFILL_TILE_COLS)
 
 
 class Plan(NamedTuple):
@@ -61,25 +71,32 @@ class Plan(NamedTuple):
 
     @property
     def path(self) -> str:
-        return "prefill" if self.tiling == "prefill" else "decode"
+        return "decode" if self.tiling.startswith("decode") else "prefill"
+
+
+def tma_shapes(I: int, O: int) -> bool:
+    """Whether TMA can describe x [R, I] bf16 and wq [I, O] int8: each row
+    a multiple of 16 bytes."""
+    return I % 8 == 0 and O % 16 == 0
 
 
 @functools.lru_cache(maxsize=256)
 def plan(R: int, I: int, O: int) -> Plan:
-    """The kernel's tiling for R rows, and the split of I across blocks
-    that brings the blocks of an [R, I] x [I, O] product up to, not past,
-    TARGET_BLOCKS (past it, a partial second wave of blocks costs more
-    than the split saves)."""
+    """The kernel's tiling for R rows and the operands' shapes, and the
+    split of I across blocks that brings the blocks of an [R, I] x [I, O]
+    product up to, not past, TARGET_BLOCKS (past it, a partial second wave
+    of blocks costs more than the split saves)."""
     if R > DECODE_MAX_ROWS:
-        tiling = "prefill"
+        tiling = "prefill" if tma_shapes(I, O) else "prefill_mma"
     else:
         tiling = "decode_n8" if R <= 8 else "decode_n16"
-    path = "prefill" if tiling == "prefill" else "decode"
-    tiles = math.ceil(O / TILE_COLS)
-    if path == "prefill":
-        tiles *= math.ceil(R / PREFILL_TILE_ROWS)
+    kind = "decode" if tiling.startswith("decode") else tiling
+    rows, cols = _TILE[kind]
+    tiles = math.ceil(O / cols)
+    if kind != "decode":
+        tiles *= math.ceil(R / rows)
     steps = math.ceil(I / STEP_ROWS)
-    want = min(steps, max(1, TARGET_BLOCKS[path] // tiles))
+    want = min(steps, max(1, TARGET_BLOCKS[kind] // tiles))
     k_split = math.ceil(steps / want) * STEP_ROWS
     pl = Plan(tiling, k_split, math.ceil(I / k_split))
     if pl.splits > 1 and pl.splits * R * O > WORKSPACE_FLOATS:
@@ -105,12 +122,11 @@ def quant_matmul_reference(x: torch.Tensor, wq: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = build.load("quant_matmul")
-    geometry = (ctypes.c_int * 4)()
+    geometry = (ctypes.c_int * 5)()
     lib.slt_quant_matmul_geometry(geometry)
-    mine = (TILE_COLS, STEP_ROWS, PREFILL_TILE_ROWS, DECODE_MAX_ROWS)
-    if tuple(geometry) != mine:
+    if tuple(geometry) != GEOMETRY:
         raise RuntimeError(f"csrc/quant_matmul.cu's tiles {tuple(geometry)} "
-                           f"are not the {mine} that plan() counts with")
+                           f"are not the {GEOMETRY} that plan() counts with")
     fn = lib.slt_quant_matmul
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, i, i, ll, ll, ll, ll, i, p]
@@ -171,24 +187,36 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     R = x.numel() // I if I else 0
     out = x.new_empty(x.shape[:-1] + (O,))
     pl = plan(R, I, O)
+    xk = x
+    if pl.tiling == "prefill":
+        # The wgmma tiling reads a bf16 x through TMA: an f32 x is rounded
+        # first, the reference's own first step, and TMA wants a 16-byte
+        # aligned base.
+        if xk.dtype != torch.bfloat16:
+            xk = xk.to(torch.bfloat16)
+        if xk.data_ptr() % 16:
+            xk = xk.clone()
     stream = (_raw_stream(dev) if _raw_stream is not None
               else torch.cuda.current_stream(dev).cuda_stream)
     kernel = _kernel()
     with _launch_lock:
         rc = kernel(
-            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            xk.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
             _workspace(dev, stream) if pl.splits > 1 else None, code,
             TILINGS[pl.tiling], R, I, O, pl.k_split, dev, stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}"
                            f" at R={R} I={I} O={O} ({pl})")
     quant_matmul.launches += 1
+    quant_matmul.tilings[pl.tiling] += 1
     return out
 
 
-# Kernel launches since the last reset; chip_smoke.py zeroes it before the
-# main path and reads it after, to show the path went through the kernel.
+# Kernel launches since the last reset, in all and by tiling; chip_smoke.py
+# zeroes them before the main path and reads them after, to show the path
+# went through the kernel and which of its tilings.
 quant_matmul.launches = 0
+quant_matmul.tilings = dict.fromkeys(TILINGS, 0)
 
 
 class QuantMatmul(torch.autograd.Function):

@@ -439,16 +439,18 @@ def test_kernel_tolerance_passes_ragged_k2_k3_tiles_and_fails_a_tail_from_the_ne
 
 def _k1_tensor_core_arithmetic_bf16(q, k, v, *, drop_rescale=False,
                                     skip_off_by_tile=False):
-    """K1 as the tensor-core kernel computes it, in torch, causal: each
-    warp's 16 query rows against 64-key tiles; a warp skips a tile wholly
-    above the diagonal and masks only a tile the diagonal crosses, by the
-    kernel's own tests; the running max m in log2 units, p = exp2(s scale
-    log2 e - m) selected to 0 where masked, packed to bf16 against the
-    running max before p @ v; the running sum and out rescaled per row by
-    exp2(m_old - m_new); every sum f32. ``drop_rescale`` leaves out's
-    rescale out, ``skip_off_by_tile`` moves the skip boundary one tile
-    down (the diagonal tile is skipped): the faults the limit must catch."""
+    """K1 as the wgmma kernel computes it, in torch, causal: each
+    consumer's 64 query rows against 128-key stages; a consumer skips a
+    stage wholly above the diagonal and masks only a stage the diagonal
+    crosses, by the kernel's own tests; the running max m in log2 units,
+    p = exp2(s scale log2 e - m) selected to 0 where masked, packed to
+    bf16 against the running max before p @ v; the running sum and out
+    rescaled per row by exp2(m_old - m_new); every sum f32.
+    ``drop_rescale`` leaves out's rescale out, ``skip_off_by_tile`` moves
+    the skip boundary one stage down (the diagonal stage is skipped): the
+    faults the limit must catch."""
     Bq, Tq, Hq, Dq = q.shape
+    rows_c, keys = 64, 128
     grp = Hq // k.shape[2]
     scale2 = torch.tensor(Dq ** -0.5, dtype=torch.float32) * LOG2E
     qf = q.float().transpose(1, 2)
@@ -456,25 +458,25 @@ def _k1_tensor_core_arithmetic_bf16(q, k, v, *, drop_rescale=False,
     vf = v.float().repeat_interleave(grp, dim=2).transpose(1, 2)
     pos = torch.arange(Tq)
     out = torch.zeros(Bq, Hq, Tq, Dq)
-    for qw in range(0, Tq, 16):  # a warp's 16 rows
-        rows = slice(qw, qw + 16)
-        m2 = torch.full((Bq, Hq, 16, 1), NEG)
-        l = torch.zeros(Bq, Hq, 16, 1)
-        acc = torch.zeros(Bq, Hq, 16, Dq)
-        for k0 in range(0, Tq, 64):
-            if k0 > qw + 15 - (64 if skip_off_by_tile else 0):
+    for qw in range(0, Tq, rows_c):  # a consumer's 64 rows
+        rows = slice(qw, qw + rows_c)
+        m2 = torch.full((Bq, Hq, rows_c, 1), NEG)
+        l = torch.zeros(Bq, Hq, rows_c, 1)
+        acc = torch.zeros(Bq, Hq, rows_c, Dq)
+        for k0 in range(0, Tq, keys):
+            if k0 > qw + rows_c - 1 - (keys if skip_off_by_tile else 0):
                 continue  # all masked
-            s = qf[:, :, rows] @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
-            ok = torch.ones(16, 64, dtype=torch.bool)
-            if k0 + 63 > qw:  # the diagonal crosses the tile
-                ok = pos[None, k0:k0 + 64] <= pos[rows, None]
+            s = qf[:, :, rows] @ kf[:, :, k0:k0 + keys].transpose(-1, -2)
+            ok = torch.ones(rows_c, keys, dtype=torch.bool)
+            if k0 + keys - 1 > qw:  # the diagonal crosses the stage
+                ok = pos[None, k0:k0 + keys] <= pos[rows, None]
                 s = s.masked_fill(~ok, NEG)
             m_new = torch.maximum(m2, s.amax(-1, keepdim=True) * scale2)
             alpha = torch.exp2(m2 - m_new)
             p = torch.where(ok, torch.exp2(s * scale2 - m_new), 0.0)
             l = l * alpha + p.sum(-1, keepdim=True)
             acc = (acc if drop_rescale else acc * alpha) + (
-                _round_bf16(p) @ vf[:, :, k0:k0 + 64])
+                _round_bf16(p) @ vf[:, :, k0:k0 + keys])
             m2 = m_new
         out[:, :, rows] = acc / l.clamp_min(1e-30)
     return out.transpose(1, 2).to(torch.bfloat16)
@@ -482,12 +484,12 @@ def _k1_tensor_core_arithmetic_bf16(q, k, v, *, drop_rescale=False,
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_kernel_tolerance_passes_k1_tensor_core_tiles_and_fails_faults(d):
-    """The bf16 limit holds the tensor-core K1 arithmetic (16-row warps,
-    64-key tiles, exp2 with the scale folded in, p packed to bf16 against
+    """The bf16 limit holds the wgmma K1 arithmetic (64-row consumers,
+    128-key stages, exp2 with the scale folded in, p packed to bf16 against
     the running max, the per-row rescale, the causal skip) within half of
     itself against both the plain version and the reference's Pallas
     kernel (interpret mode, bf16 in); an out without its rescale and a skip
-    boundary one tile off each fail it."""
+    boundary one stage off each fail it."""
     b, t, h, k = 1, 512, 4, 2
     q, kk, v, _, _ = _inputs(9, b=b, t=t, h=h, k=k, d=d)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kk, v))
@@ -529,6 +531,18 @@ CARD_CASES = [
       for t in (127, 128, 129, 255) for d in (32, 64, 128)],
     (2, 129, 129, 4, 2, 64, True, "len", torch.bfloat16),
     (2, 255, 255, 8, 2, 128, False, "rows", torch.bfloat16),
+    # K1's 128-key stages and 64-row consumers: T != S (causal aligned at
+    # the top left; a single query row), ragged at the block edges, every
+    # head dim in every mask mode, GQA and H == K
+    *[(2, t, s, 4, 2, d, c, "none", torch.bfloat16)
+      for t, s, c in ((1, 200, False), (63, 200, True), (300, 520, True),
+                      (520, 300, True))
+      for d in (32, 64, 128)],
+    *[(2, t, t, 8, 2, d, c, mode, torch.bfloat16)
+      for t in (383, 384, 385) for d in (32, 128)
+      for c, mode in ((True, "len"), (False, "rows"))],
+    (2, 300, 520, 8, 2, 64, False, "rows", torch.bfloat16),
+    (2, 520, 300, 8, 8, 64, True, "len", torch.bfloat16),
 ]
 
 
@@ -572,3 +586,49 @@ def test_kernels_match_plain_on_card(card, case):
         got, ref = got.float(), ref.float()
         assert bool(torch.isfinite(got).all()), name
         assert bool(ok.all()), (name, (got - ref).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_nonfinite_inputs_on_card(card):
+    """Phase 14a's flash cases: a NaN or +inf in q, k, v or dO reaches
+    through K1-K3 exactly the outputs it reaches in the plain versions,
+    in bf16 and f32."""
+    import math
+
+    import chip_smoke as cs
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=card).manual_seed(14)
+    B, T, H, KH, D = (cs.NF_FLASH[x] for x in ("B", "T", "H", "KH", "D"))
+    for dt in (torch.bfloat16, torch.float32):
+        mk = lambda *shape: torch.randn(  # noqa: E731
+            *shape, device=card, generator=g).to(dt)
+        inputs = {"q": mk(B, T, H, D), "k": mk(B, T, KH, D),
+                  "v": mk(B, T, KH, D), "dout": mk(B, T, H, D)}
+
+        def fwd_delta(x):
+            out, lse = fa.flash_fwd_reference(x["q"], x["k"], x["v"],
+                                              causal=True)
+            delta = (x["dout"].float() * out.float()).sum(-1).permute(
+                0, 2, 1).contiguous()
+            return out, lse, delta
+
+        def plain(x):
+            out, lse, delta = fwd_delta(x)
+            args = (x["q"], x["k"], x["v"], x["dout"], lse, delta)
+            dk, dv = fa.flash_dkv_reference(*args, causal=True)
+            return {"out": out, "lse": lse, "dk": dk, "dv": dv,
+                    "dq": fa.flash_dq_reference(*args, causal=True)}
+
+        def kern(x):
+            _, lse, delta = fwd_delta(x)
+            out, klse = fa.flash_fwd(x["q"], x["k"], x["v"], causal=True)
+            args = (x["q"], x["k"], x["v"], x["dout"], lse, delta)
+            dk, dv = fa.flash_dkv(*args, causal=True)
+            return {"out": out, "lse": klse, "dk": dk, "dv": dv,
+                    "dq": fa.flash_dq(*args, causal=True)}
+
+        for name, key, idx, value in cs.NF_FLASH_CASES:
+            _, faults = cs.nonfinite_case(torch, kern, plain, inputs, key,
+                                          idx, value)
+            assert not faults, (dt, name, faults)
