@@ -39,16 +39,19 @@ any failing phase exits non-zero:
 6. holds the flash attention kernels (forward, dq, dk/dv) against their
    plain versions: the llama_1b and llama_8b training shapes, ragged,
    non-causal, H == K, "len" and "rows" masks, T != S, f32, the head dims
-   32 and 128, and the llama_8b head layout (D = 128) ragged and with both
-   masks; runs the forward, dq and dk/dv twice at both training shapes
-   and fails unless they repeat bit for bit;
-7. times them at the llama_1b training shape and at the llama_8b
-   attention shape (D = 128) beside their bounds, their plain versions,
-   ``scaled_dot_product_attention`` and the parent's kernels' times
-   (``PARENT_FLASH_MS``), each kernel warmed up at its own shape and
-   timed as the median of several runs, with the SM clock, temperature,
-   power and throttle reasons sampled beside them; then forward +
-   backward of the three kernels
+   32 and 128, the llama_8b head layout (D = 128) ragged and with both
+   masks, and non-causal "len" at bert_base's training shape (``bert_len``:
+   32 x 512, 12 heads, rows of 512, 487, 1 and 0), at the llama_1b GQA
+   layout and at D = 128; runs the forward, dq and dk/dv twice at both
+   training shapes and fails unless they repeat bit for bit;
+7. times them at the llama_1b training shape, at the llama_8b attention
+   shape (D = 128) and at ``bert_len`` (non-causal, "len"; its bound from
+   the pairs and input rows this data keeps, SDPA with the boolean key mask) beside their
+   bounds, their plain versions, ``scaled_dot_product_attention`` and the
+   parent's kernels' times (``PARENT_FLASH_MS``), each kernel warmed up at
+   its own shape and timed as the median of several runs, with the SM
+   clock, temperature, power and throttle reasons sampled beside them;
+   then forward + backward of the three kernels
    against the dense form (``ops/attention.py``) at T = 1,024, 2,048 and
    4,096 at both head layouts, the crossover ``impl="auto"`` would need
    (measured only: the threshold stays);
@@ -117,8 +120,9 @@ any failing phase exits non-zero:
     hold ``quant_decode`` kernels; prints the harvest's telemetry host
     time per decode chunk;
 10. the user path through checkpoints in the JAX package's format, at
-    llama_1b's full width, through the CLI's entry points in this process:
-    ``train`` (B=2, T=4096, 3 adamw steps, K1-K3) saves 17.98 GB blobs at
+    llama_1b's full width and 6 of its 16 layers, through the CLI's entry
+    points in this process:
+    ``train`` (B=2, T=4096, 3 adamw steps, K1-K3) saves 10.7 GB blobs at
     step 2 (uploaded while step 3 trains) and step 3, with the telemetry
     on (``--metrics-port 0 --health --events-log --flight-dir``, an
     in-loop eval every 2 steps, the emergency save armed with its shadow
@@ -137,7 +141,7 @@ any failing phase exits non-zero:
     ``generate --quant int8`` greedy and with ``--draft-layers 4 --spec-k
     4``, and the model as its own draft, each speculative reply held to
     greedy decode and timed; then ``serve`` (the continuous engine)
-    answers two requests, held to greedy decode. K6 must launch 113 times
+    answers two requests, held to greedy decode. K6 must launch 43 times
     a target forward (29 a 4-layer draft forward) and only at row counts
     phase 3 checked at llama_1b's five shapes;
 11. QLoRA, the JAX package's single-card 8B fine-tuning rung: full-depth
@@ -202,10 +206,11 @@ any failing phase exits non-zero:
     NaN in x): every output position that depends on the poisoned value
     (found by perturbing it in the plain version) must be non-finite in
     both, and the kernel must be non-finite nowhere the plain version is
-    finite; (b) llama_1b at full width (B=2, T=4096, adamw, clip 1.0), 12
-    steps with numerics off and 12 from the same seed with numerics at
-    cadence 4 through ``run_training``: the losses bit for bit equal, the
-    step-time ratio at most 1.03, peak memory at most 1.05 GB more, the
+    finite; (b) llama_1b at full width (B=2, T=4096, adamw, clip 1.0), four
+    runs of 12 steps from the same seed through ``run_training``, numerics
+    off, on at cadence 4, on, off: the losses bit for bit equal, the
+    step-time ratio (the on runs' median step over the off runs') at most
+    1.03, peak memory at most 1.05 GB more, the
     ``numerics`` goodput phase under 2 % of the run, exactly 3 fetches,
     K1-K3's and the stats kernels' launches; (c) the drill: ``train
     --numerics --health`` through the CLI, no clipping, NaN injected into
@@ -231,9 +236,30 @@ any failing phase exits non-zero:
     moe_mixtral_8x7b`` at full width and 2 of 32 layers, B = 1, T =
     4,096, 3 adamw steps: losses and aux losses finite, K1-K3 2 launches
     a step each;
-16. prints one JSON line of kernels (with each kernel's launches on phase
-    10's path, K6's on phase 11's and on phase 15's serving, K1-K3's on
-    phase 13's worker and phase 15d, and the stats kernels' on phase
+16. the model families (MLP, ResNet, BERT/MLM) and their data: (a)
+    bert_tiny at T = 512 with suffix-padded rows (512, 487, 1, 0) and
+    resnet18_cifar (16 filters, batch 8), 3 steps each on the card
+    (K1-K3, cuDNN) and on the CPU (plain versions) from the same weights
+    and batches in f32: losses, params and BatchNorm's running statistics
+    compared; (b) the one-card cut of ``configs/bert_base_mlm.json``
+    (batch 64, grad_accum 2, T = 512, adamw, 5 steps) through
+    ``run_training`` over suffix-padded rows this phase publishes to the
+    port's shard server, masked by ``mlm_transform``: exactly 12 x 2 x 5
+    launches of each of K1-K3 and no dense attention; step time, tokens/s
+    (padded and valid), MFU, peak memory, a profiled step; (c) the one-card
+    cut of ``configs/cifar_resnet18_dp4.json`` (batch 256, sgd, warmup,
+    ``data.augment``) over 5,120 CIFAR-10 binary records written and
+    published with ``publish --format cifar10``: 30 steps with
+    ``--checkpoint-dir``, ``eval`` from the checkpoint held to the live
+    state's; samples/s, MFU, peak memory, a profiled step split into
+    cuDNN's convolutions, BatchNorm and the rest; (d)
+    ``configs/mnist_mlp.json`` over MNIST IDX files with learnable labels
+    (``publish --format mnist``): 200 steps whose last 20 losses' mean is
+    under half the first 20's, then ``eval`` from the checkpoint;
+17. prints each phase's wall seconds, then one JSON line of kernels (with
+    each kernel's launches on phase 10's path, K6's on phase 11's and on
+    phase 15's serving, K1-K3's on phase 13's worker, phase 15d and phase
+    16b, K1-K3's times at ``bert_len``, and the stats kernels' on phase
     14b), then the card's name and power limit, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +326,11 @@ family), with no result line.
 builds every kernel and runs only phase 14 (the numerics layer), with no
 result line.
 
+    python3 chip_smoke.py --families-only
+
+builds the flash kernels and runs only phases 6, 7 and 16 (the model
+families), with no result line.
+
     python3 chip_smoke.py --nonfinite-only
 
 builds the kernels and runs only phase 14a, printing its faults instead of
@@ -329,7 +360,9 @@ LLAMA8B_SHAPES = {
     (14336, 4096): ("down_proj", 32),
     (4096, 128256): ("lm_head", 1),
 }
-PROMPT_LEN, NEW_TOKENS = 128, 32
+# 16 new tokens a greedy request (32 before the model families' phase 16:
+# the run's time limit).
+PROMPT_LEN, NEW_TOKENS = 128, 16
 SERVE_BATCH = 4  # the greedy requests of phase 9 form one group of 4
 # Rows the kernel is checked at in phase 3: both sides of each of its tile
 # boundaries (decode with one n8 tile up to 8 rows, two up to 16, prefill
@@ -1703,6 +1736,9 @@ PHASE_8B: dict = {}
 FLASH_SHAPE = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 64)
 # The LoRA slice's: llama_8b (32 heads / 8 KV heads, head dim 128).
 FLASH_SHAPE_8B = (TRAIN_B, TRAIN_T, TRAIN_T, 32, 8, 128)
+# bert_base's attention in a phase 16b microbatch: 32 rows of 512, 12
+# heads, head dim 64, non-causal, suffix padding as "len".
+BERT_FLASH_SHAPE = (32, 512, 512, 12, 12, 64)
 FLASH_CASES = [
     # name, (b, t, s, h, k, d), causal, mode, dtype
     ("train_shape", FLASH_SHAPE, True, "none", "bfloat16"),
@@ -1724,6 +1760,14 @@ FLASH_CASES = [
      "bfloat16"),
     ("d32_ragged_520", (2, 520, 520, 4, 2, 32), True, "none", "bfloat16"),
     ("t300_s520_rows", (2, 300, 520, 8, 2, 64), False, "rows", "bfloat16"),
+    # bert_base's training attention (phase 16b's microbatch): 12 heads,
+    # non-causal, "len" from the suffix padding (len_rows over the rows);
+    # then non-causal "len" at the llama_1b GQA layout and at D = 128
+    ("bert_len", BERT_FLASH_SHAPE, False, "len", "bfloat16"),
+    ("gqa_len_non_causal", (2, 1024, 1024, 32, 8, 64), False, "len",
+     "bfloat16"),
+    ("d128_len_non_causal", (2, 1024, 1024, 32, 8, 128), False, "len",
+     "bfloat16"),
 ]
 # K1, K2 and K3 run twice on these cases and must repeat bit for bit (no
 # atomics).
@@ -1740,6 +1784,15 @@ PARENT_FLASH_MS = {
 CROSSOVER_T = (1024, 2048, 4096)
 
 
+def len_rows(b: int, s: int):
+    """"len" mode's lengths: with two rows one off the 64-row tile and one
+    empty; with more (bert_len), the full length, one off the tile (487 of
+    512), 1 and 0 spread over the rows."""
+    if b <= 2:
+        return [s - 37, 0][:b]
+    return [(s, s - 25, 1, 0)[i % 4] for i in range(b)]
+
+
 def flash_inputs(torch, g, shape, mode, dtype):
     b, t, s, h, k, d = shape
     dt = getattr(torch, dtype)
@@ -1748,8 +1801,8 @@ def flash_inputs(torch, g, shape, mode, dtype):
     v = torch.randn(b, s, k, d, generator=g, device="cuda").to(dt)
     dout = torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
     arg = None
-    if mode == "len":  # one length off the 64-row tile, one empty row
-        arg = torch.tensor([s - 37, 0][:b], dtype=torch.int32, device="cuda")
+    if mode == "len":
+        arg = torch.tensor(len_rows(b, s), dtype=torch.int32, device="cuda")
     elif mode == "rows":
         arg = (torch.rand(b, s, generator=g, device="cuda") > 0.3).to(
             torch.int32)
@@ -1835,19 +1888,31 @@ def check_flash(torch, card):
     return worst
 
 
-def flash_bounds(shape, causal=True):
+def flash_bounds(shape, causal=True, lengths=None):
     """(ms, bound_by) of K1, K2 and K3 at ``shape`` in bf16: the larger of
     the products' FLOPs over 989 TFLOP/s (2 per multiply-add over the
-    causal (q, k) pairs: K1 q k^T and p v; K2 adds dO v^T and ds k; K3 has
-    q k^T, dO v^T, p^T dO and ds^T q) and the bytes each input and output
-    moves once over 3.35 TB/s."""
+    (q, k) pairs the mask keeps: K1 q k^T and p v; K2 adds dO v^T and ds k;
+    K3 has q k^T, dO v^T, p^T dO and ds^T q) and the bytes each input and
+    output moves once over 3.35 TB/s. With ``lengths`` ("len": row b's
+    queries and keys past lengths[b] are padding) the pairs are this data's
+    valid ones, and so are the inputs' bytes (q, k, v, dO, lse and delta
+    are read only up to each row's length), while the outputs (out and
+    lse, dq, dk and dv) are written whole, padding rows as zeros."""
     b, t, s, h, k, d = shape
-    pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
+    if lengths is None:
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
+        valid = 1.0
+    else:
+        pairs = h * sum(n * (n + 1) // 2 if causal else n * n
+                        for n in lengths)
+        valid = sum(lengths) / (b * t)
     q_bytes, kv_bytes, stat = b * t * h * d * 2, b * s * k * d * 2, b * h * t * 4
+    read_bwd = valid * (2 * q_bytes + 2 * kv_bytes + 2 * stat)
     work = {
-        "flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat),
-        "flash_dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat),
-        "flash_dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat),
+        "flash_fwd": (4 * d * pairs,
+                      valid * (q_bytes + 2 * kv_bytes) + q_bytes + stat),
+        "flash_dq": (6 * d * pairs, read_bwd + q_bytes),
+        "flash_dkv": (8 * d * pairs, read_bwd + 2 * kv_bytes),
     }
     out = {}
     for name, (flops, moved) in work.items():
@@ -1859,18 +1924,26 @@ def flash_bounds(shape, causal=True):
 
 def time_flash(torch, card):
     """Phase 7: K1, K2, K3 at the llama_1b training shape (the kernels
-    line's figures) and at the llama_8b LoRA attention shape, each with
-    the card's clocks sampled beside it, then the dense crossover."""
-    for shape in (FLASH_SHAPE, FLASH_SHAPE_8B):
+    line's figures), at the llama_8b LoRA attention shape and at bert_base's
+    non-causal "len" shape (each row's ``bert``), each with the card's
+    clocks sampled beside it, then the dense crossover."""
+    rows = {}
+    for shape, causal, mode in ((FLASH_SHAPE, True, "none"),
+                                (FLASH_SHAPE_8B, True, "none"),
+                                (BERT_FLASH_SHAPE, False, "len")):
         with ClockSampler() as clocks:
-            got = time_flash_shape(torch, card, shape)
+            got = time_flash_shape(torch, card, shape, causal, mode)
         summary = clocks.summary()
-        emit("time_flash_clocks", card=card, shape=list(shape), **summary)
+        emit("time_flash_clocks", card=card, shape=list(shape),
+             causal=causal, mode=mode, **summary)
+        mhz = (summary["sm_mhz_min_median_max"] or [None, None])[1]
         if shape == FLASH_SHAPE:
             rows = got
             for row in rows.values():
-                row["sm_mhz"] = (summary["sm_mhz_min_median_max"] or
-                                 [None, None])[1]
+                row["sm_mhz"] = mhz
+        elif shape == BERT_FLASH_SHAPE:
+            for name, row in got.items():
+                rows[name]["bert"] = dict(row, sm_mhz=mhz)
     flash_crossover(torch, card)
     return rows
 
@@ -1914,16 +1987,17 @@ def flash_crossover(torch, card):
     return rows
 
 
-def time_flash_shape(torch, card, shape):
-    """K1, K2, K3 at ``shape`` (causal, bf16), each beside its bound, its
-    plain version and scaled_dot_product_attention (K1: its forward; K2,
-    K3: its backward alone, split by their FLOP shares); SDPA's forward +
-    backward beside K1 + K2 + K3."""
+def time_flash_shape(torch, card, shape, causal=True, mode="none"):
+    """K1, K2, K3 at ``shape`` (bf16; causal, or "len" with ``len_rows``),
+    each beside its bound, its plain version and
+    scaled_dot_product_attention (K1: its forward; K2, K3: its backward
+    alone, split by their FLOP shares; under "len" with the boolean key
+    mask); SDPA's forward + backward beside K1 + K2 + K3."""
     from serverless_learn_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(6)
-    q, k, v, dout, _ = flash_inputs(torch, g, shape, "none", "bfloat16")
-    kw = dict(causal=True, mode="none", arg=None)
+    q, k, v, dout, arg = flash_inputs(torch, g, shape, mode, "bfloat16")
+    kw = dict(causal=causal, mode=mode, arg=arg)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     # Each kernel warmed up at its own shape, then the median of 5 runs of
@@ -1948,24 +2022,28 @@ def time_flash_shape(torch, card, shape):
     torch.cuda.empty_cache()
     F = torch.nn.functional
     qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    sdpa = dict(is_causal=causal, enable_gqa=True)
+    if mode == "len":
+        # the boolean key mask of the same suffix padding [B, 1, 1, S]
+        sdpa = dict(enable_gqa=True, attn_mask=(torch.arange(
+            shape[2], device="cuda")[None, :] < arg[:, None])[:, None, None])
     # Warmed up and the median of 5 runs too, as the kernels are: one run
     # after a warm-up of 3 once read 3.6 ms against a steady ~0.34.
     lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True), 20, warmup=10, reps=5)
+        qh, kh, vh, **sdpa), 20, warmup=10, reps=5)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
 
     def fwd_bwd(i):
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                       enable_gqa=True).backward(gh)
+        F.scaled_dot_product_attention(qg, kg, vg, **sdpa).backward(gh)
 
     lib_fwd_bwd = time_ms(torch, fwd_bwd, 10, warmup=5, reps=3)
     # SDPA's backward alone: one call that computes delta, dq, dk and dv
     # from the saved out and lse, the work of K2 + K3.
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                        enable_gqa=True)
+    og = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
     lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
         og, (qg, kg, vg), gh, retain_graph=True), 10, warmup=5, reps=3)
-    bounds = flash_bounds(shape)
+    bounds = flash_bounds(shape, causal, None if arg is None
+                          else arg.tolist())
     bwd_flops = bounds["flash_dq"][2] + bounds["flash_dkv"][2]
     # K1's library time is SDPA's forward; K2's and K3's are SDPA's
     # backward split by their FLOP shares (6 : 8).
@@ -1980,24 +2058,26 @@ def time_flash_shape(torch, card, shape):
                           tflops_per_s=flops / ms[name] / 1e9,
                           fraction_of_bound=b_ms / ms[name],
                           library_ms=library[name],
-                          parent_ms=PARENT_FLASH_MS.get(shape[5], {}).get(
-                              name))
+                          parent_ms=(PARENT_FLASH_MS.get(shape[5], {}).get(
+                              name) if mode == "none" else None))
         emit("time_flash", card=card, kernel=name, shape=list(shape),
-             causal=True, dtype="bfloat16", **rows[name])
-    emit("time_flash_fwd_bwd", card=card, shape=list(shape),
+             causal=causal, mode=mode, dtype="bfloat16", **rows[name])
+    emit("time_flash_fwd_bwd", card=card, shape=list(shape), causal=causal,
+         mode=mode, lengths=None if arg is None else arg.tolist(),
          kernels_ms=sum(ms.values()),
          kernels_bwd_ms=ms["flash_dq"] + ms["flash_dkv"],
          sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
          sdpa_fwd_bwd_ms=lib_fwd_bwd,
          library_call="torch.nn.functional.scaled_dot_product_attention("
-                      "is_causal=True, enable_gqa=True) on [B, H, T, D] "
+                      "is_causal, enable_gqa=True; under len the boolean "
+                      "key mask attn_mask [B, 1, 1, S]) on [B, H, T, D] "
                       "copies; its backward timed alone by autograd.grad "
                       "with retain_graph; timed here only, never called by "
                       "the port",
          library_split="library_ms: flash_fwd = SDPA forward; flash_dq and "
                        "flash_dkv = SDPA backward x their FLOP shares 6/14 "
                        "and 8/14")
-    del q, k, v, dout, out, qh, kh, vh, gh, qg, kg, vg, og
+    del q, k, v, dout, out, qh, kh, vh, gh, qg, kg, vg, og, sdpa
     torch.cuda.empty_cache()
     return rows
 
@@ -2751,7 +2831,7 @@ LLAMA1B_SHAPES = {
     (8192, 2048): ("down_proj", 16),
     (2048, 128256): ("lm_head", 1),
 }
-GEN_NEW, DRAFT_LAYERS, SPEC_K = 32, 4, 4
+GEN_NEW, DRAFT_LAYERS, SPEC_K = 16, 4, 4
 GEN_PROMPT_LEN = 8  # generate's --prompt-len default
 # Phase 10e's two requests: one prefill chunk of 16 and one of 32 tokens.
 SERVE_1B_PROMPTS = (16, 32)
@@ -2765,7 +2845,13 @@ CHECK_ROWS_1B = tuple(sorted(set(CHECK_ROWS) | {GEN_PROMPT_LEN, SPEC_K + 1}))
 CKPT_TRAIN = ["--model", "llama_1b", "--batch-size", str(TRAIN_B),
               "--seq-len", str(TRAIN_T), "--set",
               "optimizer.grad_clip_norm=1.0"]
-CKPT_FREE_BYTES = 40e9  # two 18 GB blobs on disk while GC catches up
+# Phase 10's depth: llama_1b at full width and 6 of its 16 layers (16 before
+# the model families' phase 16: the run's time limit; the A/B modes that
+# take CKPT_TRAIN keep 16). More than DRAFT_LAYERS, so the draft is a
+# prefix.
+CKPT_LAYERS = 6
+CKPT_DEPTH = ["--set", f"model_overrides.n_layers={CKPT_LAYERS}"]
+CKPT_FREE_BYTES = 40e9  # two 10.7 GB blobs on disk while GC catches up
 # Phase 10's train: an in-loop eval every 2 steps (of train.eval_steps'
 # default 10 batches), and the emergency shadow refreshed at every step
 # boundary at least 1 s apart (the default 30 s would refresh it once in
@@ -2776,7 +2862,7 @@ CKPT_SHADOW_INTERVAL_S = 1
 # The health engine runs at its defaults: its step watchdog fires when no
 # step lands in 5x the typical interval (at least 1 s), less the time the
 # loop spent in the checkpoint and eval phases. Phase 10's step boundaries
-# hold the loop for an 18 GB shadow refresh and a save (up to ~10 s), so
+# hold the loop for a 10.7 GB shadow refresh and a save (up to ~10 s), so
 # the phase checks that no alert fires through them.
 CRC_SAMPLE = 2 << 30  # bytes of the blob whose CRC phase 10b times twice
 
@@ -3095,7 +3181,7 @@ def checkpoint_path(torch, card):
                          (cli, "_start_metrics", keep_as("exporter")),
                          (cli, "_start_health", keep_as("health"))):
                 done = run_cli([
-                    "train", *CKPT_TRAIN, "--steps", "3",
+                    "train", *CKPT_TRAIN, *CKPT_DEPTH, "--steps", "3",
                     "--checkpoint-every", "2", "--set", "checkpoint.keep=1",
                     "--checkpoint-dir", root, "--metrics-port", "0",
                     "--health", "--events-log", events_path, "--flight-dir",
@@ -3143,12 +3229,13 @@ def checkpoint_path(torch, card):
         if os.path.getsize(blob) < 12 * n_params:
             fail(f"blob of {os.path.getsize(blob)} B holds less than the "
                  f"state's {12 * n_params} B")
-        # 3 steps x 16 layers, and the forward of the in-loop eval's
-        # batches (default train.eval_steps) x 16 layers; fused_ce is off
+        # 3 steps x CKPT_LAYERS, and the forward of the in-loop eval's
+        # batches (default train.eval_steps) x CKPT_LAYERS; fused_ce is off
         # for llama_1b, so no CE.
-        loop_k1 = 16 * EVAL_STEPS_DEFAULT * (3 // CKPT_EVAL_EVERY)
-        expect("train", train_launches, flash_fwd=48 + loop_k1,
-               flash_dq=48, flash_dkv=48)
+        loop_k1 = CKPT_LAYERS * EVAL_STEPS_DEFAULT * (3 // CKPT_EVAL_EVERY)
+        step_k = 3 * CKPT_LAYERS
+        expect("train", train_launches, flash_fwd=step_k + loop_k1,
+               flash_dq=step_k, flash_dkv=step_k)
 
         # -- b. restore in place, bit for bit -----------------------------
         fresh = build_trainer(cfg, "cuda")
@@ -3219,8 +3306,8 @@ def checkpoint_path(torch, card):
         zero()
         t0 = time.perf_counter()
         with Patched((loop, "run_eval", keep_eval)):
-            rep = run_cli(["eval", *CKPT_TRAIN, "--checkpoint-dir", root,
-                           "--eval-steps", "2"])
+            rep = run_cli(["eval", *CKPT_TRAIN, *CKPT_DEPTH,
+                           "--checkpoint-dir", root, "--eval-steps", "2"])
         eval_s = time.perf_counter() - t0
         eval_launches = read()
         eval_k1 = eval_launches["flash_fwd"]
@@ -3230,7 +3317,7 @@ def checkpoint_path(torch, card):
              eval_command_s=eval_s, launches=eval_launches)
         if rep["checkpoint_step"] != 3:
             fail(f"eval: step {rep['checkpoint_step']}, expected 3")
-        expect("eval", eval_launches, flash_fwd=2 * 16)
+        expect("eval", eval_launches, flash_fwd=2 * CKPT_LAYERS)
         if evals != mine:
             fail(f"eval from the checkpoint {evals} != the live model's "
                  f"{mine}")
@@ -3238,7 +3325,7 @@ def checkpoint_path(torch, card):
         torch.cuda.empty_cache()
 
         # -- d. generate, speculative --------------------------------------
-        per_fwd = 7 * 16 + 1
+        per_fwd = 7 * CKPT_LAYERS + 1
         per_draft = 7 * DRAFT_LAYERS + 1
         models, counts, rows = [], {"target": 0, "draft": 0}, set()
 
@@ -3263,8 +3350,9 @@ def checkpoint_path(torch, card):
                 return draft
             return build
 
-        gen = ["generate", "--model", "llama_1b", "--checkpoint-dir", root,
-               "--quant", "int8", "--max-new-tokens", str(GEN_NEW)]
+        gen = ["generate", "--model", "llama_1b", *CKPT_DEPTH,
+               "--checkpoint-dir", root, "--quant", "int8",
+               "--max-new-tokens", str(GEN_NEW)]
         k6 = {}
         replies = {}
         with Patched((cli, "_model_from_args", keep_model),
@@ -3361,8 +3449,8 @@ def checkpoint_path(torch, card):
         g = torch.Generator().manual_seed(10)
         prompts = [torch.randint(0, 128256, (n,), generator=g).tolist()
                    for n in SERVE_1B_PROMPTS]
-        argv = ["serve", "--model", "llama_1b", "--checkpoint-dir", root,
-                "--quant", "int8", "--port", "0"]
+        argv = ["serve", "--model", "llama_1b", *CKPT_DEPTH,
+                "--checkpoint-dir", root, "--quant", "int8", "--port", "0"]
         with Patched((cli, "_model_from_args", keep_model),
                      (server_mod, "GenerationServer", keep_server)):
             th = threading.Thread(target=cli.main, args=(argv,), daemon=True)
@@ -3830,7 +3918,7 @@ def elastic_cluster(torch, card, cache_on_disk=False):
     ``shard-server`` as child processes, ``publish`` of a synthetic
     llama_1b dataset (8 shards of 2 records x 4,096) and of a byte-level
     text corpus written from seed 0, then ``worker`` (llama_1b at full
-    width, 2 layers, B = 2, T = 4,096, 60 steps; ``--metrics-port 0
+    width, 2 layers, B = 2, T = 4,096, ELASTIC_STEPS; ``--metrics-port 0
     --health --events-log``) with its checkpoints in the shard server.
     After its 3rd step line a second member registers (a child holding a
     lease through the port's ``WorkerAgent``): epoch + 1, stripe (0, 2).
@@ -3843,10 +3931,11 @@ def elastic_cluster(torch, card, cache_on_disk=False):
     above, in the worker's ``mesh_formed`` lines and ``slt_remesh_total``
     on /metrics; each restore is the step its save wrote, verified
     against the save's CRCs (``slt_ckpt_verified_restores_total``); the
-    step lines run 1..60 with none lost or repeated; the shard server's
+    step lines run 1..ELASTIC_STEPS with none lost or repeated; the
+    shard server's
     fetches (its span records joined to the worker's client spans) read
     only even shards on (0, 2) and all 8 again after; K1-K3 launch
-    2 x 60 times and K4/K5 not at all; no alert pages (no critical alert;
+    2 x ELASTIC_STEPS times and K4/K5 not at all; no alert pages (no critical alert;
     warnings are printed) and /healthz answers 200; the card's peak memory across each transition stays
     under 1.5x the checkpoint's size (one trainer's state, not two).
     Last, the shard server is SIGKILLed under a ``train --shard-server``
@@ -5216,10 +5305,11 @@ def nonfinite_check(torch, card, keep_going: bool = False):
 NUMERICS_STEPS, NUMERICS_CADENCE = 12, 4
 
 
-def numerics_run(torch, enabled: bool):
+def numerics_run(torch, enabled: bool, profile: bool = True):
     """llama_1b at full width, 12 adamw steps (lr 1e-3, clip 1.0, seed 0)
     through run_training, with or without numerics at cadence 4, on a
-    fresh registry and goodput ledger; counters read around the run."""
+    fresh registry and goodput ledger; counters read around the run; with
+    ``profile``, one more step under the profiler."""
     from serverless_learn_tpu_torch.config import (DataConfig,
                                                    ExperimentConfig,
                                                    NumericsConfig,
@@ -5277,19 +5367,22 @@ def numerics_run(torch, enabled: bool):
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     # One more step under the profiler: where the numerics' time goes.
-    from serverless_learn_tpu_torch.training.loop import make_source
+    split = None
+    if profile:
+        from serverless_learn_tpu_torch.training.loop import make_source
 
-    batch = trainer.place(next(iter(make_source(cfg, trainer,
-                                                start_step=state.step))))
-    torch.cuda.synchronize()
-    with profiled() as prof:
-        state, m = trainer.step(state, batch)
-        float(m["loss"])
+        batch = trainer.place(next(iter(make_source(cfg, trainer,
+                                                    start_step=state.step))))
         torch.cuda.synchronize()
-    split = kernel_split(torch, prof, ["tensor_stats", "tensor_stats_many",
-                                       "stats_reduce", "flash_fwd",
-                                       "flash_dq", "flash_dkv"])
-    del batch, prof, m
+        with profiled() as prof:
+            state, m = trainer.step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+        split = kernel_split(torch, prof, ["tensor_stats",
+                                           "tensor_stats_many",
+                                           "stats_reduce", "flash_fwd",
+                                           "flash_dq", "flash_dkv"])
+        del batch, prof, m
     rep = led.report()
     out = {"losses": [s.metrics["loss"] for s in meter.history],
            "step_times_s": [s.step_time_s for s in meter.history],
@@ -5311,12 +5404,20 @@ def numerics_run(torch, enabled: bool):
 
 
 def numerics_overhead(torch, card):
-    """Phase 14b: 12 steps of llama_1b without numerics, then 12 from the
-    same seed with numerics at cadence 4."""
-    off = numerics_run(torch, False)
-    on = numerics_run(torch, True)
-    med = lambda r: statistics.median(r["step_times_s"][2:])  # noqa: E731
-    ratio = med(on) / med(off)
+    """Phase 14b: llama_1b, 12 steps a run from the same seed, in the order
+    off, on, on, off (numerics at cadence 4 when on), so a drift of the
+    card's clocks over the phase falls on both sides; the ratio is the
+    median of the on runs' steps over the off runs'. The first pair is
+    profiled."""
+    runs = [numerics_run(torch, enabled, profile=i < 2)
+            for i, enabled in enumerate((False, True, True, False))]
+    offs, ons = (runs[0], runs[3]), (runs[1], runs[2])
+    off, on = offs[0], ons[0]
+    med = lambda rs: statistics.median(  # noqa: E731
+        t for r in rs for t in r["step_times_s"][2:])
+    ratio = med(ons) / med(offs)
+    peak_diff = max(r["peak_gb"] for r in ons) - min(
+        r["peak_gb"] for r in offs)
     n = on["trainable_tensors"]
     layers = 16
     want = {"flash_fwd": NUMERICS_STEPS * layers,
@@ -5330,37 +5431,42 @@ def numerics_overhead(torch, card):
             "stats_reduce": NUMERICS_STEPS * 3}
     emit("numerics_overhead", card=card, model="llama_1b", batch=TRAIN_B,
          seq_len=TRAIN_T, steps=NUMERICS_STEPS, cadence=NUMERICS_CADENCE,
-         median_step_s_off=med(off), median_step_s_on=med(on),
-         step_time_ratio=ratio, step_times_s_off=off["step_times_s"],
-         step_times_s_on=on["step_times_s"], peak_gb_off=off["peak_gb"],
-         peak_gb_on=on["peak_gb"],
-         peak_gb_difference=on["peak_gb"] - off["peak_gb"],
-         numerics_phase_share=on["numerics_share"],
+         order="off, on, on, off",
+         median_step_s_off=med(offs), median_step_s_on=med(ons),
+         median_step_s_by_run=[med([r]) for r in runs],
+         step_time_ratio=ratio,
+         step_times_s_off=[r["step_times_s"] for r in offs],
+         step_times_s_on=[r["step_times_s"] for r in ons],
+         peak_gb_off=[r["peak_gb"] for r in offs],
+         peak_gb_on=[r["peak_gb"] for r in ons],
+         peak_gb_difference=peak_diff,
+         numerics_phase_share=max(r["numerics_share"] for r in ons),
          numerics_phase_s=on["numerics_s"], run_s=on["run_s"],
-         fetches=on["fetches"], losses_off=off["losses"],
+         fetches=[r["fetches"] for r in ons], losses_off=off["losses"],
          losses_on=on["losses"],
-         losses_bit_equal=on["losses"] == off["losses"],
+         losses_bit_equal=all(r["losses"] == off["losses"] for r in runs),
          launches_off=off["launches"], launches_on=on["launches"],
          trainable_tensors=n, profile_off=off["profile"],
          profile_on=on["profile"], host_ms_a_step_off=off["host_ms_a_step"],
          host_ms_a_step_on=on["host_ms_a_step"])
     faults = []
-    if on["losses"] != off["losses"]:
-        faults.append("the losses with numerics on differ from off")
+    if any(r["losses"] != off["losses"] for r in runs):
+        faults.append("the losses differ between the runs")
     if ratio > 1.03:
         faults.append(f"step-time ratio {ratio:.4f} > 1.03")
-    if on["peak_gb"] - off["peak_gb"] > 1.05:
-        faults.append(f"peak memory +{on['peak_gb'] - off['peak_gb']:.3f} "
-                      f"GB > 1.05")
-    if not on["numerics_share"] < 0.02:
-        faults.append(f"numerics phase {on['numerics_share']:.4f} of the "
-                      f"run, not under 2 %")
-    if on["fetches"] != 3:
-        faults.append(f"{on['fetches']} fetches, expected 3")
-    if on["launches"] != want or off["launches"] != dict(
-            want, tensor_stats=0, tensor_stats_many=0, stats_reduce=0):
-        faults.append(f"launches on {on['launches']}, off "
-                      f"{off['launches']}, expected {want}")
+    if peak_diff > 1.05:
+        faults.append(f"peak memory +{peak_diff:.3f} GB > 1.05")
+    for r in ons:
+        if not r["numerics_share"] < 0.02:
+            faults.append(f"numerics phase {r['numerics_share']:.4f} of "
+                          f"the run, not under 2 %")
+        if r["fetches"] != 3:
+            faults.append(f"{r['fetches']} fetches, expected 3")
+    off_want = dict(want, tensor_stats=0, tensor_stats_many=0, stats_reduce=0)
+    if any(r["launches"] != want for r in ons) or any(
+            r["launches"] != off_want for r in offs):
+        faults.append(f"launches on {[r['launches'] for r in ons]}, off "
+                      f"{[r['launches'] for r in offs]}, expected {want}")
     if faults:
         fail("phase 14b: " + "; ".join(faults))
     return on["launches"]
@@ -5648,8 +5754,9 @@ MIXTRAL_PREFILL_SHAPES = {
 MOE_LAYER_LIMIT = (2 ** -6, 1e-2)
 # Phase 15a times the two inference forms of one layer at these rows.
 MOE_FORM_ROWS = (8, 16, 32, 64, 128, 192, 256, 384, 512)
-MOE_NEW = 32         # new tokens of each greedy request in phase 15b
-MOE_ROUND = 128      # new tokens a request in phase 15b's decode round
+# (32 and 128 before the model families' phase 16: the run's time limit)
+MOE_NEW = 16         # new tokens of each greedy request in phase 15b
+MOE_ROUND = 64       # new tokens a request in phase 15b's decode round
 # Phase 15b's limit, in logits, on how far two paths' teacher-forced logits
 # may part, and a greedy reply's chosen logit may lie below the static
 # path's largest, where routing cannot flip (TokenRouting). Measured on
@@ -5977,8 +6084,9 @@ def moe_serve(torch, card):
     over the paged pool with its decode buckets replayed from CUDA graphs:
     four greedy prompts of 101-128 tokens, then one sharing prompt 0's
     first 100 tokens (prefix pages) and a 1,500-token prompt (chunked
-    prefill), 32 new tokens each, over the wire; then a decode round of 4
-    x 128 new tokens, timed by the host clock at each decode harvest.
+    prefill), MOE_NEW new tokens each, over the wire; then a decode round
+    of 4 x MOE_ROUND new tokens, timed by the host clock at each decode
+    harvest.
     The greedy replies are set beside ``generate``'s (each alone, the
     static path); on this model top-2 routing flips at near ties part the
     two paths (``routing_witness``), so the check holds them where routing
@@ -6371,6 +6479,563 @@ def moe_phase(torch, qm, card):
                 train=train_launches)
 
 
+# ------------------------------------------------- the model families (16) --
+
+# 16a: the card against the CPU, f32 on both sides.
+FAM_BERT_ROWS = (512, 487, 1, 0)   # suffix padding: full, off the tile, 1, 0
+FAM_STEPS = 3
+# 16b: the one-card cut of configs/bert_base_mlm.json (dp 4 x tp 2 there).
+BERT_BATCH, BERT_STEPS, BERT_RECORDS = 64, 5, 1024
+# 16c: the one-card cut of configs/cifar_resnet18_dp4.json (dp 4 there).
+CIFAR_BATCH, CIFAR_STEPS, CIFAR_RECORDS, CIFAR_TEST = 256, 30, 5120, 1024
+# 16d: configs/mnist_mlp.json.
+MNIST_STEPS, MNIST_RECORDS, MNIST_TEST = 200, 30000, 2000
+
+
+def config_path(name: str) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", name)
+
+
+def mlm_rows(rng, n: int, T: int, vocab: int, lengths=None):
+    """``n`` suffix-padded token rows (pad id 0): seeded lengths between 64
+    and T, a quarter of them full, unless ``lengths`` gives them."""
+    import numpy as np
+
+    if lengths is None:
+        lengths = rng.integers(64, T + 1, n)
+        lengths[rng.random(n) < 0.25] = T
+    lengths = np.asarray(lengths)
+    ids = rng.integers(4, vocab, (n, T))
+    return np.where(np.arange(T)[None] < lengths[:, None], ids, 0).astype(
+        np.int32)
+
+
+def write_cifar(root: str, n: int, seed: int, name: str):
+    """``n`` CIFAR-10 binary records (a label byte, then 32x32 RGB in CHW
+    planes) in ``root/cifar-10-batches-bin/name``: uint8 images from
+    ``seed`` and labels from a fixed projection of each image
+    (``examples/elastic_demo.sh``'s)."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    proj = np.random.default_rng(7).standard_normal((3072, 10)).astype(
+        np.float32)
+    lab = np.argmax((img.reshape(n, -1) / 255.0) @ proj, 1).astype(np.uint8)
+    recs = np.concatenate([lab[:, None], img.transpose(0, 3, 1, 2).reshape(
+        n, -1)], 1)
+    base = os.path.join(root, "cifar-10-batches-bin")
+    os.makedirs(base, exist_ok=True)
+    with open(os.path.join(base, name), "wb") as f:
+        f.write(recs.astype(np.uint8).tobytes())
+
+
+def write_mnist(root: str, prefix: str, n: int, seed: int):
+    """``n`` MNIST IDX records (``prefix``: train or t10k) whose labels are
+    learnable: each image is one of 10 fixed seeded prototypes (the class)
+    under uniform noise, as a digit is its class's shape under a hand's."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    proto = np.random.default_rng(7).integers(0, 256, (10, 28, 28))
+    lab = rng.integers(0, 10, n)
+    img = ((proto[lab] + 3 * rng.integers(0, 256, (n, 28, 28))) // 4)
+
+    def idx(arr):
+        head = bytes([0, 0, 0x08, arr.ndim]) + b"".join(
+            int(d).to_bytes(4, "big") for d in arr.shape)
+        return head + arr.astype(np.uint8).tobytes()
+
+    os.makedirs(root, exist_ok=True)
+    for kind, arr in (("images-idx3-ubyte", img), ("labels-idx1-ubyte", lab)):
+        with open(os.path.join(root, f"{prefix}-{kind}"), "wb") as f:
+            f.write(idx(arr))
+
+
+def tensor_rel_diffs(a: dict, b: dict, ref: dict = None):
+    """{name: ||a - b|| / (||ref|| + 1e-3 max_n ||ref_n||)} over the float
+    tensors of ``a`` (``ref`` defaults to ``b``): each tensor's distance
+    in its own norm's units, floored at a thousandth of the largest (a
+    tensor whose true value is near zero keeps only round-off)."""
+    ref = b if ref is None else ref
+    norms = {k: ref[k].float().norm().item() for k in a}
+    floor = 1e-3 * max(norms.values(), default=0.0)
+    return {k: (a[k].float() - b[k].float()).norm().item()
+            / max(norms[k] + floor, 1e-30) for k in a}
+
+
+def family_agreement(torch, card):
+    """Phase 16a: bert_tiny at T = 512 with suffix-padded rows (lengths
+    FAM_BERT_ROWS; 3 adamw steps, so K1-K3 run on the card, 2 layers x 3
+    steps each) and resnet18_cifar at num_filters 16, batch 8 (3 sgd steps,
+    momentum 0.9), each trained on the card and on the CPU from the same
+    weights and batches, f32 on both sides: the first batch's gradients,
+    then the losses, parameters and BatchNorm running statistics of the
+    three steps compared."""
+    import numpy as np
+
+    from serverless_learn_tpu_torch.config import (DataConfig,
+                                                   ExperimentConfig,
+                                                   OptimizerConfig,
+                                                   TrainConfig)
+    from serverless_learn_tpu_torch.data.transforms import mlm_transform
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    rng = np.random.default_rng(16)
+    cases = {
+        "bert_tiny": (ExperimentConfig(
+            model="bert_tiny", model_overrides={"dtype": "float32"},
+            optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                      weight_decay=0.01, grad_clip_norm=1.0),
+            train=TrainConfig(batch_size=4, seed=0, dtype="float32"),
+            data=DataConfig(seq_len=512)),
+            [mlm_transform(30522, seed=i)({"input_ids": mlm_rows(
+                rng, 4, 512, 30522, FAM_BERT_ROWS)})
+             for i in range(FAM_STEPS)]),
+        "resnet18_cifar": (ExperimentConfig(
+            model="resnet18_cifar",
+            model_overrides={"dtype": "float32", "num_filters": 16},
+            optimizer=OptimizerConfig(name="sgd", learning_rate=0.1,
+                                      momentum=0.9),
+            train=TrainConfig(batch_size=8, seed=0, dtype="float32")),
+            None),
+    }
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    out = {}
+    for name, (cfg, batches) in cases.items():
+        cpu, gpu = build_trainer(cfg, "cpu"), build_trainer(cfg, "cuda")
+        if batches is None:
+            batches = [cpu.bundle.make_batch(rng, cfg.data, 8)
+                       for _ in range(FAM_STEPS)]
+        cs = cpu.init()
+        init = {k: v.detach().clone() for k, v in
+                cs.model.state_dict().items()}
+
+        def grads(trainer):
+            model = trainer.init(params=init).model
+            loss, _ = trainer.bundle.loss_fn(model, trainer.place(
+                batches[0]))
+            loss.backward()
+            return {n: p.grad.detach().cpu()
+                    for n, p in model.named_parameters()}
+
+        grad_rel = tensor_rel_diffs(grads(gpu), grads(cpu))
+        gs = gpu.init(params=init)
+
+        def run(trainer, state):
+            losses = []
+            for b in batches:
+                state, m = trainer.step(state, trainer.place(b))
+                losses.append(float(m["loss"]))
+            return losses, {k: v.detach().cpu().float()
+                            for k, v in state.model.state_dict().items()}
+
+        lc, pc = run(cpu, cs)
+        before = {k.__name__: k.launches for k in kernels}
+        lg, pg = run(gpu, gs)
+        launches = {k.__name__: k.launches - before[k.__name__]
+                    for k in kernels}
+        loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+        params = [k for k in pc if not k.endswith((".mean", ".var"))]
+        # each tensor's card-CPU distance in units of how far it moved
+        moved = {k: (pc[k] - init[k].float()).norm().item() for k in params}
+        param_rel = {k: (pc[k] - pg[k]).norm().item() / max(moved[k], 1e-30)
+                     for k in params if moved[k] > 0}
+        stats = {k: pg[k] for k in pc if k not in params}
+        stats_rel = tensor_rel_diffs(stats, {k: pc[k] for k in stats})
+        worst = lambda d: max(d.items(), key=lambda kv: kv[1],  # noqa
+                              default=(None, 0.0))
+        out[name] = dict(cpu_losses=lc, card_losses=lg,
+                         max_loss_diff=loss_err,
+                         worst_grad_rel_diff=worst(grad_rel),
+                         worst_param_diff_over_moved=worst(param_rel),
+                         max_param_abs_diff=max(
+                             (pc[k] - pg[k]).abs().max().item()
+                             for k in params),
+                         worst_batch_stats_rel_diff=worst(stats_rel),
+                         launches=launches)
+        emit("family_agreement", card=card, model=name, steps=FAM_STEPS,
+             **out[name],
+             tolerance="f32 on both sides, sums in other orders: losses "
+                       "within 1e-4; the first batch's gradients, each "
+                       "tensor within 1e-4 of its norm (floored at 1e-3 "
+                       "of the largest tensor's); after 3 steps each "
+                       "parameter tensor's card-CPU distance within 1e-3 "
+                       "of how far it moved (adam turns a gradient that is "
+                       "round-off alone into a step of up to lr, so an "
+                       "element-wise bound would test the noise), the "
+                       "running statistics as the gradients")
+        want = FAM_STEPS * 2 if name == "bert_tiny" else 0
+        if any(n != want for n in launches.values()):
+            fail(f"phase 16a {name}: K1-K3 launches {launches}, expected "
+                 f"{want} each")
+        if not (all(math.isfinite(x) for x in lg) and loss_err <= 1e-4
+                and worst(grad_rel)[1] <= 1e-4
+                and worst(param_rel)[1] <= 1e-3
+                and worst(stats_rel)[1] <= 1e-4):
+            fail(f"phase 16a {name}: card vs cpu: {out[name]}")
+        del cpu, gpu, cs, gs
+        torch.cuda.empty_cache()
+    return out
+
+
+def range_kernels(torch, prof, match):
+    """us by kernel name of the device kernels launched inside the
+    record_function ranges named ``match`` and by the backward nodes of
+    the ops inside them (the autograd node of an op has its sequence
+    number)."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = [e for e in prof.events() if e.device_type == cpu]
+
+    def walk(roots):
+        seen, out = set(), []
+        stack = list(roots)
+        while stack:
+            e = stack.pop()
+            if e.id in seen:
+                continue
+            seen.add(e.id)
+            out.append(e)
+            stack.extend(e.cpu_children)
+        return out
+
+    fwd = walk([e for e in events if e.name == match])
+    seqs = {e.sequence_nr for e in fwd if getattr(e, "sequence_nr", -1) >= 0}
+    bwd = walk([e for e in events if "evaluate_function" in e.name
+                and getattr(e, "sequence_nr", -1) in seqs])
+    out = {}
+    for e in fwd + bwd:
+        for k in e.kernels:
+            out[k.name] = out.get(k.name, 0.0) + k.duration
+    return out, len(bwd)
+
+
+def resnet_step_split(torch, prof):
+    """A profiled ResNet step's device time: busy and idle, cuDNN's
+    convolutions (forward and backward), BatchNorm (its range forward and
+    its ops' backward nodes), cuBLAS and the rest."""
+    span, busy, _, by_name, kern = device_time(torch, prof, "")
+    convs = kernels_under(torch, prof, "aten::convolution") or {}
+    conv = sum(convs.values())
+    bn, bn_bwd_nodes = range_kernels(torch, prof, "batch_norm")
+    bn_us = sum(bn.values())
+    # cuDNN's implicit-GEMM convolutions are named *gemm* too: cuBLAS is
+    # what is left of those names
+    cublas = sum(v for k, v in by_name.items()
+                 if is_cublas(k) and k not in convs)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(step_span_ms=span / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1 - busy / span, conv_ms=conv / 1e3,
+                batch_norm_ms=bn_us / 1e3,
+                batch_norm_backward_nodes=bn_bwd_nodes,
+                cublas_ms=cublas / 1e3,
+                other_kernels_ms=(busy - conv - bn_us - cublas) / 1e3,
+                device_kernels=len(kern),
+                top_kernels_ms=[(k[:90], v / 1e3) for k, v in top])
+
+
+def bert_base_training(torch, card, addr):
+    """Phase 16b: the one-card cut of configs/bert_base_mlm.json (mesh
+    dp = tp = 1, batch 64 of its 256, grad_accum 2, T = 512, its adamw
+    settings, 5 steps) through run_training, over an input_ids dataset of
+    suffix-padded rows published to the shard server and masked by
+    mlm_transform. Checks finite losses, the step-1 loss, exactly 12 x 2 x
+    5 launches of each of K1-K3 and no dense attention; prints step time,
+    tokens/s (padded and valid), MFU, peak memory and a profiled step."""
+    import json as _json
+
+    import numpy as np
+
+    from serverless_learn_tpu_torch.config import ExperimentConfig
+    from serverless_learn_tpu_torch.data.shard_client import publish_dataset
+    from serverless_learn_tpu_torch.models import transformer
+    from serverless_learn_tpu_torch.ops import attention
+    from serverless_learn_tpu_torch.ops import flash_attention as fa
+    from serverless_learn_tpu_torch.training.loop import (make_source,
+                                                          run_training)
+    from serverless_learn_tpu_torch.training.train_step import build_trainer
+
+    with open(config_path("bert_base_mlm.json")) as f:
+        raw = _json.load(f)
+    raw["mesh"] = {"dp": 1, "tp": 1}
+    raw["train"].update(batch_size=BERT_BATCH, num_steps=BERT_STEPS)
+    raw["data"].update(shard_server_addr=addr)
+    cfg = ExperimentConfig.from_dict(raw)
+    T = cfg.data.seq_len
+    rows = mlm_rows(np.random.default_rng(161), BERT_RECORDS, T, 30522)
+    lengths = (rows != 0).sum(1)
+    publish_dataset(addr, cfg.data.dataset, {"input_ids": rows},
+                    records_per_shard=256)
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.init()
+    mcfg = trainer.bundle.cfg
+    src = make_source(cfg, trainer)
+    valid = []
+
+    def counted():
+        for b in src:
+            valid.append(int(b["attn_mask"].sum()))
+            yield b
+
+    dense = [0]
+    real_dense = attention.xla_attention
+
+    def counting_dense(*a, **kw):
+        dense[0] += 1
+        return real_dense(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    attention.xla_attention = transformer.xla_attention = counting_dense
+    fa.flash_fwd.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+    try:
+        state, meter = run_training(cfg, trainer=trainer, state=state,
+                                    source=counted())
+    finally:
+        attention.xla_attention = transformer.xla_attention = real_dense
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_dq": fa.flash_dq.launches,
+                "flash_dkv": fa.flash_dkv.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [s.metrics["loss"] for s in meter.history]
+    times = [s.step_time_s for s in meter.history]
+    summary = meter.steady_state(skip=2)
+    steady_valid = sum(valid[2:BERT_STEPS]) / sum(times[2:])
+    expected = math.log(mcfg.vocab_size) + 0.5
+    want = mcfg.n_layers * cfg.train.grad_accum * BERT_STEPS
+    emit("train_bert_base", card=card, config="configs/bert_base_mlm.json",
+         cut="mesh dp=1 tp=1 (4 x 2 there), batch 64 (256 there), 5 steps",
+         layers=mcfg.n_layers, d_model=mcfg.d_model, batch=BERT_BATCH,
+         grad_accum=cfg.train.grad_accum, seq_len=T, steps=BERT_STEPS,
+         row_lengths_min_mean_max=[int(lengths.min()), float(lengths.mean()),
+                                   int(lengths.max())],
+         full_rows_share=float((lengths == T).mean()), losses=losses,
+         step_times_s=times, median_step_s_after_2=statistics.median(
+             times[2:]), tokens_per_s_padded=summary["tokens_per_sec"],
+         tokens_per_s_valid=steady_valid, valid_tokens_per_step=valid[
+             :BERT_STEPS], mfu=summary.get("mfu"),
+         flops_per_step=meter.flops_per_step,
+         mfu_count="6 x tokens x params (the embedding and position tables "
+                   "out) + 12 x L x B x T^2 x d (non-causal), padding "
+                   "counted", max_memory_allocated_gb=peak_gb,
+         launches=launches, expected_launches_each=want,
+         dense_attention_calls=dense[0], expected_step1_loss=expected)
+    src.close()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 16b: non-finite loss {losses}")
+    if abs(losses[0] - expected) > 0.5:
+        fail(f"phase 16b: step-1 loss {losses[0]:.4f}, expected "
+             f"{expected:.4f} +- 0.5")
+    if any(n != want for n in launches.values()) or dense[0]:
+        fail(f"phase 16b: launches {launches} (expected {want} each), dense "
+             f"attention ran {dense[0]} times")
+    one = make_source(cfg, trainer, seed=7)
+    batch = trainer.place(next(iter(one)))
+    one.close()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        state, m = trainer.step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    emit("where_time_goes_bert_base_train", card=card, **kernel_split(
+        torch, prof, list(launches)))
+    del state, trainer, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_cifar_training(torch, card, addr, root):
+    """Phase 16c: CIFAR_RECORDS CIFAR-10 binary records (and a test batch)
+    written and published with ``publish --format cifar10``; the one-card
+    cut of configs/cifar_resnet18_dp4.json (batch 256 of its 1,024, sgd
+    momentum 0.9, lr 0.1 with its warmup, ``data.augment=true``) trained
+    30 steps with ``--checkpoint-dir``, then ``eval`` from the checkpoint on
+    the running statistics, held to eval of the live state; samples/s,
+    step time, MFU, peak memory and a profiled step (cuDNN's convolutions,
+    BatchNorm, the rest)."""
+    import os
+    import shutil
+
+    from torch.profiler import record_function
+
+    from serverless_learn_tpu_torch.models import layers
+    from serverless_learn_tpu_torch.training import loop
+
+    data = os.path.join(root, "cifar")
+    write_cifar(data, CIFAR_RECORDS, 0, "data_batch_1.bin")
+    write_cifar(data, CIFAR_TEST, 1, "test_batch.bin")
+    for ds, split in (("cifar", "train"), ("cifar_test", "test")):
+        pub = run_cli(["publish", "--shard-server", addr, "--dataset", ds,
+                       "--format", "cifar10", "--path", data, "--split",
+                       split, "--records-per-shard", "512"])
+        emit("publish_cifar10", card=card, **pub)
+    ckpt = checkpoint_dir(free_bytes=2e9, prefix="slt-phase16c-")
+    common = ["--model", "resnet18_cifar", "--config",
+              config_path("cifar_resnet18_dp4.json"), "--mesh", "dp=1",
+              "--batch-size", str(CIFAR_BATCH), "--shard-server", addr,
+              "--dataset", "cifar", "--set", "data.eval_dataset=cifar_test",
+              "--checkpoint-dir", ckpt]
+    kept = {}
+
+    def keep_run(real):
+        def run(*a, **k):
+            state, meter = real(*a, **k)
+            kept.update(state=state, meter=meter, trainer=k["trainer"])
+            return state, meter
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with Patched((loop, "run_training", keep_run)):
+            done = run_cli(["train", *common, "--set", "data.augment=true",
+                            "--steps", str(CIFAR_STEPS)])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ev = run_cli(["eval", *common, "--eval-steps", "4"])
+        trainer, state, meter = kept["trainer"], kept["state"], kept["meter"]
+        live = loop.run_eval(trainer.config, trainer, state, num_batches=4)
+        summary = meter.steady_state(skip=2)
+        times = [s.step_time_s for s in meter.history]
+        stats = state.model.ResNetBlock_0.BatchNorm_0
+        emit("train_resnet18_cifar", card=card,
+             config="configs/cifar_resnet18_dp4.json",
+             cut="mesh dp=1 (4 there), batch 256 (1,024 there), 30 steps",
+             batch=CIFAR_BATCH, steps=CIFAR_STEPS, losses=done["losses"],
+             step_times_s=times, median_step_s_after_2=statistics.median(
+                 times[2:]), samples_per_s=summary["samples_per_sec"],
+             mfu=summary.get("mfu"), flops_per_step=meter.flops_per_step,
+             max_memory_allocated_gb=peak_gb, eval=ev, live_eval=live,
+             running_mean_abs_mean=stats.mean.abs().mean().item(),
+             running_var_mean=stats.var.mean().item())
+        if (done["final_step"] != CIFAR_STEPS
+                or not all(math.isfinite(x) for x in done["losses"])):
+            fail(f"phase 16c: train ended at {done['final_step']} with "
+                 f"losses {done['losses']}")
+        if ev["checkpoint_step"] != CIFAR_STEPS or not math.isfinite(
+                ev["eval_loss"]):
+            fail(f"phase 16c: eval from the checkpoint gave {ev}")
+        if abs(ev["eval_loss"] - live["eval_loss"]) > 1e-4 * (
+                1 + abs(live["eval_loss"])):
+            fail(f"phase 16c: eval from the checkpoint {ev['eval_loss']} "
+                 f"against the live state's {live['eval_loss']}")
+        if stats.mean.abs().max().item() == 0.0:
+            fail("phase 16c: the running statistics never moved")
+        one = loop.make_source(trainer.config, trainer, seed=5)
+        batch = trainer.place(next(iter(one)))
+        one.close()
+        real_bn = layers.BatchNorm.forward
+
+        def ranged(self, *a, **kw):
+            with record_function("batch_norm"):
+                return real_bn(self, *a, **kw)
+
+        torch.cuda.synchronize()
+        layers.BatchNorm.forward = ranged
+        try:
+            with profiled() as prof:
+                state, m = trainer.step(state, batch)
+                float(m["loss"])
+                torch.cuda.synchronize()
+        finally:
+            layers.BatchNorm.forward = real_bn
+        emit("where_time_goes_resnet18_cifar_train", card=card,
+             batch=CIFAR_BATCH, **resnet_step_split(torch, prof))
+        del prof
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        kept.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mlp_mnist_training(torch, card, addr, root):
+    """Phase 16d: MNIST IDX files with learnable labels written and
+    published with ``publish --format mnist`` (train and test splits);
+    configs/mnist_mlp.json (batch 128, adamw 1e-3) trained 200 steps with
+    a checkpoint, then ``eval`` from it. Fails unless the mean loss of the
+    last 20 steps is below half that of the first 20."""
+    import os
+    import shutil
+
+    data = os.path.join(root, "mnist")
+    write_mnist(data, "train", MNIST_RECORDS, 0)
+    write_mnist(data, "t10k", MNIST_TEST, 1)
+    for ds, split in (("mnist", "train"), ("mnist_test", "test")):
+        pub = run_cli(["publish", "--shard-server", addr, "--dataset", ds,
+                       "--format", "mnist", "--path", data, "--split",
+                       split, "--records-per-shard", "4096"])
+        emit("publish_mnist", card=card, **pub)
+    ckpt = checkpoint_dir(free_bytes=1e9, prefix="slt-phase16d-")
+    common = ["--model", "mlp_mnist", "--config",
+              config_path("mnist_mlp.json"), "--shard-server", addr,
+              "--dataset", "mnist", "--set", "data.eval_dataset=mnist_test",
+              "--checkpoint-dir", ckpt]
+    try:
+        done = run_cli(["train", *common, "--steps", str(MNIST_STEPS)])
+        ev = run_cli(["eval", *common, "--eval-steps", "8"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = done["losses"]
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    emit("train_mlp_mnist", card=card, config="configs/mnist_mlp.json",
+         steps=MNIST_STEPS, first20_mean_loss=first, last20_mean_loss=last,
+         samples_per_s=done.get("samples_per_sec"),
+         step_time_s=done.get("step_time_s"), eval=ev)
+    if done["final_step"] != MNIST_STEPS or not last < first / 2:
+        fail(f"phase 16d: mlp_mnist's loss went {first:.4f} -> {last:.4f} "
+             f"over {MNIST_STEPS} steps (must halve)")
+    if ev["checkpoint_step"] != MNIST_STEPS or not math.isfinite(
+            ev["eval_loss"]):
+        fail(f"phase 16d: eval from the checkpoint gave {ev}")
+
+
+def families_phase(torch, card):
+    """Phase 16: 16a, then 16b-16d over one shard server in this process.
+    Returns the kernels-line figures (K1-K3's launches in 16b)."""
+    import shutil
+    import tempfile
+
+    from serverless_learn_tpu_torch.control.daemons import ShardServer
+
+    family_agreement(torch, card)
+    root = tempfile.mkdtemp(prefix="slt-phase16-")
+    srv = ShardServer(root=f"{root}/store").start()
+    try:
+        bert = bert_base_training(torch, card, srv.addr)
+        resnet_cifar_training(torch, card, srv.addr, root)
+        mlp_mnist_training(torch, card, srv.addr, root)
+    finally:
+        srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"bert_launches": bert}
+
+
+def families_only(torch, build, card) -> int:
+    """``--families-only``: phase 2 for the flash kernels, then phases 6,
+    7 and 16, with no result line."""
+    reports = build.build(["flash_attention"])
+    build.load("flash_attention")
+    faults = spill_faults(reports.get("flash_attention", ""),
+                          NO_SPILL["flash_attention"])
+    emit("build", card=card, ptxas=ptxas_summary(reports),
+         spill_faults=faults)
+    if faults:
+        fail(f"the flash kernels spill registers: {faults}")
+    check_flash(torch, card)
+    time_flash(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_phase(torch, card)
+    return 0
+
+
 def moe_only(torch, qm, build, card) -> int:
     """``--moe-only``: the K6 and flash kernels built, phase 15 alone, no
     result line."""
@@ -6399,6 +7064,20 @@ def numerics_only(torch, build, card) -> int:
     numerics_phase(torch, card)
     time_stats(torch, card)
     return 0
+
+
+# Each phase's wall seconds in the full run, printed at its end.
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept under ``name`` and
+    printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit("phase_seconds", name=name, seconds=PHASE_SECONDS[name])
+    return out
 
 
 def main() -> int:
@@ -6438,6 +7117,8 @@ def main() -> int:
         return moe_only(torch, qm, build, card)
     if "--numerics-only" in sys.argv[1:]:
         return numerics_only(torch, build, card)
+    if "--families-only" in sys.argv[1:]:
+        return families_only(torch, build, card)
     if "--nonfinite-only" in sys.argv[1:]:
         sources = ["quant_matmul", "flash_attention", "cross_entropy"]
         build.build(sources)
@@ -6459,45 +7140,55 @@ def main() -> int:
     if any(faults.values()):
         fail(f"tensor-core kernels spill registers or are missing from the "
              f"ptxas report: {faults}")
+    PHASE_SECONDS["2_build"] = time.perf_counter() - t0
 
-    max_err = check_kernel(torch, qm, card)
-    check_dx(torch, qm, card)
-    fwd = time_kernel(torch, qm, card)
-    prefill_fwd = time_kernel(torch, qm, card, R=PREFILL_ROWS)
-    qlora_fwd = time_kernel(torch, qm, card, R=QLORA_ROWS)
-    tiny_agreement(torch, card)
-    flash_err = check_flash(torch, card)
-    flash_time = time_flash(torch, card)
-    ce_err = check_ce(torch, card)
-    ce_time = time_ce(torch, card)
-    train_tiny_agreement(torch, card)
-    train_tiny_lora_agreement(torch, card)
-    flash_launches = train_full_width(torch, card)
-    lora_launches = train_lora_8b(torch, card)
-    static_launches, model, static_replies, static_step = serve_full_width(
-        torch, card)
-    launches, replayed = serve_continuous(torch, card, model, static_replies,
-                                          static_step)
+    max_err = timed("3_check_k6", check_kernel, torch, qm, card)
+    timed("3_check_k6_dx", check_dx, torch, qm, card)
+    fwd = timed("4_time_k6_decode", time_kernel, torch, qm, card)
+    prefill_fwd = timed("4_time_k6_prefill", time_kernel, torch, qm, card,
+                        R=PREFILL_ROWS)
+    qlora_fwd = timed("4_time_k6_qlora", time_kernel, torch, qm, card,
+                      R=QLORA_ROWS)
+    timed("5_tiny_int8", tiny_agreement, torch, card)
+    flash_err = timed("6_check_flash", check_flash, torch, card)
+    flash_time = timed("7_time_flash", time_flash, torch, card)
+    ce_err = timed("6b_check_ce", check_ce, torch, card)
+    ce_time = timed("7b_time_ce", time_ce, torch, card)
+    timed("8a_tiny_train", train_tiny_agreement, torch, card)
+    timed("8c_tiny_lora", train_tiny_lora_agreement, torch, card)
+    flash_launches = timed("8b_llama_1b", train_full_width, torch, card)
+    lora_launches = timed("8d_lora_8b", train_lora_8b, torch, card)
+    static_launches, model, static_replies, static_step = timed(
+        "9_serve_static", serve_full_width, torch, card)
+    launches, replayed = timed("9c_serve_continuous", serve_continuous,
+                               torch, card, model, static_replies,
+                               static_step)
     del model, static_replies
     gc.collect()
     torch.cuda.empty_cache()
-    phase10, phase10_replayed = checkpoint_path(torch, card)
+    phase10, phase10_replayed = timed("10_checkpoints", checkpoint_path,
+                                      torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    qlora = qlora_8b(torch, card)
+    qlora = timed("11_qlora", qlora_8b, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    emergency_drill(torch, card)
+    timed("12a_emergency", emergency_drill, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    elastic = elastic_cluster(torch, card)
+    elastic = timed("13_cluster", elastic_cluster, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    stats_launches = numerics_phase(torch, card)
-    stats_time = time_stats(torch, card)
+    stats_launches = timed("14_numerics", numerics_phase, torch, card)
+    stats_time = timed("14_time_stats", time_stats, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    moe = moe_phase(torch, qm, card)
+    moe = timed("15_moe", moe_phase, torch, qm, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = timed("16_families", families_phase, torch, card)
+    emit("phase_seconds_all", card=card, seconds=PHASE_SECONDS,
+         total_s=time.perf_counter() - t0)
 
     kernels = [{
         "name": "quant_matmul", "route": "cuda",
@@ -6548,10 +7239,17 @@ def main() -> int:
             "launches_checkpoint_path": phase10[name],
             "launches_elastic_worker": elastic[name],
             "launches_moe_training": moe["train"][name],
+            "launches_bert_training": families["bert_launches"][name],
             "max_abs_err": flash_err[name], "ms": row["ms"],
             "sm_mhz": row["sm_mhz"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bert_ms": row["bert"]["ms"],
+            "bert_plain_ms": row["bert"]["plain_ms"],
+            "bert_bound_ms": row["bert"]["bound_ms"],
+            "bert_bound_by": row["bert"]["bound_by"],
+            "bert_library_ms": row["bert"]["library_ms"],
+            "bert_sm_mhz": row["bert"]["sm_mhz"]})
     replaces = {
         "cross_entropy_fwd":
             "serverless_learn_tpu/ops/pallas/cross_entropy.py:94",

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: ``train``, ``eval``, ``serve``,
 ``generate``, the cluster's ``coordinator``, ``shard-server``,
-``publish``, ``worker``, ``stats`` and ``numerics``.
+``publish``, ``worker``, ``stats``, ``numerics`` and ``models``.
 
     python -m serverless_learn_tpu_torch train --model llama_1b \\
         --batch-size 2 --seq-len 4096 --steps 5
@@ -46,6 +46,15 @@
     python -m serverless_learn_tpu_torch numerics diff A.jsonl B.jsonl
     python -m serverless_learn_tpu_torch numerics summary run/events.jsonl
     python -m serverless_learn_tpu_torch numerics --self-check
+    python -m serverless_learn_tpu_torch models
+    python -m serverless_learn_tpu_torch publish --shard-server localhost:P2 \
+        --dataset cifar --format cifar10 --path DIR
+    python -m serverless_learn_tpu_torch train --model resnet18_cifar \
+        --config configs/cifar_resnet18_dp4.json --set mesh.dp=1 \
+        --batch-size 256 --shard-server localhost:P2 --dataset cifar \
+        --set data.augment=true --steps 30 --checkpoint-dir ckpts
+    python -m serverless_learn_tpu_torch train --model bert_base \
+        --batch-size 64 --seq-len 512 --set train.grad_accum=2 --steps 5
 
 The flags are those of the reference CLI (``serverless_learn_tpu/cli.py``)
 for these paths. Checkpoints are the JAX package's (``training/
@@ -60,7 +69,8 @@ cpu`` is for tests only.
 The cluster (``control/``, ``data/shard_client.py``,
 ``training/elastic.py``): ``coordinator`` and ``shard-server`` run the
 port's daemons (0 picks a port; each prints its address);
-``publish`` writes a dataset (``--format synthetic | tokens | text``);
+``publish`` writes a dataset (``--format synthetic | mnist | cifar10 |
+tokens | text``);
 ``train`` and ``eval`` with ``--shard-server ADDR --dataset NAME`` stream
 it; ``worker`` trains as an elastic member of a coordinator's cluster,
 re-forming at every membership epoch, its checkpoints in the shard server
@@ -725,9 +735,11 @@ def cmd_shard_server(args) -> int:
 
 def cmd_publish(args) -> int:
     """Publish a dataset to a shard server: ``synthetic`` (a model's batch
-    schema, sampled from ``--seed``), ``tokens`` (a token corpus file) or
-    ``text`` (a text corpus, BPE with ``--vocab``/``--merges`` or byte
-    level, packed)."""
+    schema, sampled from ``--seed``), ``mnist`` (an IDX directory) or
+    ``cifar10`` (the binary batches) under ``--path`` and ``--split``,
+    ``tokens`` (a token corpus file) or ``text`` (a text corpus, BPE with
+    ``--vocab``/``--merges`` or byte level, packed). ``imagefolder``
+    raises: its decoder needs PIL."""
     from serverless_learn_tpu_torch.config import DataConfig
     from serverless_learn_tpu_torch.data.shard_client import (
         publish_dataset, publish_from_bundle)
@@ -760,13 +772,29 @@ def cmd_publish(args) -> int:
         meta = publish_dataset(args.shard_server, args.dataset, arrays,
                                records_per_shard=per_shard)
     else:
-        raise SystemExit(str(not_ported(
-            f"publish --format {args.format} (the image loaders of "
-            "data/raw.py)", "ROADMAP.md queue 1 item 5")))
+        from serverless_learn_tpu_torch.data.raw import LOADERS
+
+        if not args.path:
+            raise SystemExit(f"--format {args.format} requires --path")
+        try:
+            arrays = LOADERS[args.format](args.path, split=args.split)
+        except NotImplementedError as e:
+            raise SystemExit(str(e))
+        meta = publish_dataset(args.shard_server, args.dataset, arrays,
+                               records_per_shard=per_shard)
     print(json.dumps({"dataset": args.dataset,
                       "num_records": meta.num_records,
                       "num_shards": meta.num_shards,
                       "fields": [f.name for f in meta.fields]}))
+    return 0
+
+
+def cmd_models(args) -> int:
+    """The registered model families, one a line."""
+    from serverless_learn_tpu_torch.models.registry import list_models
+
+    for name in list_models():
+        print(name)
     return 0
 
 
@@ -875,8 +903,8 @@ def cmd_numerics(args) -> int:
 
 def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--model", required=True,
-                   help="registered model name (llama_tiny, llama_1b, "
-                        "llama_8b)")
+                   help="registered model name (the models command "
+                        "lists them)")
     p.add_argument("--set", action="append", metavar="model_overrides.K=V",
                    help="override a model config field, e.g. --set "
                         "model_overrides.n_layers=4; serve also takes the "
@@ -932,8 +960,8 @@ def _add_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--set", action="append", metavar="dotted.key=value",
                    help="override any config field, e.g. --set "
                         "train.seed=3")
-    p.add_argument("--model", help="registered model name (llama_tiny, "
-                                   "llama_1b, llama_8b)")
+    p.add_argument("--model", help="registered model name (the models "
+                                   "command lists them)")
     p.add_argument("--mesh", help="mesh axes; only a one-device mesh "
                                   "(e.g. dp=1) is ported")
     p.add_argument("--batch-size", type=int)
@@ -1104,8 +1132,10 @@ def build_parser() -> argparse.ArgumentParser:
                           "raw text); text: tokenize a text corpus "
                           "(--vocab/--merges for GPT-2-format BPE, else "
                           "byte-level) and pack documents densely; mnist, "
-                          "cifar10 and imagefolder are not yet ported")
-    pub.add_argument("--path", help="corpus file (tokens, text)")
+                          "cifar10: the dataset files under --path "
+                          "(imagefolder is not yet ported)")
+    pub.add_argument("--path", help="corpus file (tokens, text) or the "
+                                    "dataset's directory (mnist, cifar10)")
     pub.add_argument("--split", default="train", choices=["train", "test"])
     pub.add_argument("--model", default=None,
                      help="synthetic: the model whose batch schema to "
@@ -1152,6 +1182,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the numerics self-check")
     nm.add_argument("--compact", action="store_true")
     nm.set_defaults(fn=cmd_numerics)
+
+    m = sub.add_parser("models", help="list registered model families")
+    m.set_defaults(fn=cmd_models)
     return ap
 
 

@@ -37,10 +37,6 @@ _FIELDS_NOT_PORTED = {
     ("train", "donate_state"): ("a step that keeps its input state alive "
                                 "(the port updates the state in place)",
                                 ROADMAP_TRAINING),
-    ("data", "augment"): ("the image transforms", _DATA_ITEM),
-    ("data", "mask_rate"): ("dynamic MLM masking", _DATA_ITEM),
-    ("data", "learnable"): ("mlp_mnist's learnable synthetic task",
-                            _DATA_ITEM),
     ("membership", "mode"): ("SWIM gossip membership (control/gossip.py)",
                              _DATA_ITEM),
     ("elastic", "remesh_wire_dtype"): (
@@ -117,9 +113,13 @@ class DataConfig:
     shard_server_addr: Optional[str] = None  # None => generate locally
     prefetch: int = 2  # batches placed on the device ahead of the step
     seq_len: int = 128  # LM datasets
+    # mlp_mnist's synthetic labels from a fixed projection of the image,
+    # so the task is learnable.
     learnable: bool = False
+    # A streamed image dataset's training batches are cropped and flipped
+    # on the host (data/transforms.py); eval sources never are.
     augment: bool = False
-    mask_rate: float = 0.15
+    mask_rate: float = 0.15  # MLM: the share of positions masked a pass
 
 
 @dataclass(frozen=True)

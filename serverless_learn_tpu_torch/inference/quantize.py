@@ -26,9 +26,9 @@ from typing import Dict, Set
 
 import torch
 
+from serverless_learn_tpu_torch.models.common import leaf_generator
 from serverless_learn_tpu_torch.models.transformer import (Transformer,
-                                                           _init_lora,
-                                                           leaf_generator)
+                                                           _init_lora)
 from serverless_learn_tpu_torch.ops.moe import EXPERTS
 
 QUANT_DIRS: Set[str] = {

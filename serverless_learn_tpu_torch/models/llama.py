@@ -13,8 +13,8 @@ from typing import Dict, Iterable
 
 import numpy as np
 
-from serverless_learn_tpu_torch.models.registry import (ModelBundle,
-                                                        register_model)
+from serverless_learn_tpu_torch.models.registry import (
+    ModelBundle, Spec, register_model, transformer_build)
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
 from serverless_learn_tpu_torch.ops.losses import causal_lm_loss
 
@@ -41,7 +41,7 @@ def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
     ``moe_aux_loss`` with ``n_experts > 0``); ``fused_ce`` takes the
     cross-entropy through its kernels (K4/K5). With ``lora_rank > 0`` only the adapters train."""
 
-    def loss_fn(model, batch):
+    def loss_fn(model, batch, rng=None):
         logits, aux = model(batch["tokens"], return_aux=True)
         loss, metrics = causal_lm_loss(logits, batch["tokens"],
                                        fused=fused_ce)
@@ -54,8 +54,13 @@ def lm_bundle(cfg: TransformerConfig, fused_ce: bool = False) -> ModelBundle:
             0, cfg.vocab_size, (batch_size, data_config.seq_len)).astype(
                 np.int32)}
 
-    return ModelBundle(cfg=cfg, loss_fn=loss_fn, make_batch=make_batch,
-                       task="lm",
+    def input_spec(data_config, batch_size):
+        return {"tokens": Spec((batch_size, data_config.seq_len),
+                               np.dtype(np.int32))}
+
+    return ModelBundle(cfg=cfg, build=transformer_build(cfg),
+                       loss_fn=loss_fn, make_batch=make_batch,
+                       input_spec=input_spec, task="lm",
                        trainable_mask=(lora_trainable_mask
                                        if cfg.lora_rank > 0 else None))
 
@@ -69,15 +74,15 @@ def lora_trainable_mask(names: Iterable[str]) -> Dict[str, bool]:
 
 
 @register_model("llama_tiny")
-def make_llama_tiny(**overrides):
-    return _llama_cfg("tiny", **overrides)
+def make_llama_tiny(fused_ce=False, **overrides):
+    return lm_bundle(_llama_cfg("tiny", **overrides), fused_ce=fused_ce)
 
 
 @register_model("llama_1b")
-def make_llama_1b(**overrides):
-    return _llama_cfg("1b", **overrides)
+def make_llama_1b(fused_ce=False, **overrides):
+    return lm_bundle(_llama_cfg("1b", **overrides), fused_ce=fused_ce)
 
 
 @register_model("llama_8b")
-def make_llama_8b(**overrides):
-    return _llama_cfg("8b", **overrides)
+def make_llama_8b(fused_ce=False, **overrides):
+    return lm_bundle(_llama_cfg("8b", **overrides), fused_ce=fused_ce)

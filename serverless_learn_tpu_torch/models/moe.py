@@ -9,6 +9,7 @@ cross-entropy plus the routers' load-balance losses, and the metric
 
 from __future__ import annotations
 
+from serverless_learn_tpu_torch.models.llama import lm_bundle
 from serverless_learn_tpu_torch.models.registry import register_model
 from serverless_learn_tpu_torch.models.transformer import TransformerConfig
 
@@ -29,10 +30,10 @@ def _moe_cfg(size: str, **overrides) -> TransformerConfig:
 
 
 @register_model("moe_tiny")
-def make_moe_tiny(**overrides):
-    return _moe_cfg("tiny", **overrides)
+def make_moe_tiny(fused_ce=False, **overrides):
+    return lm_bundle(_moe_cfg("tiny", **overrides), fused_ce=fused_ce)
 
 
 @register_model("moe_mixtral_8x7b")
-def make_moe_mixtral(**overrides):
-    return _moe_cfg("mixtral_8x7b", **overrides)
+def make_moe_mixtral(fused_ce=False, **overrides):
+    return lm_bundle(_moe_cfg("mixtral_8x7b", **overrides), fused_ce=fused_ce)

@@ -1,41 +1,78 @@
-"""Model registry: each family registers a factory that turns overrides into
-a ``TransformerConfig``, keyed by the name the CLI's ``--model`` takes.
-Port of ``serverless_learn_tpu/models/registry.py``: :func:`build_model`
-makes a registered model with serving weights from a seed, and
-:func:`get_model` the training :class:`ModelBundle`. Checkpoint restore
-comes later; ``bridge.py`` loads a flax tree.
+"""Model registry, the port of ``serverless_learn_tpu/models/registry.py``:
+each family registers a factory that turns overrides into a
+:class:`ModelBundle`, keyed by the name the CLI's ``--model`` takes
+(:func:`list_models` lists them, the same names as the reference's).
+:func:`get_model` gives the training bundle; :func:`build_model` makes a
+registered transformer with serving weights from a seed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from serverless_learn_tpu_torch import bridge
 from serverless_learn_tpu_torch.models.transformer import (
-    Transformer, TransformerConfig, random_params)
+    Transformer, TransformerConfig, init_params, random_params)
 
-_REGISTRY: Dict[str, Callable[..., TransformerConfig]] = {}
+_REGISTRY: Dict[str, Callable[..., "ModelBundle"]] = {}
+
+
+class Spec(NamedTuple):
+    """One input field of a batch: its shape and numpy dtype (the
+    reference's ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: np.dtype
 
 
 @dataclasses.dataclass
 class ModelBundle:
     """What the trainer needs of a model family, as the reference's bundle:
-    ``loss_fn(model, batch) -> (loss, {"metrics": {...}})`` (an optional
-    ``"loss_weight"`` beside ``"metrics"`` weights grad-accumulation
-    microbatches), ``make_batch(rng, data_config, batch_size)`` -> a dict
-    of numpy arrays, the task name, ``trainable_mask(names) -> {name:
-    bool}`` over the model's state-dict names where only part of the model
-    trains (None: all of it), and ``input_names``, the fields of a batch
-    (what a streamed dataset is bridged to, ``data/transforms.py``)."""
 
-    cfg: TransformerConfig
+    * ``cfg``: the family's config (``TransformerConfig`` for the
+      transformers, which serving builds from);
+    * ``build(device, trainable=False)``: the family's ``nn.Module``, its
+      tensors allocated on ``device`` and not filled; ``init(model, seed)``
+      fills them;
+    * ``loss_fn(model, batch, rng=None) -> (loss, {"metrics": {...}})``,
+      with an optional ``"loss_weight"`` beside ``"metrics"`` that weights
+      grad-accumulation microbatches; ``rng`` is the step's seed (the
+      reference's step PRNG), which only a device-side augmentation reads.
+      A forward in training mode moves the model's running statistics (the
+      reference's ``model_state``, the module's buffers);
+    * ``eval_loss_fn``: the inference-mode loss (BatchNorm's running
+      statistics), None where ``loss_fn`` is already state-free;
+    * ``make_batch(rng, data_config, batch_size)``: a dict of numpy arrays;
+    * ``task``: "classification", "mlm" or "lm";
+    * ``input_spec(data_config, batch_size)``: {field: :class:`Spec`},
+      what a streamed dataset is bridged to (``data/transforms.py``); its
+      keys name the batch's fields;
+    * ``trainable_mask(names) -> {name: bool}`` over the model's state-dict
+      names where only part of the model trains (None: all of it);
+    * ``macs``: multiply-adds a sample of one forward, for the analytic
+      FLOPs of the image families (``utils/metrics.py``); None for the
+      transformers, which count by their config.
+
+    :meth:`flax_shape` names each tensor's shape in the reference's tree
+    (the optimizer state's shapes, which adafactor factors by)."""
+
+    cfg: Any
+    build: Callable[..., torch.nn.Module]
     loss_fn: Callable
     make_batch: Callable
+    input_spec: Callable
     task: str = "lm"
+    init: Callable = init_params
+    eval_loss_fn: Optional[Callable] = None
     trainable_mask: Optional[Callable] = None
-    input_names: Tuple[str, ...] = ("tokens",)
+    macs: Optional[Callable[[], int]] = None
+
+    def flax_shape(self, name: str, shape) -> Tuple[int, ...]:
+        return bridge.flax_shape(name, shape, self.cfg)
 
 
 def register_model(name: str):
@@ -46,21 +83,32 @@ def register_model(name: str):
     return deco
 
 
-def get_model_config(name: str, **overrides) -> TransformerConfig:
-    from serverless_learn_tpu_torch.models import llama, moe  # noqa: F401
+def _load_families():
+    from serverless_learn_tpu_torch.models import (  # noqa: F401
+        bert, llama, mlp, moe, resnet)
 
+
+def get_model(name: str, **overrides) -> ModelBundle:
+    """The training bundle of a registered model; the causal LMs take the
+    bundle option ``fused_ce``, the rest are config overrides."""
+    _load_families()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**overrides)
 
 
-def get_model(name: str, **overrides) -> ModelBundle:
-    """The training bundle of a registered model; ``fused_ce`` is a bundle
-    option, the rest are config overrides."""
-    from serverless_learn_tpu_torch.models.llama import lm_bundle
+def list_models():
+    _load_families()
+    return sorted(_REGISTRY)
 
-    fused_ce = overrides.pop("fused_ce", False)
-    return lm_bundle(get_model_config(name, **overrides), fused_ce=fused_ce)
+
+def get_model_config(name: str, **overrides) -> TransformerConfig:
+    """The ``TransformerConfig`` of a registered transformer (the serving
+    paths build from it)."""
+    cfg = get_model(name, **overrides).cfg
+    if not isinstance(cfg, TransformerConfig):
+        raise ValueError(f"{name} is not a transformer")
+    return cfg
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -87,3 +135,11 @@ def build_model(name: str, *, device="cuda", quant=None, seed: int = 0,
     if quant is None:
         return random_params(model, seed)
     return random_quantized_params(model, seed)
+
+
+def transformer_build(cfg: TransformerConfig) -> Callable:
+    """``ModelBundle.build`` of a transformer family."""
+    def build(device, trainable: bool = False) -> Transformer:
+        return Transformer(cfg, device=device, trainable=trainable)
+
+    return build

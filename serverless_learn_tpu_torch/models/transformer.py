@@ -1,10 +1,16 @@
-"""The Llama-style causal transformer, port of ``serverless_learn_tpu/models/
-transformer.py``: the training forward (causal self-attention through
-``ops.attention.dot_product_attention``, flash at long sequences), and for
-serving batched prefill, per-token decode and ``extend`` (append T tokens
-at each row's index) over a monolithic KV cache (:class:`KVCache`) or a
-paged one (``inference.kvcache.PagedKVCache``). All three serving modes
-attend through the dense form, as the reference's do.
+"""The transformer, port of ``serverless_learn_tpu/models/transformer.py``, in
+its two forms: Llama-style (causal, RoPE, RMSNorm, SwiGLU) and BERT-style
+(``causal=False``, learned positions in ``pos_embedder``, LayerNorm, a GeLU
+MLP ``wi``/``wo``). The training forward attends through
+``ops.attention.dot_product_attention``, flash at long sequences; with
+``suffix_padding_mask`` an integer key mask ``[B, 1, 1, S]`` is read as
+suffix padding and its row sums become the flash kernels' ``kv_lengths``
+("len" mode, taken from T >= 512). For serving, the causal RoPE form also
+runs batched prefill, per-token decode and ``extend`` (append T tokens at
+each row's index) over a monolithic KV cache (:class:`KVCache`) or a paged
+one (``inference.kvcache.PagedKVCache``); all three attend through the
+dense form, as the reference's do, and raise for a non-causal or
+learned-position model, as the reference does.
 
 Parameter names follow the flax module's paths (``layer_0.attn.q_proj.
 kernel``, ``embedder.embedding`` ...), so ``bridge.py`` maps the two trees
@@ -44,7 +50,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import zlib
 from typing import List, Optional, Union
 
 import torch
@@ -53,27 +58,17 @@ from torch.utils.checkpoint import checkpoint
 
 from serverless_learn_tpu_torch.config import not_ported
 from serverless_learn_tpu_torch.inference.kvcache import PagedKVCache
+from serverless_learn_tpu_torch.models.common import as_dtype, leaf_generator
 from serverless_learn_tpu_torch.ops.attention import (dot_product_attention,
                                                       xla_attention)
 from serverless_learn_tpu_torch.ops.moe import MoELayer
 from serverless_learn_tpu_torch.ops.quant_matmul import QuantMatmul
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _as_dtype(value) -> torch.dtype:
-    if isinstance(value, torch.dtype):
-        return value
-    if value in _DTYPES:
-        return _DTYPES[value]
-    raise ValueError(f"unsupported dtype {value!r}; expected one of "
-                     f"{sorted(_DTYPES)}")
-
-
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of the reference's config that the serving and training
-    paths read. The port runs the causal RoPE / RMSNorm / SwiGLU form only.
+    paths read. ``norm`` is "rms" or "layer", ``activation`` "swiglu" or
+    "gelu"; ``tie_embeddings`` (no registered model sets it) is refused.
     ``remat`` recomputes each block in the backward
     (``torch.utils.checkpoint``, the reference's ``nn.remat``)."""
 
@@ -84,7 +79,17 @@ class TransformerConfig:
     n_kv_heads: Optional[int] = None  # None => MHA
     d_ff: int = 2048
     max_seq_len: int = 512
+    causal: bool = True
+    use_rope: bool = True  # False: learned positions (pos_embedder)
     rope_theta: float = 10000.0
+    norm: str = "rms"  # "rms" | "layer"
+    activation: str = "swiglu"  # "swiglu" | "gelu"
+    tie_embeddings: bool = False
+    # The attention mask is suffix padding (a valid prefix, a padded tail):
+    # its row sums are the flash kernels' kv_lengths. A contract of the
+    # data path (mlm_transform checks it); an interior pad would mask real
+    # trailing tokens.
+    suffix_padding_mask: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     quant: Optional[str] = None  # None | "int8" (weight-only; QLoRA trains)
@@ -113,8 +118,16 @@ class TransformerConfig:
                 raise not_ported(
                     f"{name} (manual expert/tensor parallelism inside a "
                     "pipeline stage)", "ROADMAP.md queue 1 item 4a")
-        object.__setattr__(self, "dtype", _as_dtype(self.dtype))
-        object.__setattr__(self, "param_dtype", _as_dtype(self.param_dtype))
+        object.__setattr__(self, "dtype", as_dtype(self.dtype))
+        object.__setattr__(self, "param_dtype", as_dtype(self.param_dtype))
+        if self.tie_embeddings:
+            raise not_ported("tie_embeddings (a head that reads the "
+                             "embedding table)", "ROADMAP.md queue 1 item 5")
+        if self.norm not in ("rms", "layer"):
+            raise ValueError(f"unknown norm {self.norm!r} (rms | layer)")
+        if self.activation not in ("swiglu", "gelu"):
+            raise ValueError(f"unknown activation {self.activation!r} "
+                             "(swiglu | gelu)")
         if self.quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {self.quant!r} (int8)")
         if self.attention_impl not in ("auto", "xla", "flash", "ring"):
@@ -167,6 +180,34 @@ class RMSNorm(nn.Module):
         var = xf.square().mean(dim=-1, keepdim=True)
         mul = torch.rsqrt(var + 1e-6) * self.scale.to(torch.float32)
         return (xf * mul).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: f32 statistics over the last dim, the
+    variance E[x^2] - E[x]^2 clipped at zero, epsilon 1e-6 (torch's default
+    is 1e-5), f32 scale and bias, output in ``dtype``."""
+
+    def __init__(self, dim: int, dtype, param_dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(
+            torch.zeros(dim, dtype=param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf.square().mean(dim=-1, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + 1e-6) * self.scale.to(torch.float32)
+        return ((xf - mean) * mul
+                + self.bias.to(torch.float32)).to(self.dtype)
+
+
+def _norm(cfg: "TransformerConfig", device) -> nn.Module:
+    cls = RMSNorm if cfg.norm == "rms" else LayerNorm
+    return cls(cfg.d_model, cfg.dtype, cfg.param_dtype, device)
 
 
 class Embed(nn.Module):
@@ -277,8 +318,10 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
                 *, mode: Optional[str] = None, kv=None, index=None,
                 mask=None, write=None, table=None) -> torch.Tensor:
-        """``mode`` None: causal self-attention over x. "prefill": the same,
-        and the keys/values land at cache positions [0, T). "decode" /
+        """``mode`` None: self-attention over x, causal unless the config
+        says otherwise, under the key ``mask`` if one is given (a suffix
+        padding mask becomes ``kv_lengths``). "prefill": causal, and the
+        keys/values land at cache positions [0, T). "decode" /
         "extend": x is T tokens per row (1 for decode), written at cache
         positions ``index[b] + t``; attention reads the whole cache under
         ``mask`` (keys at positions <= the query's). "paged": the T tokens
@@ -292,8 +335,10 @@ class Attention(nn.Module):
         if cfg.lora_rank > 0:  # before the rotation, in every mode
             q = q + self.q_lora(x)
             v = v + self.v_lora(x)
-        q = apply_rope(q.reshape(B, T, H, D), sin, cos)
-        k = apply_rope(self.k_proj(x).reshape(B, T, K, D), sin, cos)
+        q = q.reshape(B, T, H, D)
+        k = self.k_proj(x).reshape(B, T, K, D)
+        if cfg.use_rope:
+            q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
         v = v.reshape(B, T, K, D)
         if mode == "paged":
             pk, pv = kv
@@ -317,21 +362,37 @@ class Attention(nn.Module):
             # real; pad positions produce values nobody reads.
             out = xla_attention(q, k, v, causal=True)
         else:
-            out = dot_product_attention(q, k, v, causal=True,
+            kv_lengths = None
+            if (cfg.suffix_padding_mask and mask is not None
+                    and mask.ndim == 4 and mask.shape[1:3] == (1, 1)
+                    and not mask.is_floating_point()):
+                # A float mask may be additive (0 = keep): its row sums
+                # would be garbage lengths, so it stays a mask.
+                kv_lengths = mask[:, 0, 0, :].to(torch.int32).sum(-1)
+            out = dot_product_attention(q, k, v, causal=cfg.causal,
+                                        mask=mask, kv_lengths=kv_lengths,
                                         impl=cfg.attention_impl)
         return self.o_proj(out.reshape(B, T, H * D))
 
 
 class MlpBlock(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU, down(silu(gate(x)) * up(x)); or with ``activation="gelu"``
+    wo(gelu(wi(x))), flax's ``nn.gelu``: the tanh approximation."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.gelu = cfg.activation == "gelu"
+        if self.gelu:
+            self.wi = _proj(cfg, cfg.d_model, cfg.d_ff, device)
+            self.wo = _proj(cfg, cfg.d_ff, cfg.d_model, device)
+            return
         self.gate_proj = _proj(cfg, cfg.d_model, cfg.d_ff, device)
         self.up_proj = _proj(cfg, cfg.d_model, cfg.d_ff, device)
         self.down_proj = _proj(cfg, cfg.d_ff, cfg.d_model, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gelu:
+            return self.wo(nn.functional.gelu(self.wi(x), approximate="tanh"))
         gate = nn.functional.silu(self.gate_proj(x))
         return self.down_proj(gate * self.up_proj(x))
 
@@ -340,10 +401,9 @@ class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        norm = lambda: RMSNorm(cfg.d_model, cfg.dtype, cfg.param_dtype, device)
-        self.norm_attn = norm()
+        self.norm_attn = _norm(cfg, device)
         self.attn = Attention(cfg, device)
-        self.norm_mlp = norm()
+        self.norm_mlp = _norm(cfg, device)
         if cfg.n_experts > 0:
             self.moe = MoELayer(cfg, device)
         else:
@@ -380,12 +440,15 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embedder = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype,
                               cfg.param_dtype, device)
+        if not cfg.use_rope:
+            self.pos_embedder = Embed(cfg.max_seq_len, cfg.d_model,
+                                      cfg.dtype, cfg.param_dtype, device)
         self.layers: List[Block] = []
         for i in range(cfg.n_layers):
             block = Block(cfg, device)
             self.add_module(f"layer_{i}", block)
             self.layers.append(block)
-        self.norm_f = RMSNorm(cfg.d_model, cfg.dtype, cfg.param_dtype, device)
+        self.norm_f = _norm(cfg, device)
         self.lm_head = _proj(cfg, cfg.d_model, cfg.vocab_size, device)
         base = {id(p) for m in self.modules()
                 if isinstance(m, QuantDenseGeneral) for p in m.parameters()}
@@ -399,13 +462,16 @@ class Transformer(nn.Module):
         return self.embedder.embedding.device
 
     def forward(self, tokens: torch.Tensor, *,
+                mask: Optional[torch.Tensor] = None,
                 cache: Optional[Union[KVCache, PagedKVCache]] = None,
                 prefill: bool = False, decode: bool = False,
                 extend: bool = False,
                 seq_lengths: Optional[torch.Tensor] = None,
                 return_aux: bool = False):
-        """``prefill=True``: one causal forward over right-padded prompts
-        that fills ``cache``; ``seq_lengths`` [B] gives each row's true
+        """``mask``: the training forward's key mask, broadcastable to
+        [B, 1, T, S], nonzero = attend (a suffix padding mask under
+        ``suffix_padding_mask``). ``prefill=True``: one causal forward over
+        right-padded prompts that fills ``cache``; ``seq_lengths`` [B] gives each row's true
         length, which becomes its cache index (default T). ``decode=True``:
         ``tokens`` is [B, 1], the newest token of each row, placed at the
         row's cache index; the index then advances by one. ``extend=True``:
@@ -425,13 +491,19 @@ class Transformer(nn.Module):
         if prefill + decode + extend > 1:
             raise ValueError("prefill, decode and extend are mutually "
                              "exclusive")
-        if (prefill or decode or extend) and cache is None:
-            raise ValueError("prefill, decode and extend need a KV cache "
-                             "(init_cache)")
         cfg = self.cfg
+        if prefill or decode or extend:
+            if not cfg.causal:
+                raise ValueError("decode requires a causal model")
+            if not cfg.use_rope:
+                # Learned positions would need the cache index here.
+                raise NotImplementedError("decode requires use_rope=True")
+            if cache is None:
+                raise ValueError("prefill, decode and extend need a KV cache "
+                                 "(init_cache)")
         B, T = tokens.shape
         x = self.embedder(tokens)
-        kw = {}
+        kw = {} if mask is None else {"mask": mask}
         if decode and T != 1:
             raise ValueError(f"decode feeds one token at a time, got T={T}")
         steps = torch.arange(T, device=x.device, dtype=torch.int32)
@@ -474,7 +546,11 @@ class Transformer(nn.Module):
             positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
             if prefill:
                 kw = dict(mode="prefill")
-        sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        if cfg.use_rope:
+            sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        else:
+            sin = cos = None
+            x = x + self.pos_embedder(positions)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         aux = None
         for i, block in enumerate(self.layers):
@@ -483,7 +559,8 @@ class Transformer(nn.Module):
             elif cache is not None:
                 kw["kv"] = (cache.k[i], cache.v[i])
             if remat:
-                x, a = checkpoint(block, x, sin, cos, use_reentrant=False)
+                x, a = checkpoint(block, x, sin, cos, use_reentrant=False,
+                                  **kw)
             else:
                 x, a = block(x, sin, cos, **kw)
             if a is not None and return_aux:
@@ -505,14 +582,6 @@ class Transformer(nn.Module):
         return logits, aux
 
 
-def leaf_generator(seed: int, name: str, device) -> torch.Generator:
-    """A generator for one named tensor: ``seed`` and the crc32 of the name,
-    so every tensor's values are fixed by the seed alone, in any order."""
-    g = torch.Generator(device=device)
-    g.manual_seed((seed << 32) | zlib.crc32(name.encode()))
-    return g
-
-
 def _init_lora(name: str, t: torch.Tensor, gen: torch.Generator) -> bool:
     """Fill a LoRA adapter's tensor as flax's initializers do (``lora_a``
     normal(0.02), ``lora_b`` zeros); False for any other tensor."""
@@ -528,7 +597,7 @@ def _init_lora(name: str, t: torch.Tensor, gen: torch.Generator) -> bool:
 @torch.no_grad()
 def random_params(model: Transformer, seed: int = 0) -> Transformer:
     """Fill a float model in place from ``seed``: kernels and the embedding
-    table normal(0, 0.02), norm scales one, LoRA adapters as
+    tables normal(0, 0.02), norm scales one and biases zero, LoRA adapters as
     :func:`init_params` fills them."""
     for name, t in model.state_dict().items():
         if _init_lora(name, t, leaf_generator(seed, name, t.device)):
@@ -536,7 +605,7 @@ def random_params(model: Transformer, seed: int = 0) -> Transformer:
         if t.ndim >= 2:
             t.normal_(0.0, 0.02, generator=leaf_generator(seed, name, t.device))
         else:
-            t.fill_(1.0)
+            t.fill_(0.0 if name.endswith(".bias") else 1.0)
     return model
 
 
@@ -548,7 +617,8 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
     fan_in the contracted dims: ``[I, O]`` here, as flax's DenseGeneral
     flattens them; an expert stack ``[E, I, O]`` contracts I), the MoE
     router normal(0.02), the embedding table ``variance_scaling(1, "fan_in",
-    "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)), norm scales 1,
+    "normal", out_axis=0)`` (normal, std 1 / sqrt(d_model)) and the learned
+    positions' likewise, norm scales 1 and LayerNorm biases 0,
     LoRA's ``lora_a`` normal(0.02) and ``lora_b`` zeros; an int8 base as
     flax's initializers give it, ``kernel_q`` zeros and ``scale`` ones
     (a QLoRA run from scratch trains over that zero base, as the
@@ -566,6 +636,8 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
             t.normal_(0.0, 0.02, generator=gen)
         elif name.endswith("_scale"):  # int8 experts' scales
             t.fill_(1.0)
+        elif name.endswith(".bias"):  # LayerNorm
+            t.zero_()
         elif t.ndim >= 2:
             # 0.8796...: the std of a unit normal truncated to [-2, 2].
             # Experts [E, I, O] contract their middle dim.

@@ -46,18 +46,22 @@ from serverless_learn_tpu_torch.training.train_step import (Trainer,
                                                             build_trainer)
 from serverless_learn_tpu_torch.utils.metrics import (H100_BF16_PEAK,
                                                       ThroughputMeter,
+                                                      conv_train_flops,
                                                       lm_train_flops, log_json)
 
 
 def make_source(config: ExperimentConfig, trainer: Trainer,
                 dataset: Optional[str] = None, seed: Optional[int] = None,
-                dp_rank: int = 0, dp_size: int = 1, start_step: int = 0):
+                dp_rank: int = 0, dp_size: int = 1, start_step: int = 0,
+                train: bool = True):
     """The batch source of a config, as the reference's ``make_source`` on
     one process. With ``data.shard_server_addr`` it streams ``dataset``
     (default ``data.dataset``) from the shard server, the shards of stripe
     ``dp_rank`` of ``dp_size`` (the elastic trainer passes its rank in the
     live membership), bridged to the model's inputs
-    (``data/transforms.py``); else synthetic batches from the bundle's
+    (``data/transforms.py``: images converted, and with ``data.augment``
+    cropped and flipped when ``train``; token rows masked at
+    ``data.mask_rate`` for MLM); else synthetic batches from the bundle's
     ``make_batch``. ``start_step`` is folded into the seed (``seed +
     100_003 * start_step``): a source rebuilt at a resume does not replay
     the batches the restored model trained on. Both packages' sources give
@@ -71,8 +75,12 @@ def make_source(config: ExperimentConfig, trainer: Trainer,
             config.train.batch_size, seed=seed, dp_rank=dp_rank,
             dp_size=dp_size)
         try:
-            fn = auto_transform(source.meta.fields, bundle.input_names,
-                                bundle.task)
+            fn = auto_transform(
+                source.meta.fields,
+                bundle.input_spec(config.data, config.train.batch_size),
+                task=bundle.task, train=train, seed=seed + dp_rank,
+                augment=config.data.augment, mask_rate=config.data.mask_rate,
+                vocab_size=getattr(bundle.cfg, "vocab_size", None))
         except Exception:
             source.close()
             raise
@@ -91,10 +99,10 @@ def make_eval_source(config: ExperimentConfig, trainer: Trainer):
     """The held-out source of eval passes: ``data.eval_dataset`` from the
     shard server when published, else the training source re-seeded at
     ``train.seed + 995_801``, as the reference's, so both packages eval on
-    the same batches."""
+    the same batches. Eval sources convert images but never augment."""
     return make_source(config, trainer,
                        dataset=config.data.eval_dataset or None,
-                       seed=config.train.seed + 995_801)
+                       seed=config.train.seed + 995_801, train=False)
 
 
 def run_eval(config: ExperimentConfig, trainer: Trainer, state,
@@ -127,17 +135,24 @@ def run_eval(config: ExperimentConfig, trainer: Trainer, state,
 
 
 def step_flops(config: ExperimentConfig, trainer: Trainer, state) -> float:
-    """Model FLOPs of one step; frozen parameters count 4 a token, trained
-    ones 6 (``utils/metrics.py``). Every parameter but the embedding
-    counts: an int8 base's ``kernel_q`` weights are frozen parameters, and
-    their per-column scales count as the norm scales do."""
-    cfg = trainer.bundle.cfg
+    """Model FLOPs of one step (``utils/metrics.py``). A transformer's:
+    frozen parameters count 4 a token, trained ones 6, every parameter but
+    the embedding tables (an int8 base's ``kernel_q`` weights are frozen
+    parameters, and their per-column scales count as the norm scales do),
+    and attention by its mask. An image model's: 3 x 2 x the multiply-adds
+    of its convolutions and dense layers a sample."""
+    bundle = trainer.bundle
+    if bundle.macs is not None:
+        return conv_train_flops(bundle.macs(), config.train.batch_size)
+    cfg = bundle.cfg
     params = list(state.model.parameters())
-    n_trainable = (None if trainer.bundle.trainable_mask is None
+    n_trainable = (None if bundle.trainable_mask is None
                    else sum(p.numel() for p in params if p.requires_grad))
-    return lm_train_flops(sum(p.numel() for p in params), cfg.vocab_size,
-                          cfg.d_model, cfg.n_layers, config.train.batch_size,
-                          config.data.seq_len, n_trainable)
+    positions = 0 if cfg.use_rope else cfg.max_seq_len * cfg.d_model
+    return lm_train_flops(sum(p.numel() for p in params) - positions,
+                          cfg.vocab_size, cfg.d_model, cfg.n_layers,
+                          config.train.batch_size, config.data.seq_len,
+                          n_trainable, causal=cfg.causal)
 
 
 def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
@@ -173,7 +188,8 @@ def run_training(config: ExperimentConfig, trainer: Optional[Trainer] = None,
         batch_size=config.train.batch_size,
         flops_per_step=step_flops(config, trainer, state),
         peak_flops=H100_BF16_PEAK if trainer.device.type == "cuda" else None,
-        tokens_per_sample=config.data.seq_len)
+        tokens_per_sample=(config.data.seq_len
+                           if trainer.bundle.task in ("lm", "mlm") else 0))
     reg = registry or get_registry()
     metrics_of = {
         "steps": reg.counter("slt_train_steps_total", "optimizer steps run"),

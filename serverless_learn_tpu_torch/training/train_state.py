@@ -11,6 +11,9 @@ card, which is what donation buys the reference.
 gives the reference's ``TrainState`` (``{"step", "params", "opt_state",
 "model_state"}``), over the live tensors: a checkpoint writes it, and a
 restore copies into it leaf by leaf, in place (``training/checkpoint.py``).
+The reference's ``model_state`` (BatchNorm's running statistics, flax's
+``batch_stats``) is the model's buffers, which its training forward moves
+in place.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from serverless_learn_tpu_torch.utils.serialization import Struct
 @dataclass
 class TrainState:
     step: int  # optimizer steps taken
-    model: nn.Module  # parameters live here
+    model: nn.Module  # parameters and running statistics live here
     opt_state: Dict[str, Any]  # the optimizer's count and moments
 
 
@@ -38,12 +41,14 @@ def state_tree(state: TrainState, optimizer, cfg) -> Struct:
     ``step`` a 0-d int32 tensor, ``params`` the flax tree of the model's
     parameters and ``opt_state`` the optax layout of ``optimizer``'s state
     (``Optimizer.state_tree``), both views of the live tensors in flax's
-    shapes (``bridge.to_flax``), and ``model_state`` {} (the port's models
-    keep no non-trainable collections). ``params`` holds every parameter,
-    an int8 base's ``kernel_q`` and ``scale`` among them (QLoRA), as the
-    reference's tree does. ``cfg`` is the model's ``TransformerConfig``."""
+    shapes (``bridge.to_flax``), and ``model_state`` ``{"batch_stats":
+    ...}`` over the model's buffers, {} for a model without any.
+    ``params`` holds every parameter, an int8 base's ``kernel_q`` and
+    ``scale`` among them (QLoRA), as the reference's tree does. ``cfg`` is
+    the model's config (``bridge.to_flax`` reads a transformer's)."""
     named = dict(state.model.named_parameters())
     trainable = [n for n, p in named.items() if p.requires_grad]
+    buffers = dict(state.model.named_buffers())
 
     def nest(tensors, as_params=True):
         by_name = dict(zip(trainable, tensors))
@@ -53,7 +58,8 @@ def state_tree(state: TrainState, optimizer, cfg) -> Struct:
                   params=to_flax({n: p.detach() for n, p in named.items()},
                                  cfg),
                   opt_state=optimizer.state_tree(state.opt_state, nest),
-                  model_state={})
+                  model_state=({"batch_stats": to_flax(buffers, cfg)}
+                               if buffers else {}))
 
 
 def load_tree(state: TrainState, tree: Struct, optimizer) -> TrainState:

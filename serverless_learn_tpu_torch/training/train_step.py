@@ -27,6 +27,15 @@ it, the updated parameters, all read on the card), and
 at that step, after the backward and before the global norm and the
 clipping, where the reference's step does (``training/audit.inject_nan``).
 Neither changes what the step computes otherwise.
+
+The model comes from the bundle (``ModelBundle.build``), so the step runs
+every family: a model with running statistics (ResNet's BatchNorm) moves
+them in each training forward, one microbatch after another under gradient
+accumulation, as the reference threads ``model_state`` through its scan;
+:meth:`Trainer.eval_step` runs the bundle's ``eval_loss_fn`` (the running
+statistics) where it has one. The loss gets the step's seed as ``rng``
+(``train.seed``, the step and the microbatch), which only a device-side
+augmentation reads.
 """
 
 from __future__ import annotations
@@ -37,13 +46,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from serverless_learn_tpu_torch.bridge import flax_shape
 from serverless_learn_tpu_torch.config import ExperimentConfig
 from serverless_learn_tpu_torch.data.datasets import to_device
 from serverless_learn_tpu_torch.models.registry import (ModelBundle, get_model,
                                                         resolve_device)
-from serverless_learn_tpu_torch.models.transformer import (Transformer,
-                                                           init_params)
 from serverless_learn_tpu_torch.telemetry.numerics import StepNumerics
 from serverless_learn_tpu_torch.training.audit import inject_nan
 from serverless_learn_tpu_torch.training.optimizer import (
@@ -71,21 +77,28 @@ class Trainer:
     def init(self, seed: Optional[int] = None,
              params: Optional[Dict[str, torch.Tensor]] = None,
              fill: Optional[Callable[..., Any]] = None) -> TrainState:
-        """A fresh state: weights from ``seed`` (``init_params``), from the
-        state dict ``params`` (for example a flax tree through
-        ``bridge.from_jax_params``), or written into the trainer's own
-        model by ``fill(model, seed)`` (for example
+        """A fresh state: weights from ``seed`` (the bundle's ``init``),
+        from the state dict ``params`` (for example a flax tree through
+        ``bridge.from_jax_params``, or ``bridge.from_jax_variables`` with
+        its ``batch_stats``; running statistics it leaves out keep the
+        values they are built with, mean 0 and variance 1), or written
+        into the trainer's own model by ``fill(model, seed)`` (for example
         ``inference.quantize.random_quantized_params``: one int8 base on
         the card, never a second state beside it); and a zero optimizer
         state over the trainable parameters."""
-        model = Transformer(self.bundle.cfg, device=self.device,
-                            trainable=True)
+        model = self.bundle.build(self.device, trainable=True)
         seed = self.config.train.seed if seed is None else seed
         if params is not None:
             with torch.no_grad():
-                model.load_state_dict(params)
+                missing, unexpected = model.load_state_dict(params,
+                                                            strict=False)
+            buffers = {n for n, _ in model.named_buffers()}
+            if unexpected or set(missing) - buffers:
+                raise RuntimeError(f"params do not fit {self.config.model}: "
+                               f"missing {sorted(set(missing) - buffers)}, "
+                               f"unexpected {sorted(unexpected)}")
         else:
-            (fill or init_params)(model, seed)
+            (fill or self.bundle.init)(model, seed)
         if self.bundle.trainable_mask is not None:
             set_trainable(model, self.bundle.trainable_mask(
                 name for name, _ in model.named_parameters()))
@@ -100,8 +113,7 @@ class Trainer:
                    if p.requires_grad]
         return self.optimizer.init(
             [p for _, p in trained],
-            shapes=[flax_shape(n, p.shape, self.bundle.cfg)
-                    for n, p in trained])
+            shapes=[self.bundle.flax_shape(n, p.shape) for n, p in trained])
 
     def place(self, host_batch: Dict[str, np.ndarray]
               ) -> Dict[str, torch.Tensor]:
@@ -115,12 +127,14 @@ class Trainer:
         for p in params:
             p.grad = None
         if accum == 1:
-            loss, aux = self.bundle.loss_fn(model, batch)
+            loss, aux = self.bundle.loss_fn(model, batch,
+                                            rng=self._rng(state.step, 0))
             loss.backward()
             loss, metrics = loss.detach(), {k: v.detach() for k, v in
                                             aux["metrics"].items()}
         else:
-            loss, metrics = self._accumulate(model, params, batch, accum)
+            loss, metrics = self._accumulate(model, params, batch, accum,
+                                             state.step)
         grads = [p.grad for p in params]
         ncfg = self.config.numerics
         if ncfg.inject_nan_step:
@@ -165,11 +179,18 @@ class Trainer:
             self._numerics = cached
         return cached[1]
 
-    def _accumulate(self, model, params, batch, accum: int):
+    def _rng(self, step: int, micro: int) -> int:
+        """The seed a loss gets at ``step``'s microbatch ``micro`` (the
+        reference folds the step and the microbatch into its PRNG)."""
+        return ((self.config.train.seed & 0xFFFFFFFF) << 31
+                | (step & 0xFFFFFF) << 7 | micro & 0x7F)
+
+    def _accumulate(self, model, params, batch, accum: int, step: int):
         """Backward over ``accum`` microbatches (consecutive row blocks),
         each gradient weighted by its ``loss_weight`` (1 when the loss does
         not report one), then divided by the summed weight: the
-        whole-batch gradient for any normalisation."""
+        whole-batch gradient for any normalisation. Running statistics
+        move once a microbatch, in order."""
         b = next(iter(batch.values())).shape[0]
         if b % accum:
             raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
@@ -177,7 +198,8 @@ class Trainer:
         for m in range(accum):
             rows = slice(m * b // accum, (m + 1) * b // accum)
             loss, aux = self.bundle.loss_fn(
-                model, {k: v[rows] for k, v in batch.items()})
+                model, {k: v[rows] for k, v in batch.items()},
+                rng=self._rng(step, m))
             w = aux.get("loss_weight", 1.0)
             (loss * w).backward()
             w_sum = w_sum + w
@@ -202,8 +224,11 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, Any]:
-        """Forward-only metrics on one batch; the state is not touched."""
-        loss, aux = self.bundle.loss_fn(state.model, batch)
+        """Forward-only metrics on one batch through the bundle's
+        inference-mode loss (running statistics); the state is not
+        touched."""
+        loss, aux = (self.bundle.eval_loss_fn or self.bundle.loss_fn)(
+            state.model, batch)
         return dict(aux["metrics"], loss=loss)
 
 

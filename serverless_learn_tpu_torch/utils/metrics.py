@@ -1,22 +1,32 @@
 """Step timing and throughput, the port of ``serverless_learn_tpu/utils/
-metrics.py``, with an analytic FLOP count in place of XLA's compiled one.
+metrics.py``, with an analytic FLOP count in place of XLA's compiled one
+(``utils/flops.py`` there reads XLA's cost analysis, which has no PyTorch
+counterpart).
 
-Model FLOPs of one causal-LM training step, 2 per multiply-add:
+Model FLOPs of one transformer training step, 2 per multiply-add:
 
-    6 * tokens * P_train  +  4 * tokens * P_frozen  +  6 * L * B * T^2 * d
+    6 * tokens * P_train  +  4 * tokens * P_frozen  +  c * L * B * T^2 * d
 
 ``tokens`` = B * T. A trained parameter costs 6 a token (the forward, the
 input gradient and its weight gradient); a frozen one 4 (the forward and
 the input gradient: its weight gradient is never computed, as for LoRA's
 frozen base, and QLoRA's int8 one, whose int8 weights count as frozen
 parameters). ``P_train + P_frozen`` is every parameter but the V * d
-embedding table (a lookup, no products; ``lm_head`` is counted). The last
-term is the causal attention products (q k^T and p v, 4 * B * T^2 * d a
-layer forward, halved by the causal mask, times 3 for the forward, dq and
-dk/dv, which are all computed whatever trains). Remat's recomputed forward
-is not counted: these are model FLOPs, the work the step needs, not what
-the card runs. MFU divides the achieved rate by the card's dense bf16 peak,
-989e12 FLOP/s for an H100 SXM (NVIDIA's data sheet).
+embedding table and BERT's learned positions (lookups, no products;
+``lm_head`` is counted). The last term is the attention products (q k^T
+and p v, 4 * B * T^2 * d a layer forward, times 3 for the forward, dq and
+dk/dv, which are all computed whatever trains): c = 6 for a causal model,
+whose mask halves them, and 12 for a bidirectional one (BERT; padding is
+counted, as the tokens are). Remat's recomputed forward is not counted:
+these are model FLOPs, the work the step needs, not what the card runs.
+
+An image model's step (ResNet, the MLP): 3 x 2 x the multiply-adds of
+every convolution and dense layer a sample, times the batch (the forward,
+the input gradient and the weight gradient); norms, pooling and the loss
+are not counted.
+
+MFU divides the achieved rate by the card's dense bf16 peak, 989e12 FLOP/s
+for an H100 SXM (NVIDIA's data sheet).
 """
 
 from __future__ import annotations
@@ -32,15 +42,24 @@ H100_BF16_PEAK = 989e12
 
 def lm_train_flops(n_params: int, vocab: int, d_model: int, n_layers: int,
                    batch: int, seq: int,
-                   n_trainable: Optional[int] = None) -> float:
-    """The analytic FLOPs of one causal-LM training step (module doc).
-    ``n_trainable``: the trained parameters where only part of the model
-    trains (the embedding table not among them); None: all of them."""
+                   n_trainable: Optional[int] = None,
+                   causal: bool = True) -> float:
+    """The analytic FLOPs of one transformer training step (module doc).
+    ``n_params`` holds no lookup table but the token embedding, which is
+    taken out here. ``n_trainable``: the trained parameters where only
+    part of the model trains (the embedding table not among them); None:
+    all of them."""
     tokens = batch * seq
     dense = n_params - vocab * d_model
     trained = dense if n_trainable is None else n_trainable
+    attn = 6.0 if causal else 12.0
     return (6.0 * tokens * trained + 4.0 * tokens * (dense - trained)
-            + 6.0 * n_layers * batch * seq * seq * d_model)
+            + attn * n_layers * batch * seq * seq * d_model)
+
+
+def conv_train_flops(macs_per_sample: int, batch: int) -> float:
+    """The analytic FLOPs of one image-model training step (module doc)."""
+    return 6.0 * macs_per_sample * batch
 
 
 @dataclass

@@ -48,6 +48,7 @@ from serverless_learn_tpu_torch.data import raw as praw
 from serverless_learn_tpu_torch.data import shard_client as psc
 from serverless_learn_tpu_torch.data import tokenizer as ptok
 from serverless_learn_tpu_torch.data.transforms import auto_transform
+from serverless_learn_tpu_torch.models.registry import Spec
 from serverless_learn_tpu_torch.training import checkpoint as pck
 from serverless_learn_tpu_torch.training.loop import make_source
 from serverless_learn_tpu_torch.training.train_step import build_trainer
@@ -206,19 +207,28 @@ def test_a_lost_shard_server_raises_out_of_the_source(tmp_path):
 
 def test_auto_transform_bridges_lm_and_refuses_the_rest():
     spec = lambda name, dt, shape: psc.FieldSpec(name, dt, shape)  # noqa
-    assert auto_transform([spec("tokens", "int32", (8,))], ("tokens",),
-                          "lm") is None
-    fn = auto_transform([spec("input_ids", "int32", (8,))], ("tokens",),
-                        "lm")
+    lm = {"tokens": Spec((1, 8), np.dtype(np.int32))}
+    assert auto_transform([spec("tokens", "int32", (8,))], lm, "lm",
+                          train=True) is None
+    fn = auto_transform([spec("input_ids", "int32", (8,))], lm, "lm",
+                        train=True)
     out = fn({"input_ids": np.arange(8, dtype=np.int64)[None]})
     assert list(out) == ["tokens"] and out["tokens"].dtype == np.int32
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        auto_transform([spec("input_ids", "int32", (8,))], ("tokens",), "mlm")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        auto_transform([spec("image", "uint8", (4, 4, 3))], ("image",),
-                       "classification")
+    # The MLM and image bridges run now (tests/test_torch_image_data.py
+    # holds them to the reference's); the MLM one needs the vocabulary.
+    with pytest.raises(ValueError, match="vocab size"):
+        auto_transform([spec("input_ids", "int32", (8,))],
+                       {"tokens": lm["tokens"], "labels": lm["tokens"]},
+                       "mlm", train=True)
+    image = {"image": Spec((1, 4, 4, 3), np.dtype(np.float32)),
+             "label": Spec((1,), np.dtype(np.int32))}
+    fn = auto_transform([spec("image", "uint8", (4, 4, 3)),
+                         spec("label", "int32", ())], image,
+                        "classification", train=True)
+    assert fn({"image": np.full((1, 4, 4, 3), 255, np.uint8),
+               "label": np.zeros(1, np.int32)})["image"].dtype == np.float32
     with pytest.raises(ValueError, match="no transform bridges"):
-        auto_transform([spec("x", "int32", (8,))], ("tokens",), "lm")
+        auto_transform([spec("x", "int32", (8,))], lm, "lm", train=True)
 
 
 # -- tokenizer and corpora ---------------------------------------------------
@@ -424,7 +434,8 @@ def test_train_and_eval_stream_a_published_text_corpus(shard_server,
                    "fields": ["tokens"]}
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["publish", "--shard-server", shard_server.addr,
-                  "--dataset", "m", "--format", "mnist", "--path", "x"])
+                  "--dataset", "m", "--format", "imagefolder", "--path",
+                  "x"])
 
 
 def test_a_killed_shard_server_fails_the_train_run(request, tmp_path):

@@ -176,8 +176,6 @@ def test_unported_options_raise():
 # run.
 UNPORTED_VALUES = {
     ("train", "zero_stage"): 1, ("train", "donate_state"): False,
-    ("data", "augment"): True, ("data", "mask_rate"): 0.3,
-    ("data", "learnable"): True,
     ("membership", "mode"): "gossip", ("elastic", "remesh_wire_dtype"): "int8",
 }
 
